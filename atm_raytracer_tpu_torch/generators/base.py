@@ -1,0 +1,40 @@
+"""Hit buffers: the dense fixed-K replacement for Vec<TracePoint>.
+
+Counterpart of ``atm_raytracer_tpu/generators/base.py`` (reference
+generators/mod.rs:14-80): each pixel's variable-length trace points become
+K fixed slots with a validity mask, sorted ascending by march position.
+``kind``: 0 = terrain, 1 = RGBA object; ``rgba[..., 3]`` holds the alpha.
+Positions are observer-relative degrees.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+
+@dataclasses.dataclass
+class HitBuffer:
+    valid: torch.Tensor  # [H, W, K] bool
+    key: torch.Tensor  # [H, W, K] f32 march sort position (k + prop)
+    dlat: torch.Tensor  # [H, W, K] degrees from observer
+    dlon: torch.Tensor
+    distance: torch.Tensor  # [H, W, K] meters (x at hit)
+    elevation: torch.Tensor  # terrain elevation at the hit
+    path_length: torch.Tensor
+    normal: torch.Tensor  # [H, W, K, 3]
+    kind: torch.Tensor  # [H, W, K] int32: 0 terrain / 1 rgba
+    rgba: torch.Tensor  # [H, W, K, 4]
+
+
+@dataclasses.dataclass
+class RenderResult:
+    """One rendered frame: host image + device hit buffers + angle grids."""
+
+    image: np.ndarray  # [H, W, 3] uint8
+    hits: HitBuffer
+    elevation_deg: np.ndarray  # [H]
+    azimuth_deg: np.ndarray  # [W], wrapped to [0, 360)
+    observer: tuple  # (lat0, lon0, alt_abs)

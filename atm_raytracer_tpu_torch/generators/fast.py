@@ -1,0 +1,242 @@
+"""Fast generator: the separable path × terrain program (PyTorch).
+
+Counterpart of ``atm_raytracer_tpu/generators/fast.py`` (reference
+src/generator/generators/fast.rs): pixel (x, y) maps to azimuth(x) and
+elevation(y) independently (fast.rs:111-125), so one path march per row and
+one terrain scan per column suffice (fast.rs:27-44), then a W×H combine
+(fast.rs:52-92):
+
+  1. march all H row-rays            → ray_h [H, N], path_len [H, N]   (K2)
+  2. geodesic + terrain per column   → terr [W, N], normals [W, N, 3]
+  3. crossing combine                → segments [H, W, K]              (K1)
+  4. field gathers at the segments   → HitBuffer
+  5. coloring + compositing          → u8 image
+
+Every stage runs on the device of the tensors it is given; the host packs
+terrain tiles and builds the refraction table.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..config import Params
+from ..models import camera
+from ..models.earth import EarthModel
+from ..ops import combine
+from ..ops.composite import composite
+from ..physics.ray import EarthShape, RefractionTable, march_coarse, march_rays
+from ..terrain.sample import sample_terrain_data
+from ..terrain.store import Terrain, TerrainPack
+from .base import HitBuffer, RenderResult
+
+
+def terrain_bbox(params: Params) -> Tuple[Tuple[float, float], Tuple[float, float]]:
+    """Lat/lon box the render can touch: observer ± max_distance + margin."""
+    lat0 = params.view.position.latitude
+    lon0 = params.view.position.longitude
+    # conservative meters-per-degree lower bound 90 km (covers flat models'
+    # 111.1 km and high-latitude longitude shrink)
+    d_deg = params.view.frame.max_distance / 90_000.0 + 0.1
+    # longitude shrink at the MOST POLEWARD latitude the render can reach;
+    # past ~89.4° cover all longitudes
+    lat_pole = min(abs(lat0) + d_deg, 90.0)
+    coslat = max(0.01, math.cos(math.radians(lat_pole)))
+    d_lon = min(d_deg / coslat, 180.0)
+    return (lat0 - d_deg, lat0 + d_deg), (lon0 - d_lon, lon0 + d_lon)
+
+
+_table_cache: dict = {}
+
+
+def build_refraction_table(params: Params, alt0: float, device) -> RefractionTable:
+    """The l(h) table sized to every altitude the march can visit.
+
+    Memoized per (atmosphere content, wavelength, range, device), at most
+    16 tables: repeat renders of one configuration skip the host f64
+    profile evaluation and the upload.
+    """
+    max_elev_deg = abs(params.view.frame.tilt) + params.view.frame.fov  # slack
+    top = alt0 + math.tan(math.radians(min(max_elev_deg, 89.0))) * (
+        params.view.frame.max_distance
+    )
+    h_hi = float(min(max(20_000.0, top * 1.1 + 1000.0), 90_000.0))
+    key = (params.atmosphere_def, float(params.wavelength), h_hi, str(device))
+    cached = _table_cache.get(key)
+    if cached is None:
+        cached = RefractionTable.build(
+            params.atmosphere, params.wavelength, h_lo=-2000.0, h_hi=h_hi,
+            dh=1.0, device=device,
+        )
+        while len(_table_cache) > 16:  # evict the oldest
+            _table_cache.pop(next(iter(_table_cache)))
+        _table_cache[key] = cached
+    return cached
+
+
+def march_rows(table: Optional[RefractionTable], elev_deg: torch.Tensor, alt0,
+               *, shape: EarthShape, straight: bool, step: float, n_terr: int,
+               plain: bool = False):
+    """Stage 1, the path cache (gen_path_cache, utils.rs:136-174): ray
+    altitudes and path lengths [H, n_terr] at x = k*step; coarse RK4 with
+    Hermite dense output (``march_coarse`` steps per node)."""
+    return march_rays(
+        alt0, torch.deg2rad(elev_deg.to(torch.float32)), step, n_terr - 1,
+        shape, table, straight, coarse=march_coarse(step), plain=plain,
+    )
+
+
+def terrain_columns(pack: TerrainPack, model: EarthModel, az_deg: torch.Tensor,
+                    lat0: float, lon0: float, step: float, n_terr: int):
+    """Stage 2, the terrain cache (utils.rs:176-199): elevation [W, n_terr]
+    and unit normal [W, n_terr, 3] along each column's geodesic."""
+    dists = (torch.arange(n_terr, dtype=torch.float32, device=az_deg.device)
+             * float(np.float32(step)))
+    dlat, dlon = model.geodesic_delta(
+        lat0, lon0, az_deg.to(torch.float32)[:, None], dists[None, :]
+    )
+    return sample_terrain_data(pack, model, dlat, dlon, lat0, lon0)
+
+
+def separable_hits(pack: TerrainPack, table: Optional[RefractionTable],
+                   elev_deg: torch.Tensor, az_deg: torch.Tensor, alt0, *,
+                   model: EarthModel, shape: EarthShape, straight: bool,
+                   step: float, n_terr: int, max_hits: int, lat0: float,
+                   lon0: float, terrain_alpha: float,
+                   plain: bool = False) -> HitBuffer:
+    """Hits on the separable (elevation-row × azimuth-column) grid.
+
+    ``plain`` runs the march and the combine as their plain PyTorch
+    versions on whatever device the tensors are on (the kernels' oracle on
+    the card); otherwise CUDA tensors go through the kernels.
+    """
+    ray_h, path_len = march_rows(table, elev_deg, alt0, shape=shape,
+                                 straight=straight, step=step, n_terr=n_terr,
+                                 plain=plain)
+    terr_elev, terr_normal = terrain_columns(pack, model, az_deg, lat0, lon0,
+                                             step, n_terr)
+
+    # 3. crossing segments [H, W, K]; the fractional hit position is a
+    # per-pixel quantity reconstructed below
+    n_seg = n_terr - 1
+    crossing = (combine.terrain_crossing_segments_plain if plain
+                else combine.terrain_crossing_segments)
+    segs = crossing(ray_h, terr_elev, n_seg, max_hits)
+    valid = segs < n_seg
+    ks = torch.where(valid, segs, 0)
+
+    # 4. field gathers (TracingState::interpolate, utils.rs:108-133): both
+    # segment ends of the terrain (elevation + normal) and ray (altitude +
+    # path length) stacks; the hit's dlat/dlon re-derive per pixel from
+    # (column azimuth, key·step) through the same geodesic
+    stacked = torch.cat([terr_elev[..., None], terr_normal], dim=-1)  # [W, N, 4]
+    c_lo, c_hi = combine.gather_column_pairs(stacked, ks)  # [H, W, K, 4] ×2
+    ray_stack = torch.stack([ray_h, path_len], dim=-1)  # [H, N, 2]
+    r_lo, r_hi = combine.gather_ray_pairs(ray_stack, ks)
+    d1 = r_lo[..., 0] - c_lo[..., 0]
+    d2 = r_hi[..., 0] - c_hi[..., 0]
+    denom = d1 - d2
+    prop = d1 / torch.where(denom == 0.0, torch.ones_like(denom), denom)  # utils.rs:232
+    keys = torch.where(valid, ks.to(torch.float32) + prop,
+                       torch.full_like(prop, combine.NO_HIT))
+    safe_keys = torch.where(valid, keys, torch.zeros_like(keys))
+
+    hit_stack = c_lo * (1.0 - prop[..., None]) + c_hi * prop[..., None]
+    hit_plen = r_lo[..., 1] * (1.0 - prop) + r_hi[..., 1] * prop
+    hit_dist = safe_keys * float(np.float32(step))  # dist is linear in the key
+    hit_dlat, hit_dlon = model.geodesic_delta(
+        lat0, lon0, az_deg.to(torch.float32)[None, :, None], hit_dist
+    )
+
+    h_n, w_n = elev_deg.shape[0], az_deg.shape[0]
+    rgba = torch.zeros((h_n, w_n, max_hits, 4), dtype=torch.float32,
+                       device=keys.device)
+    rgba[..., 3] = float(terrain_alpha)
+    return HitBuffer(
+        valid=valid,
+        key=keys,
+        dlat=hit_dlat,
+        dlon=hit_dlon,
+        distance=hit_dist,
+        elevation=hit_stack[..., 0],
+        path_length=hit_plen,
+        normal=hit_stack[..., 1:4],
+        kind=torch.zeros((h_n, w_n, max_hits), dtype=torch.int32, device=keys.device),
+        rgba=rgba,
+    )
+
+
+def fast_core(pack: TerrainPack, table: Optional[RefractionTable],
+              elev_deg: torch.Tensor, az_deg: torch.Tensor, alt0, *,
+              model: EarthModel, shape: EarthShape, straight: bool, step: float,
+              n_terr: int, max_hits: int, lat0: float, lon0: float, coloring,
+              fog_distance: Optional[float], terrain_alpha: float,
+              plain: bool = False):
+    """The whole Fast pipeline on one device: (image [H, W, 3] u8, hits)."""
+    hits = separable_hits(
+        pack, table, elev_deg, az_deg, alt0, model=model, shape=shape,
+        straight=straight, step=step, n_terr=n_terr, max_hits=max_hits,
+        lat0=lat0, lon0=lon0, terrain_alpha=terrain_alpha, plain=plain,
+    )
+    image = composite(
+        coloring, fog_distance, hits.valid, hits.rgba[..., 3], hits.distance,
+        hits.elevation, hits.path_length, hits.normal, hits.kind,
+        hits.rgba[..., :3],
+    )
+    return image, hits
+
+
+def render_fast(params: Params, terrain: Terrain, device,
+                max_hits: Optional[int] = None, plain: bool = False) -> RenderResult:
+    """Full Fast-generator render from lowered Params (fast.rs:22-98) on
+    ``device``. The image comes back to the host; the hits stay on device."""
+    if params.objects:
+        raise NotImplementedError(
+            "scene objects are not ported yet (ROADMAP A9); remove "
+            "scene.objects or render with atm_raytracer_tpu"
+        )
+    device = torch.device(device)
+    out = params.output
+    frame = params.view.frame
+    pos = params.view.position
+    alt0 = pos.abs_altitude(terrain)
+
+    elev_deg = camera.fast_ray_elevations(out.width, out.height, frame.fov, frame.tilt)
+    az_deg = camera.fast_ray_azimuths(out.width, out.height, frame.fov, frame.direction)
+
+    lat_rng, lon_rng = terrain_bbox(params)
+    pack = terrain.pack(lat_rng, lon_rng, device)
+    table = build_refraction_table(params, alt0, device)
+    n_terr = int(math.ceil(frame.max_distance / params.simulation_step))
+    if max_hits is None:
+        max_hits = 1 if params.terrain_alpha >= 1.0 else 4
+
+    image, hits = fast_core(
+        pack, table,
+        torch.from_numpy(elev_deg.astype(np.float32)).to(device),
+        torch.from_numpy(az_deg.astype(np.float32)).to(device),
+        float(alt0),
+        model=params.model,
+        shape=params.model.to_shape(),
+        straight=params.straight_rays,
+        step=float(params.simulation_step),
+        n_terr=n_terr,
+        max_hits=int(max_hits),
+        lat0=float(pos.latitude),
+        lon0=float(pos.longitude),
+        coloring=params.coloring,
+        fog_distance=params.view.fog_distance,
+        terrain_alpha=float(params.terrain_alpha),
+        plain=plain,
+    )
+    return RenderResult(
+        image=image.cpu().numpy(),
+        hits=hits,
+        elevation_deg=elev_deg,
+        azimuth_deg=camera.wrap_azimuth_deg(az_deg),
+        observer=(pos.latitude, pos.longitude, alt0),
+    )

@@ -1,0 +1,43 @@
+"""Carry state from the JAX package into this one, as numpy arrays.
+
+The JAX package's objects cannot be imported here (that would import jax),
+so the caller hands over ``np.asarray`` of each field and these converters
+rebuild this package's counterparts on a torch device. Parity tests feed
+both packages the same refraction table and terrain mosaic this way.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .physics.ray import RefractionTable
+from .terrain.store import TerrainPack
+
+
+def table_from_arrays(h0, inv_dh, values, poly, device="cpu") -> RefractionTable:
+    """A ``RefractionTable`` from the JAX table's (h0, inv_dh, values, poly)."""
+    return RefractionTable.from_values(
+        np.asarray(values, np.float32), float(np.asarray(h0)),
+        float(np.asarray(inv_dh)), poly, device,
+    )
+
+
+def pack_from_arrays(tiles, rows_m1, cols_m1, lat_min: int, lon_min: int,
+                     n_rows: int, n_cols: int, device="cpu") -> TerrainPack:
+    """A plain ``TerrainPack`` from a [T, S, S] tile stack (int16 or f32)
+    and its per-slot (rows−1, cols−1) scales."""
+    tiles = np.asarray(tiles)
+    if tiles.dtype not in (np.int16, np.float32):
+        raise ValueError(f"tiles must be int16 or float32, got {tiles.dtype}")
+    if tiles.ndim != 3 or tiles.shape[0] != n_rows * n_cols:
+        raise ValueError(f"tiles must be [{n_rows * n_cols}, S, S], got {tiles.shape}")
+    return TerrainPack(
+        tiles=torch.tensor(tiles, device=device),
+        rows_m1=torch.tensor(np.asarray(rows_m1, np.float32), device=device),
+        cols_m1=torch.tensor(np.asarray(cols_m1, np.float32), device=device),
+        lat_min=int(lat_min),
+        lon_min=int(lon_min),
+        n_rows=int(n_rows),
+        n_cols=int(n_cols),
+    )

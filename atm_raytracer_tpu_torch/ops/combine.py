@@ -1,0 +1,216 @@
+"""Crossing-detection combine: ray altitudes × terrain elevations → hit segments.
+
+Counterpart of ``atm_raytracer_tpu/ops/combine.py``. The reference marches
+each pixel's ray with early exit (utils.rs:201-289): segment k crosses the
+terrain iff d1·d2 < 0 with d = ray_elev − terrain_elev at its two ends, and
+the hit lerps by prop = d1/(d1−d2) (utils.rs:220-240). The Fast generator's
+separability turns this into a rank-1 program: ray rows [H, N+1] × terrain
+columns [W, N_t] → the first K crossing SEGMENT INDICES per pixel [H, W, K].
+
+``terrain_crossing_segments`` is the H·W·N hot loop: on CUDA tensors it
+launches the kernel ``csrc/combine.cu`` (K1); on CPU tensors it runs the
+plain chunked PyTorch version ``terrain_crossing_segments_plain``.
+
+Path death (gen_path_cache stops one element after h < −1000,
+utils.rs:159-171): segment k of ray h participates iff no sample j < k of
+that ray is below −1000 m.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .. import _kernels
+from ..physics.ray import DEATH_ALTITUDE
+
+NO_HIT = float("inf")
+NO_HIT_SEG = 2**30  # integer sentinel (segment index form)
+
+
+def ray_alive_mask(ray_h: torch.Tensor) -> torch.Tensor:
+    """alive[h, k] = segment k of ray h is marched (no earlier death).
+
+    ray_h: [H, N+1]; returns [H, N] bool for segments k = 0..N-1.
+    """
+    dead = ray_h[:, :-1] < DEATH_ALTITUDE
+    prefix = torch.cumsum(dead.to(torch.int32), dim=1)
+    no_prior = torch.cat(
+        [torch.zeros_like(prefix[:, :1]), prefix[:, :-1]], dim=1
+    )
+    return no_prior == 0
+
+
+def ray_death_limit(ray_h: torch.Tensor, n_seg: int) -> torch.Tensor:
+    """[H] int32 bound: segments k < limit[h] are alive — the first sample
+    below DEATH_ALTITUDE plus one, or n_seg for a ray that never dies."""
+    dead = ray_h < DEATH_ALTITUDE
+    first = torch.argmax(dead.to(torch.uint8), dim=1)  # first max = first dead
+    limit = torch.where(dead.any(dim=1), first + 1, torch.full_like(first, n_seg))
+    return limit.clamp(max=n_seg).to(torch.int32)
+
+
+def k_smallest(cand: torch.Tensor, k: int) -> torch.Tensor:
+    """K smallest of cand[..., C], ascending, by K successive masked mins
+    (duplicate sentinels collapse to the sentinel, which is right here)."""
+    sentinel = NO_HIT if cand.is_floating_point() else NO_HIT_SEG
+    outs = []
+    cur = cand
+    for i in range(k):
+        m = cur.amin(dim=-1)
+        outs.append(m)
+        if i + 1 < k:
+            cur = torch.where(cur <= m[..., None], torch.full_like(cur, sentinel), cur)
+    return torch.stack(outs, dim=-1)
+
+
+def merge_sorted_k(a: torch.Tensor, b: torch.Tensor, k: int) -> torch.Tensor:
+    """K smallest of two ASCENDING [..., K] lists via a bitonic merge."""
+    kp = 1 << (k - 1).bit_length()  # pad K to a power of two
+    sentinel = NO_HIT if a.is_floating_point() else NO_HIT_SEG
+    if kp != k:
+        pad = a.new_full(a.shape[:-1] + (kp - k,), sentinel)
+        a = torch.cat([a, pad], dim=-1)
+        b = torch.cat([b, pad], dim=-1)
+    seq = torch.cat([a, torch.flip(b, dims=[-1])], dim=-1)  # bitonic
+    n = 2 * kp
+    span = kp
+    lead = seq.shape[:-1]
+    while span >= 1:
+        x = seq.reshape(lead + (n // (2 * span), 2, span))
+        lo = torch.minimum(x[..., 0, :], x[..., 1, :])
+        hi = torch.maximum(x[..., 0, :], x[..., 1, :])
+        seq = torch.stack([lo, hi], dim=-2).reshape(lead + (n,))
+        span //= 2
+    return seq[..., :k]
+
+
+def _check_combine_args(ray_h, terr_elev, n_seg, max_hits):
+    if ray_h.ndim != 2 or terr_elev.ndim != 2:
+        raise ValueError("ray_h must be [H, N+1] and terr_elev [W, N_t]")
+    if min(ray_h.shape[1], terr_elev.shape[1]) < n_seg + 1:
+        raise ValueError(
+            f"n_seg={n_seg} needs {n_seg + 1} samples per row; got ray "
+            f"{ray_h.shape[1]}, terrain {terr_elev.shape[1]}"
+        )
+    if not 1 <= max_hits <= 4:
+        raise ValueError(f"max_hits must be 1..4, got {max_hits}")
+    if ray_h.device != terr_elev.device:
+        raise ValueError("ray_h and terr_elev live on different devices")
+
+
+def terrain_crossing_segments_plain(ray_h: torch.Tensor, terr_elev: torch.Tensor,
+                                    n_seg: int, max_hits: int = 1,
+                                    chunk: int = 0) -> torch.Tensor:
+    """Plain PyTorch combine: the [H, W, C] sign-test cube one segment chunk
+    at a time, folded by an integer min (K = 1) or a sorted top-K merge.
+    ``chunk`` = 0 sizes chunks to ~2^25 cube elements."""
+    _check_combine_args(ray_h, terr_elev, n_seg, max_hits)
+    h_n, w_n = ray_h.shape[0], terr_elev.shape[0]
+    if chunk <= 0:
+        chunk = int(max(1, min(256, 2**25 // max(1, h_n * w_n))))
+    alive = ray_alive_mask(ray_h[:, : n_seg + 1])  # [H, n_seg]
+    keys = torch.full((h_n, w_n, max_hits), NO_HIT_SEG, dtype=torch.int32,
+                      device=ray_h.device)
+    for k0 in range(0, n_seg, chunk):
+        k1 = min(k0 + chunk, n_seg)
+        d1 = ray_h[:, None, k0:k1] - terr_elev[None, :, k0:k1]  # [H, W, C]
+        d2 = ray_h[:, None, k0 + 1:k1 + 1] - terr_elev[None, :, k0 + 1:k1 + 1]
+        crossing = (d1 * d2 < 0.0) & alive[:, None, k0:k1]
+        seg_idx = torch.arange(k0, k1, dtype=torch.int32, device=ray_h.device)
+        cand = torch.where(crossing, seg_idx, NO_HIT_SEG)
+        if max_hits == 1:
+            keys = torch.minimum(keys, cand.amin(dim=-1, keepdim=True))
+        else:
+            kk = min(max_hits, k1 - k0)
+            best = k_smallest(cand, kk)
+            if kk < max_hits:
+                best = torch.cat(
+                    [best, best.new_full(best.shape[:-1] + (max_hits - kk,),
+                                         NO_HIT_SEG)], dim=-1)
+            keys = merge_sorted_k(keys, best, max_hits)
+    return keys
+
+
+def terrain_crossing_segments(ray_h: torch.Tensor, terr_elev: torch.Tensor,
+                              n_seg: int, max_hits: int = 1) -> torch.Tensor:
+    """First ``max_hits`` terrain-crossing SEGMENT INDICES per pixel.
+
+    Args:
+      ray_h: [H, N+1] ray altitudes at x = k*step.
+      terr_elev: [W, N_t] terrain elevations on the same x grid (N_t ≥ n_seg+1).
+      n_seg: number of segments to test.
+      max_hits: K slots, 1..4 (1 for opaque terrain).
+
+    Returns int32 [H, W, K] ascending; NO_HIT_SEG = no crossing. CPU tensors
+    run the plain version; CUDA tensors launch K1 or raise.
+    """
+    if ray_h.device.type == "cpu":
+        return terrain_crossing_segments_plain(ray_h, terr_elev, n_seg, max_hits)
+    if ray_h.device.type != "cuda":
+        raise ValueError(f"terrain_crossing_segments: unsupported device {ray_h.device}")
+    return crossing_segments_cuda(ray_h, terr_elev, n_seg, max_hits)
+
+
+def crossing_segments_cuda(ray_h: torch.Tensor, terr_elev: torch.Tensor,
+                           n_seg: int, max_hits: int) -> torch.Tensor:
+    """Launch K1 (csrc/combine.cu) on CUDA tensors; int32 [H, W, K]."""
+    _check_combine_args(ray_h, terr_elev, n_seg, max_hits)
+    ray = ray_h.to(torch.float32).contiguous()
+    terr = terr_elev.to(torch.float32).contiguous()
+    h_n, w_n = ray.shape[0], terr.shape[0]
+    out = torch.empty((h_n, w_n, max_hits), dtype=torch.int32, device=ray.device)
+    if h_n == 0 or w_n == 0:
+        return out
+    limit = ray_death_limit(ray, n_seg).contiguous()
+    _kernels.COMBINE.call(
+        ray.data_ptr(), ray.shape[1], terr.data_ptr(), terr.shape[1],
+        limit.data_ptr(), h_n, w_n, int(n_seg), int(max_hits),
+        out.data_ptr(), _kernels.stream_ptr(ray.device),
+    )
+    return out
+
+
+def crossing_prop(ray_h, terr_elev, ks):
+    """prop = d1/(d1−d2) at the given segments (utils.rs:232), per pixel."""
+    r1, r2 = gather_ray_pairs(ray_h, ks)
+    t1, t2 = gather_column_pairs(terr_elev[:, : ray_h.shape[1]], ks)
+    d1 = r1 - t1
+    d2 = r2 - t2
+    denom = d1 - d2
+    return d1 / torch.where(denom == 0.0, torch.ones_like(denom), denom)
+
+
+def _gather_pairs(field: torch.Tensor, row_axis: int, ki: torch.Tensor):
+    """Both segment-end values of ``field`` rows at integer segments ``ki``.
+
+    field: [R, N(, D)]; ki: [H, W, K] int with the field row given by axis
+    ``row_axis`` of ki (0: ray rows, 1: terrain columns). Segments clamp to
+    [0, N-2]. Returns (lo, hi) shaped ki(+D).
+    """
+    n = field.shape[1]
+    shape = [1, 1, 1]
+    shape[row_axis] = ki.shape[row_axis]
+    rows = torch.arange(ki.shape[row_axis], device=ki.device).reshape(shape)
+    k = ki.to(torch.int64).clamp(0, n - 2)
+    return field[rows, k], field[rows, k + 1]
+
+
+def gather_ray_pairs(field: torch.Tensor, ki: torch.Tensor):
+    """(lo, hi) of a per-ray field [H, N+1(,D)] at segments ki [H, W, K]."""
+    return _gather_pairs(field, 0, ki)
+
+
+def gather_column_pairs(field: torch.Tensor, ki: torch.Tensor):
+    """(lo, hi) of a per-column field [W, N_t(,D)] at segments ki [H, W, K]."""
+    return _gather_pairs(field, 1, ki)
+
+
+def terrain_crossing_keys(ray_h, terr_elev, n_seg: int, max_hits: int = 1):
+    """Float crossing keys k + prop ([H, W, K], inf = no hit)."""
+    segs = terrain_crossing_segments(ray_h, terr_elev, n_seg, max_hits)
+    valid = segs < n_seg
+    ks = torch.where(valid, segs, 0)
+    prop = crossing_prop(ray_h, terr_elev, ks)
+    return torch.where(valid, ks.to(torch.float32) + prop,
+                       torch.full_like(prop, np.inf))

@@ -1,0 +1,381 @@
+"""Batched fixed-step ray marching of the atmospheric-refraction ODE (PyTorch).
+
+Counterpart of ``atm_raytracer_tpu/physics/ray.py``; the ODE, coordinates,
+initial conditions and path-length rule are documented there:
+
+* flat:      h'' = l(h) (1 + h'^2),                    h'(0) = tan(e)
+* spherical: h'' = l(h) (u^2 + h'^2) + (u^2 + 2 h'^2)/(u R),  u = 1 + h/R,
+             h'(0) = (1 + h0/R) tan(e)
+
+with l(h) = d(ln n)/dh from a host-built f64 table (``RefractionTable``).
+
+All rays march in lockstep. The coarse RK4 node loop is the hot, sequential
+part: ``march_nodes`` runs it as the CUDA kernel ``csrc/march.cu`` on CUDA
+tensors and as the plain PyTorch loop ``march_nodes_plain`` on CPU tensors.
+Hermite dense output and the path-length cumsum are tensor ops.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from .. import _kernels
+from .atmosphere import Atmosphere
+
+DEATH_ALTITUDE = -1000.0  # path-death rule threshold (utils.rs:167)
+CHEB_DEG = 6
+
+
+@dataclasses.dataclass(frozen=True)
+class EarthShape:
+    """Physics shape: flat (radius None) or sphere (mod.rs:95-112)."""
+
+    radius: Optional[float]
+
+    @property
+    def is_flat(self) -> bool:
+        return self.radius is None
+
+
+FLAT = EarthShape(None)
+
+
+@dataclasses.dataclass
+class RefractionTable:
+    """Uniform-grid table of l(h) on one device (f32), plus the piecewise
+    Chebyshev fit ``poly`` (host tuples) when the profile admits one."""
+
+    h0: float  # f32-representable
+    inv_dh: float
+    values: torch.Tensor  # [n] f32
+    pairs: torch.Tensor  # [n-1, 2] f32: (values[i], values[i+1])
+    poly: Optional[Tuple] = None  # ((h_lo, h_hi, (c0..c6)), ...)
+
+    @staticmethod
+    def build(atm: Atmosphere, wavelength: float, h_lo: float = -2000.0,
+              h_hi: float = 20000.0, dh: float = 1.0,
+              device="cpu") -> "RefractionTable":
+        hs = np.arange(h_lo, h_hi + dh, dh, dtype=np.float64)
+        vals64 = atm.dlnn_dh(hs, wavelength)
+        return RefractionTable.from_values(
+            vals64.astype(np.float32), h_lo, 1.0 / dh,
+            _fit_piecewise_cheb(vals64, h_lo, dh), device,
+        )
+
+    @staticmethod
+    def from_values(values: np.ndarray, h0: float, inv_dh: float, poly,
+                    device="cpu") -> "RefractionTable":
+        vals = np.asarray(values, np.float32)
+        pairs = np.stack([vals[:-1], vals[1:]], axis=-1)
+        return RefractionTable(
+            h0=float(np.float32(h0)),
+            inv_dh=float(np.float32(inv_dh)),
+            values=torch.tensor(vals, device=device),
+            pairs=torch.tensor(pairs, device=device),
+            poly=poly,
+        )
+
+    def lookup(self, h: torch.Tensor) -> torch.Tensor:
+        """Linear interpolation of l(h); clamps outside the grid, with the
+        base index clamped to n-2 so the i+1 tap stays in bounds."""
+        n = self.values.shape[0]
+        t = ((h - self.h0) * self.inv_dh).clamp(0.0, float(n - 1))
+        i = torch.clamp(torch.floor(t).to(torch.int64), max=n - 2)
+        f = t - i.to(t.dtype)
+        row = self.pairs[i]  # [..., 2]
+        return row[..., 0] * (1.0 - f) + row[..., 1] * f
+
+    def poly_rows(self) -> torch.Tensor:
+        """The fit as the march kernel's data: [S, 10] f32 rows of
+        (lo, hi, width, c0..c6), width = max(hi - lo, 1e-30)."""
+        rows = [
+            [lo, hi, max(hi - lo, 1e-30), *coeffs] for lo, hi, coeffs in self.poly
+        ]
+        return torch.tensor(rows, dtype=torch.float32, device=self.values.device)
+
+
+def _fit_piecewise_cheb(
+    vals: np.ndarray,
+    h_lo: float,
+    dh: float,
+    cum_tol: float = 2e-8,
+    max_segments: int = 24,
+) -> Optional[Tuple]:
+    """Compile the l(h) table into piecewise Chebyshev polynomials.
+
+    Segments split first at jump discontinuities of l(h) (lapse-rate
+    boundaries such as the US-76 tropopause), then bisect until each fits so
+    that the cumulative-integral deviation |∫(fit − l) dh| — the error the
+    ODE's slope feels — stays within ``cum_tol``. Returns ((h_start, h_end,
+    coeffs), ...) with (CHEB_DEG+1)-tuples, or None past ``max_segments``.
+    """
+    from numpy.polynomial import chebyshev as C
+
+    vals = np.asarray(vals, np.float64)
+    n = vals.shape[0]
+    hs = h_lo + np.arange(n) * dh
+    dv = np.abs(np.diff(vals))
+    med = np.median(dv)
+    jumps = np.where((dv > 10.0 * med) & (dv > 1e-11))[0] + 1
+    bounds = [0] + [int(j) for j in jumps] + [n]
+
+    def fit(a: int, b: int):
+        if b - a == 1:  # single sample (e.g. the table-top edge): constant
+            return np.array([vals[a]] + [0.0] * CHEB_DEG)
+        deg = min(CHEB_DEG, b - a - 1)
+        x = np.linspace(-1.0, 1.0, b - a)
+        c = C.chebfit(x, vals[a:b], deg)
+        err = C.chebval(x, c) - vals[a:b]
+        if np.max(np.abs(np.cumsum(err))) * dh > cum_tol:
+            return None
+        return np.concatenate([c, np.zeros(CHEB_DEG + 1 - len(c))])
+
+    segments = []
+    stack = [(bounds[i], bounds[i + 1]) for i in range(len(bounds) - 1)][::-1]
+    while stack:
+        a, b = stack.pop()
+        if len(segments) + len(stack) >= max_segments:
+            return None
+        c = fit(a, b)
+        if c is None:
+            if b - a < 4:
+                return None
+            mid = (a + b) // 2
+            stack.extend([(mid, b), (a, mid)])
+            continue
+        segments.append(
+            (float(hs[a]), float(hs[b - 1]), tuple(float(v) for v in c))
+        )
+    return tuple(segments)
+
+
+def _f32(x: float) -> float:
+    """The float32 rounding of a host constant, as a Python float."""
+    return float(np.float32(x))
+
+
+def eval_l_poly(poly: Tuple, h: torch.Tensor) -> torch.Tensor:
+    """Piecewise-Chebyshev l(h); clamps to the fitted range like ``lookup``."""
+    h = h.clamp(_f32(poly[0][0]), _f32(poly[-1][1]))
+    out = torch.zeros_like(h)
+    for k, (lo, hi, coeffs) in enumerate(poly):
+        # zero-width segments exist (single-sample edge pieces)
+        t = ((h - _f32(lo)) / _f32(max(hi - lo, 1e-30)) * 2.0 - 1.0).clamp(-1.0, 1.0)
+        b1 = torch.zeros_like(t)
+        b2 = torch.zeros_like(t)
+        for c in coeffs[:0:-1]:  # Clenshaw recurrence
+            b1, b2 = _f32(c) + 2.0 * t * b1 - b2, b1
+        val = _f32(coeffs[0]) + t * b1 - b2
+        if k == len(poly) - 1:
+            mask = h >= _f32(lo)
+        else:
+            mask = (h >= _f32(lo)) & (h < _f32(poly[k + 1][0]))
+        out = torch.where(mask, val, out)
+    return out
+
+
+def _eval_l(table: RefractionTable, h: torch.Tensor) -> torch.Tensor:
+    return eval_l_poly(table.poly, h) if table.poly is not None else table.lookup(h)
+
+
+def _acceleration(h, v, l, radius: Optional[float]):
+    """h'' per the module-docstring ODE, given l(h)."""
+    if radius is None:
+        return l * (1.0 + v * v)
+    inv_r = _f32(1.0 / radius)
+    u = 1.0 + h * inv_r
+    geom = (u * u + 2.0 * v * v) / u * inv_r
+    return l * (u * u + v * v) + geom
+
+
+def _rk4_step(h, v, dx: float, table: RefractionTable, radius):
+    """One classic RK4 step; l(h) at stage heights predicted from the
+    carried slope (h, h + dx/2·v, h + dx·v), l2 serving both k2 and k3."""
+    half = _f32(np.float32(0.5) * np.float32(dx))
+    sixth = _f32(np.float32(dx) / np.float32(6.0))
+    l1 = _eval_l(table, h)
+    l2 = _eval_l(table, h + half * v)
+    l4 = _eval_l(table, h + dx * v)
+    k1v = _acceleration(h, v, l1, radius)
+    k1h = v
+    k2h = v + half * k1v
+    k2v = _acceleration(h + half * k1h, k2h, l2, radius)
+    k3h = v + half * k2v
+    k3v = _acceleration(h + half * k2h, k3h, l2, radius)
+    k4h = v + dx * k3v
+    k4v = _acceleration(h + dx * k3h, k4h, l4, radius)
+    h_new = h + sixth * (k1h + 2.0 * k2h + 2.0 * k3h + k4h)
+    v_new = v + sixth * (k1v + 2.0 * k2v + 2.0 * k3v + k4v)
+    return h_new, v_new
+
+
+def march_coarse(step: float) -> int:
+    """Coarse RK4 window length in march steps (~800 m of ground distance)."""
+    return max(1, int(800.0 // step))
+
+
+def march_nodes_plain(alt, v0, dx: float, n_coarse: int,
+                      table: RefractionTable, radius: Optional[float]):
+    """Plain PyTorch coarse node loop: (h, v) nodes [n_coarse+1, B] f32."""
+    hs = [alt]
+    vs = [v0]
+    h, v = alt, v0
+    for _ in range(n_coarse):
+        h, v = _rk4_step(h, v, dx, table, radius)
+        hs.append(h)
+        vs.append(v)
+    return torch.stack(hs), torch.stack(vs)
+
+
+def march_nodes(alt: torch.Tensor, v0: torch.Tensor, dx: float, n_coarse: int,
+                table: RefractionTable, radius: Optional[float]):
+    """Coarse RK4 nodes (h, v) [n_coarse+1, B] f32.
+
+    CPU tensors run ``march_nodes_plain``; CUDA tensors launch the kernel
+    ``csrc/march.cu`` (K2) and raise if it cannot build or launch.
+    """
+    if alt.device.type == "cpu":
+        return march_nodes_plain(alt, v0, dx, n_coarse, table, radius)
+    if alt.device.type != "cuda":
+        raise ValueError(f"march_nodes: unsupported device {alt.device}")
+    return march_nodes_cuda(alt, v0, dx, n_coarse, table, radius)
+
+
+def march_nodes_cuda(alt: torch.Tensor, v0: torch.Tensor, dx: float,
+                     n_coarse: int, table: RefractionTable,
+                     radius: Optional[float]):
+    """Launch K2 (csrc/march.cu) on CUDA tensors: one thread per ray, l(h)
+    from ``table.poly`` when it exists, else from the table itself."""
+    alt = alt.to(torch.float32).contiguous()
+    v0 = v0.to(torch.float32).contiguous()
+    if alt.shape != v0.shape or alt.ndim != 1:
+        raise ValueError("march_nodes: alt and v0 must be equal [B] vectors")
+    if table.pairs.device != alt.device:
+        raise ValueError("march_nodes: table and rays live on different devices")
+    b = alt.shape[0]
+    out_h = torch.empty((n_coarse + 1, b), dtype=torch.float32, device=alt.device)
+    out_v = torch.empty_like(out_h)
+    if b == 0:
+        return out_h, out_v
+    pairs = table.pairs.contiguous()
+    # without a fit the kernel reads the table; the poly pointer is unused
+    poly = table.poly_rows() if table.poly is not None else pairs
+    n_poly = len(table.poly) if table.poly is not None else 0
+    inv_r = 0.0 if radius is None else _f32(1.0 / radius)
+    _kernels.MARCH.call(
+        alt.data_ptr(), v0.data_ptr(), b, _f32(dx), int(n_coarse),
+        poly.data_ptr(), n_poly, pairs.data_ptr(), int(table.values.shape[0]),
+        table.h0, table.inv_dh, inv_r, 0 if radius is None else 1,
+        out_h.data_ptr(), out_v.data_ptr(), _kernels.stream_ptr(alt.device),
+    )
+    return out_h, out_v
+
+
+def initial_slope(alt: torch.Tensor, elev_rad: torch.Tensor,
+                  shape: EarthShape) -> torch.Tensor:
+    """dh/dx at x=0 for a ray launched at ``elev_rad`` above local horizontal."""
+    t = torch.tan(elev_rad)
+    if shape.is_flat:
+        return t
+    return (1.0 + alt / shape.radius) * t
+
+
+def _straight_dense(alt, elev_rad, step: float, n_steps: int,
+                    shape: EarthShape) -> torch.Tensor:
+    """Closed-form straight-ray altitudes [N+1, B]; a spherical chord that
+    recedes past e+φ = 90° is clamped to 1e9 m (open sky)."""
+    x = (torch.arange(n_steps + 1, dtype=torch.float32, device=alt.device)[:, None]
+         * _f32(step))
+    if shape.is_flat:
+        return alt[None, :] + torch.tan(elev_rad)[None, :] * x
+    r = _f32(shape.radius)
+    phi = x / r
+    c = torch.cos(elev_rad + phi)  # [N+1, B]
+    # cancellation-free r0·(cos e − cos(e+φ))/cos(e+φ), with
+    # cos e − cos(e+φ) = 2·sin(e+φ/2)·sin(φ/2)
+    num = 2.0 * torch.sin(elev_rad + 0.5 * phi) * torch.sin(0.5 * phi)
+    far = c <= 1e-9
+    h = alt[None, :] + (r + alt)[None, :] * num / torch.where(far, 1.0, c)
+    return torch.where(far, 1e9, h)
+
+
+def march_rays(
+    alt,
+    elev_rad: torch.Tensor,
+    step: float,
+    n_steps: int,
+    shape: EarthShape,
+    table: Optional[RefractionTable],
+    straight: bool,
+    coarse: int = 1,
+    plain: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """March a batch of rays N fixed steps: ([B, N+1] h, [B, N+1] path length).
+
+    ``alt`` is a scalar or [B] (meters), ``elev_rad`` [B] on the target
+    device. ``coarse`` = C > 1 integrates RK4 at C·step and fills the fine
+    grid by cubic Hermite dense output. ``plain`` runs the node loop as
+    ``march_nodes_plain`` on any device — the kernel's oracle on the card.
+    """
+    elev_rad = elev_rad.to(torch.float32)
+    alt = torch.as_tensor(alt, dtype=torch.float32, device=elev_rad.device)
+    alt = alt.expand(elev_rad.shape).contiguous()
+    radius = shape.radius
+    if table is None or straight:
+        h_fine = _straight_dense(alt, elev_rad, step, n_steps, shape)
+        return _finish_march(h_fine, step, radius)
+
+    v0 = initial_slope(alt, elev_rad, shape)
+    coarse = max(1, min(int(coarse), n_steps))
+    n_coarse = -(-n_steps // coarse)
+    dx = _f32(step * coarse)
+    nodes = march_nodes_plain if plain else march_nodes
+    h_nodes, v_nodes = nodes(alt, v0, dx, n_coarse, table, radius)
+
+    if coarse == 1:
+        h_fine = h_nodes[: n_steps + 1]  # [N+1, B]
+    else:
+        # cubic Hermite dense output per coarse segment: t in [0, 1)
+        t = (torch.arange(coarse, dtype=torch.float32, device=alt.device)
+             [:, None, None] / float(coarse))
+        t2 = t * t
+        t3 = t2 * t
+        h00 = 2.0 * t3 - 3.0 * t2 + 1.0
+        h10 = t3 - 2.0 * t2 + t
+        h01 = -2.0 * t3 + 3.0 * t2
+        h11 = t3 - t2
+        hl = h_nodes[:-1][None]  # [1, Nc, B]
+        hr = h_nodes[1:][None]
+        vl = v_nodes[:-1][None] * dx
+        vr = v_nodes[1:][None] * dx
+        seg = h00 * hl + h10 * vl + h01 * hr + h11 * vr  # [C, Nc, B]
+        h_fine = torch.cat(
+            [seg.permute(1, 0, 2).reshape(-1, seg.shape[2]), h_nodes[-1:]],
+            dim=0,
+        )[: n_steps + 1]
+    return _finish_march(h_fine, step, radius)
+
+
+def _finish_march(h_fine, step: float, radius):
+    """[N+1, B] fine altitudes → ([B, N+1] h, [B, N+1] path length), the
+    path length summed like the reference's calc_dist (utils.rs:42-53)."""
+    h_out = h_fine.transpose(0, 1).contiguous()  # [B, N+1]
+    dxf = _f32(step)
+    dxf2 = _f32(np.float32(dxf) * np.float32(dxf))
+    dh = h_out[..., 1:] - h_out[..., :-1]
+    if radius is None:
+        seg_len = torch.sqrt(dxf2 + dh * dh)
+    else:
+        dx_eff = dxf * ((h_out[..., 1:] + h_out[..., :-1]) * 0.5 + radius) / radius
+        seg_len = torch.sqrt(dx_eff * dx_eff + dh * dh)
+    p_out = torch.cat(
+        [torch.zeros(h_out.shape[:-1] + (1,), dtype=torch.float32,
+                     device=h_out.device),
+         torch.cumsum(seg_len, dim=-1)],
+        dim=-1,
+    )
+    return h_out, p_out

@@ -1,0 +1,199 @@
+"""Tile store: lazy host-side tile registry + a device tile stack (PyTorch).
+
+Counterpart of ``atm_raytracer_tpu/terrain/store.py`` (reference
+src/terrain/mod.rs:55-127): a map from (floor(lat), floor(lon)) to a 1°×1°
+tile, scanned from a folder (DTED keyed by header origin, GeoTIFF by its
+``N49E021`` filename) and loaded lazily. ``Terrain.pack`` stacks the tiles a
+render can reach into one plain [T, S, S] tensor on a device.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from pathlib import Path
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from . import dted, geotiff
+
+
+@dataclasses.dataclass
+class Tile:
+    """One 1°×1° tile: south-first rows, inclusive edges.
+
+    elev[i, j] = post at (lat0 + i/(n_lat-1), lon0 + j/(n_lon-1)).
+    """
+
+    lat0: int
+    lon0: int
+    elev: np.ndarray  # [n_lat, n_lon] float32, row 0 = south
+
+    def get_elev(self, lat: float, lon: float) -> Optional[float]:
+        """Bilinear sample (geotiff.rs:61-100 semantics incl. edge clamp)."""
+        if not (self.lat0 <= lat <= self.lat0 + 1 and self.lon0 <= lon <= self.lon0 + 1):
+            return None
+        n_lat, n_lon = self.elev.shape
+        r = (lat - self.lat0) * (n_lat - 1)
+        c = (lon - self.lon0) * (n_lon - 1)
+        ri = min(int(r), n_lat - 2)
+        ci = min(int(c), n_lon - 2)
+        rf, cf = r - ri, c - ci
+        e = self.elev
+        return float(
+            e[ri, ci] * (1 - rf) * (1 - cf)
+            + e[ri + 1, ci] * rf * (1 - cf)
+            + e[ri, ci + 1] * (1 - rf) * cf
+            + e[ri + 1, ci + 1] * rf * cf
+        )
+
+
+def _load_tile(path: Path, lat0: int, lon0: int) -> Tile:
+    try:
+        _, elev = dted.read_dted(path)
+        return Tile(lat0=lat0, lon0=lon0, elev=elev)
+    except ValueError:
+        pass
+    img = geotiff.read_geotiff(path)  # north-first rows
+    return Tile(lat0=lat0, lon0=lon0, elev=img[::-1].copy())
+
+
+@dataclasses.dataclass
+class TerrainPack:
+    """Device mosaic: dense [n_rows*n_cols, S, S] tile stack.
+
+    Slot (r, c) = r * n_cols + c covers the 1°×1° cell at
+    (lat_min + r, lon_min + c); missing tiles are all-zero slots (elevation
+    0.0, the reference's missing-tile fallback). ``rows_m1``/``cols_m1``
+    hold each slot's post count minus one, so mixed resolutions stay exact.
+    """
+
+    tiles: torch.Tensor  # [T, S, S] int16 (integer-meter tiles) or f32
+    rows_m1: torch.Tensor  # [T] f32
+    cols_m1: torch.Tensor  # [T] f32
+    lat_min: int
+    lon_min: int
+    n_rows: int
+    n_cols: int
+
+
+class Terrain:
+    """Folder-scanned tile registry with lazy host loading."""
+
+    def __init__(self):
+        self._paths: Dict[Tuple[int, int], Path] = {}
+        self._loaded: Dict[Tuple[int, int], Tile] = {}
+        self._pack_cache: Dict[tuple, TerrainPack] = {}
+
+    @staticmethod
+    def from_folder(folder) -> "Terrain":
+        t = Terrain()
+        files = 0
+        for p in sorted(Path(folder).iterdir()):
+            if p.is_dir():
+                continue
+            files += 1
+            t.buffer_file(p)
+        print(f"Detected {files} terrain files")
+        return t
+
+    def add_tile(self, tile: Tile) -> None:
+        """Register an in-memory tile; drops memoized device stacks (their
+        key is the tile KEYS, so a replaced tile would be served stale)."""
+        self._loaded[(tile.lat0, tile.lon0)] = tile
+        self._pack_cache.clear()
+
+    def buffer_file(self, path) -> None:
+        path = Path(path)
+        try:
+            hdr = dted.read_dted_header(path)
+            key = (int(math.floor(hdr.origin_lat)), int(math.floor(hdr.origin_lon)))
+            self._paths[key] = path
+            return
+        except (ValueError, OSError):
+            pass
+        coords = geotiff.coords_from_name(path)
+        if coords is not None:
+            self._paths[coords] = path
+            return
+        raise ValueError(f"Could not buffer terrain file {path}")
+
+    def _tile(self, key: Tuple[int, int]) -> Optional[Tile]:
+        if key in self._loaded:
+            return self._loaded[key]
+        path = self._paths.get(key)
+        if path is None:
+            return None
+        print(f"Lazy loading terrain file: {path}")
+        tile = _load_tile(path, key[0], key[1])
+        self._loaded[key] = tile
+        return tile
+
+    def get_elev(self, lat: float, lon: float) -> Optional[float]:
+        """Host bilinear elevation (terrain/mod.rs:120-126)."""
+        tile = self._tile((int(math.floor(lat)), int(math.floor(lon))))
+        if tile is None:
+            return None
+        return tile.get_elev(lat, lon)
+
+    def get_elev_or0(self, lat: float, lon: float) -> float:
+        e = self.get_elev(lat, lon)
+        return 0.0 if e is None else e
+
+    def pack(self, lat_range: Tuple[float, float], lon_range: Tuple[float, float],
+             device="cpu") -> TerrainPack:
+        """Stack every tile intersecting the lat/lon box on ``device``.
+
+        The grid spans the PRESENT tiles' bounding box; tiles pad to the
+        largest post count. Integer-meter mosaics pack as int16. Memoized per
+        (box, tile keys, device): repeat renders reuse the device copy.
+        """
+        device = torch.device(device)
+        lat_lo, lat_hi = (int(math.floor(v)) for v in lat_range)
+        lon_lo, lon_hi = (int(math.floor(v)) for v in lon_range)
+        keys = [
+            (la, lo)
+            for la in range(lat_lo, lat_hi + 1)
+            for lo in range(lon_lo, lon_hi + 1)
+            if (la, lo) in self._paths or (la, lo) in self._loaded
+        ]
+        cache_key = (lat_lo, lat_hi, lon_lo, lon_hi, tuple(keys), str(device))
+        cached = self._pack_cache.get(cache_key)
+        if cached is not None:
+            return cached
+        tiles = [self._tile(k) for k in keys]
+        if keys:
+            lat_lo = min(k[0] for k in keys)
+            lat_hi = max(k[0] for k in keys)
+            lon_lo = min(k[1] for k in keys)
+            lon_hi = max(k[1] for k in keys)
+        n_lats = lat_hi - lat_lo + 1
+        n_lons = lon_hi - lon_lo + 1
+        s = max(max(t.elev.shape) for t in tiles) if tiles else 2
+        int_exact = bool(tiles) and all(
+            np.all(t.elev == np.round(t.elev))
+            and t.elev.min() >= -32768 and t.elev.max() < 32768
+            for t in tiles
+        )
+        stack = np.zeros((n_lats * n_lons, s, s), np.int16 if int_exact else np.float32)
+        rows_m1 = np.ones((n_lats * n_lons,), np.float32)
+        cols_m1 = np.ones((n_lats * n_lons,), np.float32)
+        for k, t in zip(keys, tiles):
+            slot = (k[0] - lat_lo) * n_lons + (k[1] - lon_lo)
+            nr, nc = t.elev.shape
+            stack[slot, :nr, :nc] = t.elev
+            rows_m1[slot] = nr - 1
+            cols_m1[slot] = nc - 1
+        result = TerrainPack(
+            tiles=torch.from_numpy(stack).to(device),
+            rows_m1=torch.from_numpy(rows_m1).to(device),
+            cols_m1=torch.from_numpy(cols_m1).to(device),
+            lat_min=lat_lo,
+            lon_min=lon_lo,
+            n_rows=n_lats,
+            n_cols=n_lons,
+        )
+        self._pack_cache[cache_key] = result
+        return result

@@ -1,0 +1,551 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port's main path once on one NVIDIA GPU and check it.
+
+    python3 chip_smoke.py
+
+Runs from the root of a checkout of this repository, on a machine with one
+CUDA GPU, ``nvcc`` and PyTorch built for CUDA. Imports nothing of JAX, PyYAML
+or Pillow. Phases, each printed as it ends; any failure exits non-zero
+before the result line:
+
+1. device   — the card's name, and its power limit from nvidia-smi;
+2. build    — both CUDA kernels built from ``atm_raytracer_tpu_torch/csrc``;
+3. kernels  — each kernel against its plain PyTorch version on the card:
+              K1 (combine) segments equal on ragged random fans, K = 1 and 4,
+              and on the path-death and deep-terrain cases; K2 (march) nodes
+              within 2e-2 m for the poly and table l(h), sphere and flat;
+4. goldens  — the three golden Fast scenes rendered on the card and with the
+              plain path on the CPU, within the verify tolerance;
+5. headline — 1920x1080, fov 40, 200 km in 50 m steps, refracted, spherical,
+              over 45 synthetic 1201-post tiles: the render goes through both
+              kernels (launch counts), matches the plain path on the card,
+              and is timed (median frame wall of 20 renders after a
+              warm-up), with each kernel's time beside its plain version's
+              at the headline shapes;
+6. profile  — a torch.profiler trace of the headline (device busy time,
+              idle share, top kernels), stage times by CUDA events and the
+              peak device memory.
+
+The verify tolerance (the JAX package's bench.py verify): at most 1 % of
+pixels differ by more than 2 counts and at most 5 % differ at all.
+
+Output: the kernels line ``{"kernels": [...]}`` and, last, the result line
+``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import math
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+LAT0, LON0 = 49.5, 21.5
+K2_ATOL = 2e-2  # meters: the bound the JAX package holds its Pallas march to
+
+
+class SmokeFailure(Exception):
+    pass
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise SmokeFailure(msg)
+
+
+def say(msg: str) -> None:
+    print(msg, flush=True)
+
+
+# -- synthetic terrain (the JAX test suite's analytic landscape) -------------
+
+def analytic_hills(lat, lon, base_lat=49.0, base_lon=21.0):
+    """Smooth deterministic landscape, meters; works on arrays (degrees)."""
+    import numpy as np
+
+    la = np.asarray(lat, np.float64) - base_lat
+    lo = np.asarray(lon, np.float64) - base_lon
+    return (
+        300.0
+        + 250.0 * np.sin(2 * np.pi * la * 3.0) * np.cos(2 * np.pi * lo * 2.0)
+        + 120.0 * np.sin(2 * np.pi * (la * 7.0 + lo * 5.0))
+    )
+
+
+def tile_grid(lat0: int, lon0: int, n: int):
+    """Integer-meter post grid (inclusive edges) over one 1-degree tile."""
+    import numpy as np
+
+    lats = lat0 + np.arange(n) / (n - 1)
+    lons = lon0 + np.arange(n) / (n - 1)
+    return np.round(analytic_hills(lats[:, None], lons[None, :])).astype(np.int16)
+
+
+def image_tolerance(a, b):
+    """(ok, frac_any, frac_big, max) of the verify tolerance on two images."""
+    import numpy as np
+
+    pix = np.abs(a.astype(np.int16) - b.astype(np.int16)).max(axis=-1)
+    frac_any = float((pix > 0).mean())
+    frac_big = float((pix > 2).mean())
+    return frac_big <= 0.01 and frac_any <= 0.05, frac_any, frac_big, int(pix.max())
+
+
+def cuda_ms(fn, reps: int) -> float:
+    """Mean device milliseconds of ``fn`` over ``reps`` runs after a warm-up."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+# -- phases -------------------------------------------------------------------
+
+def phase_device():
+    import torch
+
+    name = torch.cuda.get_device_name(0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    )
+    check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr.strip()}")
+    say(f"[device] torch {torch.__version__} cuda {torch.version.cuda} "
+        f"device {name} count {torch.cuda.device_count()}")
+    say(f"[device] nvidia-smi: {smi.stdout.strip()}")
+    return name
+
+
+def phase_build():
+    from atm_raytracer_tpu_torch import _kernels
+
+    for k in _kernels.KERNELS:
+        t0 = time.perf_counter()
+        k.function()
+        took = time.perf_counter() - t0
+        say(f"[build] {k.source}: {took:.2f} s (nvcc {k.build_seconds} s)")
+        for line in k.build_log.splitlines():
+            if "registers" in line or "spill" in line or "smem" in line:
+                say(f"[build]   {line.strip()}")
+
+
+def random_fan(rng, h_n, w_n, n_samp, n_terr_samp):
+    import numpy as np
+
+    ray = (120.0 + np.linspace(-3.0, 1.0, h_n)[:, None] * np.arange(n_samp)[None, :]
+           + rng.normal(0.0, 2.0, (h_n, n_samp)))
+    terr = (100.0 + 30.0 * np.sin(np.arange(n_terr_samp) / 5.0)[None, :]
+            + rng.uniform(-5.0, 5.0, (w_n, n_terr_samp)))
+    return ray.astype(np.float32), terr.astype(np.float32)
+
+
+def phase_kernels(dev):
+    """K1 and K2 against their plain versions on the card."""
+    import numpy as np
+    import torch
+
+    from atm_raytracer_tpu_torch.ops import combine
+    from atm_raytracer_tpu_torch.physics import ray as R
+    from atm_raytracer_tpu_torch.physics.atmosphere import Atmosphere, us_76
+
+    rng = np.random.default_rng(7)
+    cases = []
+    for h_n, w_n, n_seg, extra in ((37, 45, 300, 0), (9, 70, 129, 17), (130, 33, 1000, 0)):
+        ray, terr = random_fan(rng, h_n, w_n, n_seg + 1, n_seg + 1 + extra)
+        cases.append((f"fan{h_n}x{w_n}x{n_seg}", ray, terr, n_seg))
+    n = 50
+    death = np.full((1, n + 1), 10.0, np.float32)
+    death[0, 10:] = -2000.0
+    death[0, 20:] = 50.0  # resurfaces after death: must not count
+    cases.append(("death", death, np.zeros((1, n + 1), np.float32), n))
+    deep = np.full((1, n + 1), 10.0, np.float32)
+    deep[0, 10:] = -1100.0  # dead above a -1500 m floor: no crossing
+    cases.append(("deep", deep, np.full((1, n + 1), -1500.0, np.float32), n))
+    for name, ray, terr, n_seg in cases:
+        rt, tt = torch.from_numpy(ray).to(dev), torch.from_numpy(terr).to(dev)
+        for k in (1, 4):
+            got = combine.crossing_segments_cuda(rt, tt, n_seg, k)
+            want = combine.terrain_crossing_segments_plain(rt, tt, n_seg, k)
+            torch.cuda.synchronize()
+            bad = int((got != want).sum())
+            check(bad == 0, f"K1 {name} K={k}: {bad} segments differ from plain")
+            say(f"[kernels] K1 {name} K={k}: equal "
+                f"({int((want < n_seg).sum())} hits)")
+    check(int(combine.crossing_segments_cuda(
+        torch.from_numpy(death).to(dev), torch.zeros((1, n + 1), device=dev), n, 2
+    )[0, 0, 1]) == combine.NO_HIT_SEG, "K1 death: a crossing after death counted")
+
+    table = R.RefractionTable.build(Atmosphere(us_76()), 530e-9, h_hi=30000.0,
+                                    device=dev)
+    check(table.poly is not None, "US-76 should compile to a Chebyshev fit")
+    elev = torch.deg2rad(torch.linspace(-0.6, 1.5, 1000, device=dev))
+    alt = torch.full_like(elev, 100.0)
+    for poly_name, tb in (("poly", table), ("table", dataclasses.replace(table, poly=None))):
+        for shape in (R.EarthShape(6_371_000.0), R.FLAT):
+            v0 = R.initial_slope(alt, elev, shape)
+            hk, vk = R.march_nodes(alt, v0, 800.0, 250, tb, shape.radius)
+            hp, vp = R.march_nodes_plain(alt, v0, 800.0, 250, tb, shape.radius)
+            torch.cuda.synchronize()
+            err = float((hk - hp).abs().max())
+            sname = "flat" if shape.is_flat else "sphere"
+            check(err <= K2_ATOL, f"K2 {poly_name} {sname}: max |dh| {err} m > {K2_ATOL}")
+            say(f"[kernels] K2 {poly_name} {sname}: max |dh| {err:.3g} m "
+                f"(v {float((vk - vp).abs().max()):.3g})")
+
+
+def golden_config(scene: str) -> dict:
+    """The golden Fast scenes of the JAX package's tests/test_golden.py."""
+    cfg = {
+        "scene": {"terrain_folder": "."},
+        "view": {
+            "position": {"latitude": LAT0, "longitude": LON0,
+                         "altitude": {"Relative": 30.0}},
+            "frame": {"direction": 45.0, "fov": 25.0, "max_distance": 25000.0,
+                      "tilt": 0.0},
+            "coloring": {"Shading": {"water_level": -100.0}},
+        },
+        "straight_rays": False,
+        "simulation_step": 100.0,
+        "output": {"width": 64, "height": 48},
+    }
+    if scene == "translucent":
+        cfg["scene"]["terrain_alpha"] = 0.65
+        cfg["view"]["fog_distance"] = 15000.0
+    elif scene == "flat_straight":
+        cfg["earth_shape"] = "FlatDistorted"
+        cfg["straight_rays"] = True
+        cfg["view"]["coloring"] = {"Simple": {"water_level": -100.0}}
+    return cfg
+
+
+def phase_goldens(dev):
+    from atm_raytracer_tpu_torch.config import Config
+    from atm_raytracer_tpu_torch.generators.fast import render_fast
+    from atm_raytracer_tpu_torch.terrain.store import Terrain, Tile
+
+    terrain = Terrain()
+    terrain.add_tile(Tile(49, 21, tile_grid(49, 21, 181).astype("float32")))
+    for scene in ("plain", "translucent", "flat_straight"):
+        params = Config.from_dict(golden_config(scene)).into_params(terrain)
+        gpu = render_fast(params, terrain, dev).image
+        cpu = render_fast(params, terrain, "cpu").image
+        ok, fa, fb, mx = image_tolerance(gpu, cpu)
+        check(ok, f"golden fast_{scene}: any={fa:.4f} big={fb:.4f} out of tolerance")
+        say(f"[goldens] fast_{scene}: cuda vs cpu plain any={fa:.4f} "
+            f"big={fb:.4f} max={mx}")
+
+
+def headline_terrain(params):
+    """45 synthetic 1201-post tiles covering the headline's terrain box."""
+    from atm_raytracer_tpu_torch.generators.fast import terrain_bbox
+    from atm_raytracer_tpu_torch.terrain.store import Terrain, Tile
+
+    (la0, la1), (lo0, lo1) = terrain_bbox(params)
+    terrain = Terrain()
+    for la in range(math.floor(la0), math.floor(la1) + 1):
+        for lo in range(math.floor(lo0), math.floor(lo1) + 1):
+            terrain.add_tile(Tile(la, lo, tile_grid(la, lo, 1201).astype("float32")))
+    return terrain
+
+
+def headline_params(width=1920, height=1080, max_distance=200_000.0, step=50.0):
+    from atm_raytracer_tpu_torch.config import Config
+
+    return Config.from_dict({
+        "view": {
+            "position": {"latitude": LAT0, "longitude": LON0,
+                         "altitude": {"Relative": 100.0}},
+            "frame": {"direction": 45.0, "fov": 40.0, "max_distance": max_distance},
+        },
+        "simulation_step": step,
+        "output": {"width": width, "height": height},
+    }).into_params(None)
+
+
+def headline_inputs(params, terrain, dev):
+    """The render's device inputs, as ``render_fast`` builds them: positional
+    and keyword arguments of ``fast.fast_core``."""
+    import numpy as np
+    import torch
+
+    from atm_raytracer_tpu_torch.generators import fast
+
+    out, frame, pos = params.output, params.view.frame, params.view.position
+    alt0 = float(pos.abs_altitude(terrain))
+    elev = fast.camera.fast_ray_elevations(out.width, out.height, frame.fov, frame.tilt)
+    az = fast.camera.fast_ray_azimuths(out.width, out.height, frame.fov, frame.direction)
+    args = (
+        terrain.pack(*fast.terrain_bbox(params), dev),
+        fast.build_refraction_table(params, alt0, dev),
+        torch.from_numpy(elev.astype(np.float32)).to(dev),
+        torch.from_numpy(az.astype(np.float32)).to(dev),
+        alt0,
+    )
+    kwargs = dict(
+        model=params.model, shape=params.model.to_shape(),
+        straight=params.straight_rays, step=float(params.simulation_step),
+        n_terr=int(math.ceil(frame.max_distance / params.simulation_step)),
+        max_hits=1, lat0=float(pos.latitude), lon0=float(pos.longitude),
+        coloring=params.coloring, fog_distance=params.view.fog_distance,
+        terrain_alpha=float(params.terrain_alpha),
+    )
+    return args, kwargs
+
+
+def phase_headline(dev, params, terrain, renders=20):
+    import numpy as np
+    import torch
+
+    from atm_raytracer_tpu_torch import _kernels
+    from atm_raytracer_tpu_torch.generators import fast
+    from atm_raytracer_tpu_torch.ops import combine
+    from atm_raytracer_tpu_torch.physics import ray as R
+
+    out = params.output
+    # the main path, counted; this first render is also the warm-up
+    for k in _kernels.KERNELS:
+        k.launches = 0
+    result = fast.render_fast(params, terrain, dev)
+    torch.cuda.synchronize()
+    launches = {k.source: k.launches for k in _kernels.KERNELS}
+    say(f"[headline] launches in one render: {launches}")
+    for src, count in launches.items():
+        check(count > 0, f"{src}: no launch in the headline render")
+
+    image = result.image
+    hits = result.hits
+    check(image.shape == (out.height, out.width, 3), f"image shape {image.shape}")
+    valid = hits.valid.cpu().numpy()
+    keys = hits.key.cpu().numpy()
+    frac_hit = float(valid.mean())
+    check(np.isfinite(keys[valid]).all(), "non-finite key on a valid hit")
+    check(0.05 < frac_hit < 0.95, f"implausible hit fraction {frac_hit}")
+    (args, kw) = headline_inputs(params, terrain, dev)
+    n_terr, step = kw["n_terr"], kw["step"]
+    check(bool((keys[valid] < n_terr).all()), "hit key past the march")
+    say(f"[headline] image {image.shape}, hit fraction {frac_hit:.4f}")
+
+    walls = []
+    for _ in range(renders):
+        t0 = time.perf_counter()
+        fast.render_fast(params, terrain, dev)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    q1, med, q3 = statistics.quantiles(walls, n=4)
+    say(f"[headline] frame wall over {renders} renders after the warm-up: "
+        f"median {med * 1e3:.3f} ms (min {min(walls) * 1e3:.3f}, q1 {q1 * 1e3:.3f}, "
+        f"q3 {q3 * 1e3:.3f}, max {max(walls) * 1e3:.3f})")
+
+    # the plain path on the card: same pipeline, plain march + plain combine;
+    # a pixel's segment is floor(key) where it holds a hit
+    plain = fast.render_fast(params, terrain, dev, plain=True)
+    ok, fa, fb, mx = image_tolerance(image, plain.image)
+    check(ok, f"headline kernel vs plain image out of tolerance: any={fa} big={fb}")
+    say(f"[headline] kernel vs plain image: any={fa:.5f} big={fb:.5f} max={mx}")
+    p_valid = plain.hits.valid
+    check(torch.equal(hits.valid, p_valid), "kernel path vs plain path: hit masks differ")
+    seg_bad = int((torch.floor(hits.key) != torch.floor(plain.hits.key))[p_valid].sum())
+    check(seg_bad == 0, f"kernel path vs plain path: {seg_bad} segments differ")
+    say(f"[headline] segments: kernel path == plain path ({p_valid.numel()} pixels)")
+
+    # each kernel on the headline's own inputs, against its plain version
+    pack, table, elev, az, alt0 = args
+    shape = kw["shape"]
+    ray_h, _ = fast.march_rows(table, elev, alt0, shape=shape, straight=False,
+                               step=step, n_terr=n_terr)
+    terr, _ = fast.terrain_columns(pack, params.model, az, LAT0, LON0, step, n_terr)
+    n_seg = n_terr - 1
+    segs_k = combine.crossing_segments_cuda(ray_h, terr, n_seg, 1)
+    segs_p = combine.terrain_crossing_segments_plain(ray_h, terr, n_seg, 1)
+    k1_bad = int((segs_k != segs_p).sum())
+    check(k1_bad == 0, f"K1 vs plain on the headline inputs: {k1_bad} differ")
+    k1_err = float((segs_k.long() - segs_p.long()).abs().max())
+
+    coarse = R.march_coarse(step)
+    n_coarse = -(-(n_terr - 1) // coarse)
+    dx = float(step * coarse)
+    alt = torch.full_like(elev, alt0)
+    v0 = R.initial_slope(alt, torch.deg2rad(elev), shape)
+    hk, _ = R.march_nodes(alt, v0, dx, n_coarse, table, shape.radius)
+    hp, _ = R.march_nodes_plain(alt, v0, dx, n_coarse, table, shape.radius)
+    k2_err = float((hk - hp).abs().max())
+    check(k2_err <= K2_ATOL, f"K2 headline nodes differ by {k2_err} m")
+
+    k1_ms = cuda_ms(lambda: combine.crossing_segments_cuda(ray_h, terr, n_seg, 1), 5)
+    k1_plain_ms = cuda_ms(
+        lambda: combine.terrain_crossing_segments_plain(ray_h, terr, n_seg, 1), 2)
+    k2_ms = cuda_ms(lambda: R.march_nodes(alt, v0, dx, n_coarse, table, shape.radius), 20)
+    k2_plain_ms = cuda_ms(
+        lambda: R.march_nodes_plain(alt, v0, dx, n_coarse, table, shape.radius), 2)
+    say(f"[headline] K1 {k1_ms:.3f} ms vs plain {k1_plain_ms:.3f} ms "
+        f"([{out.height}, {out.width}] x {n_seg} segments)")
+    say(f"[headline] K2 {k2_ms:.3f} ms vs plain {k2_plain_ms:.3f} ms "
+        f"({out.height} rays x {n_coarse} steps, max |dh| {k2_err:.3g} m)")
+    kernels = [
+        {"name": "K1 crossing_segments", "route": "cuda",
+         "source": "atm_raytracer_tpu_torch/csrc/combine.cu",
+         "replaces": "atm_raytracer_tpu/experimental/combine_pallas.py:89",
+         "launches": launches["combine.cu"], "max_abs_err": k1_err,
+         "ms": k1_ms, "plain_ms": k1_plain_ms},
+        {"name": "K2 march_nodes", "route": "cuda",
+         "source": "atm_raytracer_tpu_torch/csrc/march.cu",
+         "replaces": "atm_raytracer_tpu/experimental/march_pallas.py:18",
+         "launches": launches["march.cu"], "max_abs_err": k2_err,
+         "ms": k2_ms, "plain_ms": k2_plain_ms},
+    ]
+    return kernels, med
+
+
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def busy_us(spans) -> float:
+    """Length of the union of (start, end) intervals."""
+    total, cur_s, cur_e = 0.0, None, None
+    for s, e in sorted(spans):
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                total += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    return total + ((cur_e - cur_s) if cur_e is not None else 0.0)
+
+
+def phase_profile(dev, params, terrain, wall_s, renders=3, reps=10):
+    """Where the headline frame's time goes.
+
+    Device busy time is the union of the device intervals (kernels, copies,
+    memsets) of a torch.profiler trace of ``renders`` renders, so overlapping
+    or nested records cannot count twice; the idle share is one less the busy
+    time over the median frame wall of the headline phase (unprofiled).
+    Stage times are CUDA-event means of ``reps`` runs of each stage alone;
+    shares are of the stages' own sum. The trace is kept in
+    ``chiprun_out/headline_trace.json``.
+    """
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from atm_raytracer_tpu_torch.generators import fast
+    from atm_raytracer_tpu_torch.ops import combine
+
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    trace = out_dir / "headline_trace.json"
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(renders):
+            fast.render_fast(params, terrain, dev)
+        torch.cuda.synchronize()
+        prof_wall = time.perf_counter() - t0
+    prof.export_chrome_trace(str(trace))
+    events = [e for e in json.loads(trace.read_text())["traceEvents"]
+              if e.get("ph") == "X" and e.get("cat") in DEVICE_CATS]
+    check(bool(events), "the profiler recorded no device activity")
+    spans = [(float(e["ts"]), float(e["ts"]) + float(e["dur"])) for e in events]
+    busy_ms = busy_us(spans) / 1e3 / renders
+    sum_ms = sum(e - s for s, e in spans) / 1e3 / renders
+    say(f"[profile] {renders} renders, {len(events)} device records: device busy "
+        f"{busy_ms:.3f} ms a frame (sum of record durations {sum_ms:.3f} ms), "
+        f"profiled wall {prof_wall * 1e3 / renders:.3f} ms a frame")
+    say(f"[profile] idle share of the {wall_s * 1e3:.3f} ms median frame wall: "
+        f"{1.0 - busy_ms / (wall_s * 1e3):.4f}")
+    by_name: dict = {}
+    for e in events:
+        by_name[e["name"]] = by_name.get(e["name"], 0.0) + float(e["dur"])
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
+        say(f"[profile]   {us / 1e3 / renders:8.3f} ms a frame  {name[:90]}")
+
+    args, kw = headline_inputs(params, terrain, dev)
+    pack, table, elev, az, alt0 = args
+    n_terr, step = kw["n_terr"], kw["step"]
+    ray_h, _ = fast.march_rows(table, elev, alt0, shape=kw["shape"],
+                               straight=False, step=step, n_terr=n_terr)
+    terr, _ = fast.terrain_columns(pack, params.model, az, LAT0, LON0, step, n_terr)
+    hit_kw = {k: v for k, v in kw.items() if k not in ("coloring", "fog_distance")}
+    image, _ = fast.fast_core(*args, **kw)
+    t = {
+        "march (K2 + Hermite + cumsum)": cuda_ms(lambda: fast.march_rows(
+            table, elev, alt0, shape=kw["shape"], straight=False, step=step,
+            n_terr=n_terr), reps),
+        "terrain columns": cuda_ms(lambda: fast.terrain_columns(
+            pack, params.model, az, LAT0, LON0, step, n_terr), reps),
+        "combine (K1)": cuda_ms(lambda: combine.terrain_crossing_segments(
+            ray_h, terr, n_terr - 1, 1), reps),
+    }
+    hits_ms = cuda_ms(lambda: fast.separable_hits(*args, **hit_kw), reps)
+    core_ms = cuda_ms(lambda: fast.fast_core(*args, **kw), reps)
+    t["gathers + per-hit geodesic (derived)"] = hits_ms - sum(t.values())
+    t["composite (derived)"] = core_ms - hits_ms
+    t["image to host"] = cuda_ms(lambda: image.cpu(), reps)
+    total = sum(t.values())
+    for name, ms in t.items():
+        say(f"[profile] stage {name}: {ms:.3f} ms ({100.0 * ms / total:.1f} % of "
+            f"the stages' {total:.3f} ms)")
+    torch.cuda.reset_peak_memory_stats(dev)
+    fast.render_fast(params, terrain, dev)
+    say(f"[profile] peak device memory of one render: "
+        f"{torch.cuda.max_memory_allocated(dev) / 2**20:.1f} MiB")
+
+
+def main() -> int:
+    try:
+        import torch
+    except ImportError:
+        say("FAIL: PyTorch is not installed")
+        return 1
+    if not torch.cuda.is_available():
+        say("FAIL: torch.cuda.is_available() is false; this check needs a GPU")
+        return 1
+    sys.path.insert(0, str(ROOT))
+    try:
+        import atm_raytracer_tpu_torch  # noqa: F401
+    except ImportError as e:
+        say(f"FAIL: the atm_raytracer_tpu_torch package is not beside "
+            f"chip_smoke.py ({e})")
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda:0")
+    try:
+        name = phase_device()
+        phase_build()
+        phase_kernels(dev)
+        phase_goldens(dev)
+        params = headline_params()
+        t0 = time.perf_counter()
+        terrain = headline_terrain(params)
+        say(f"[headline] {len(terrain._loaded)} tiles of 1201 posts built in "
+            f"{time.perf_counter() - t0:.1f} s")
+        kernels, wall_s = phase_headline(dev, params, terrain)
+        phase_profile(dev, params, terrain, wall_s)
+    except SmokeFailure as e:
+        say(f"FAIL: {e}")
+        return 1
+    check_jax = [m for m in sys.modules if m == "jax" or m.startswith("jax.")]
+    if check_jax:
+        say(f"FAIL: jax was imported: {check_jax[:3]}")
+        return 1
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name, "count": torch.cuda.device_count(),
+    }}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

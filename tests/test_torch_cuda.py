@@ -1,0 +1,120 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Every test here needs an NVIDIA GPU with nvcc and skips elsewhere. The file
+imports neither JAX nor the JAX package, so on a machine without JAX it runs
+without the suite's conftest:
+
+    python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from atm_raytracer_tpu_torch import _kernels  # noqa: E402
+from atm_raytracer_tpu_torch.config import Config  # noqa: E402
+from atm_raytracer_tpu_torch.generators.fast import render_fast  # noqa: E402
+from atm_raytracer_tpu_torch.ops import combine  # noqa: E402
+from atm_raytracer_tpu_torch.physics import ray as R  # noqa: E402
+from atm_raytracer_tpu_torch.physics.atmosphere import Atmosphere, us_76  # noqa: E402
+from atm_raytracer_tpu_torch.terrain.store import Terrain, Tile  # noqa: E402
+from torch_parity import cuda_device, verify_tolerance  # noqa: E402,F401
+
+pytestmark = pytest.mark.cuda
+
+
+def _fan(seed, h_n, w_n, n_seg, extra=0):
+    rng = np.random.default_rng(seed)
+    ray = (120.0 + np.linspace(-3.0, 1.0, h_n)[:, None] * np.arange(n_seg + 1)[None, :]
+           + rng.normal(0.0, 2.0, (h_n, n_seg + 1)))
+    terr = (100.0 + 30.0 * np.sin(np.arange(n_seg + 1 + extra) / 5.0)[None, :]
+            + rng.uniform(-5.0, 5.0, (w_n, n_seg + 1 + extra)))
+    return ray.astype(np.float32), terr.astype(np.float32), n_seg
+
+
+def _death(floor):
+    ray = np.full((1, 51), 10.0, np.float32)
+    ray[0, 10:] = -2000.0 if floor == 0.0 else -1100.0
+    if floor == 0.0:
+        ray[0, 20:] = 50.0  # resurfaces after death: must not count
+    return ray, np.full((1, 51), floor, np.float32), 50
+
+
+COMBINE_CASES = {
+    "fan": lambda: _fan(1, 6, 7, 50),
+    "ragged": lambda: _fan(2, 37, 45, 301, extra=9),
+    "tall": lambda: _fan(3, 130, 33, 1000),
+    "death": lambda: _death(0.0),
+    "deep_terrain": lambda: _death(-1500.0),
+}
+
+
+@pytest.mark.parametrize("max_hits", [1, 2, 3, 4])
+@pytest.mark.parametrize("case", list(COMBINE_CASES))
+def test_combine_kernel_equals_plain(case, max_hits, cuda_device):
+    ray, terr, n_seg = COMBINE_CASES[case]()
+    r = torch.from_numpy(ray).to(cuda_device)
+    t = torch.from_numpy(terr).to(cuda_device)
+    before = _kernels.COMBINE.launches
+    got = combine.terrain_crossing_segments(r, t, n_seg, max_hits)
+    assert _kernels.COMBINE.launches == before + 1
+    want = combine.terrain_crossing_segments_plain(r, t, n_seg, max_hits)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    cpu = combine.terrain_crossing_segments(torch.from_numpy(ray), torch.from_numpy(terr),
+                                            n_seg, max_hits)
+    assert torch.equal(got.cpu(), cpu)
+
+
+@pytest.fixture(scope="module")
+def table():
+    return R.RefractionTable.build(Atmosphere(us_76()), 530e-9, h_hi=30000.0)
+
+
+@pytest.mark.parametrize("l_form", ["poly", "table"])
+@pytest.mark.parametrize("radius", [6_371_000.0, None], ids=["sphere", "flat"])
+def test_march_kernel_matches_plain(table, l_form, radius, cuda_device):
+    tb = dataclasses.replace(
+        table, values=table.values.to(cuda_device), pairs=table.pairs.to(cuda_device),
+        poly=table.poly if l_form == "poly" else None,
+    )
+    elev = torch.deg2rad(torch.linspace(-0.6, 1.5, 1000, device=cuda_device))
+    alt = torch.full_like(elev, 100.0)
+    v0 = R.initial_slope(alt, elev, R.EarthShape(radius))
+    before = _kernels.MARCH.launches
+    hk, vk = R.march_nodes(alt, v0, 800.0, 250, tb, radius)
+    assert _kernels.MARCH.launches == before + 1
+    assert hk.shape == (251, 1000) and vk.shape == (251, 1000)
+    hp, _ = R.march_nodes_plain(alt, v0, 800.0, 250, tb, radius)
+    torch.cuda.synchronize()
+    assert float((hk - hp).abs().max()) <= 2e-2  # m, as the Pallas march
+
+
+def _hills(n=121):
+    lat = np.arange(n)[:, None] / (n - 1)
+    lon = np.arange(n)[None, :] / (n - 1)
+    return np.round(300.0 + 250.0 * np.sin(6 * np.pi * lat) * np.cos(4 * np.pi * lon)
+                    + 120.0 * np.sin(2 * np.pi * (7 * lat + 5 * lon))).astype(np.float32)
+
+
+@pytest.mark.parametrize("alpha", [1.0, 0.65])
+def test_render_on_card_matches_cpu(alpha, cuda_device):
+    terrain = Terrain()
+    terrain.add_tile(Tile(49, 21, _hills()))
+    params = Config.from_dict({
+        "view": {"position": {"latitude": 49.5, "longitude": 21.5,
+                              "altitude": {"Relative": 30.0}},
+                 "frame": {"direction": 45.0, "fov": 25.0, "max_distance": 25000.0}},
+        "scene": {"terrain_alpha": alpha},
+        "simulation_step": 100.0,
+        "output": {"width": 96, "height": 64},
+    }).into_params(terrain)
+    before = [k.launches for k in _kernels.KERNELS]
+    gpu = render_fast(params, terrain, cuda_device)
+    assert [k.launches for k in _kernels.KERNELS] == [b + 1 for b in before]
+    cpu = render_fast(params, terrain, "cpu")
+    ok, frac_any, frac_big = verify_tolerance(gpu.image, cpu.image)
+    assert ok, (frac_any, frac_big)

@@ -1,0 +1,149 @@
+"""End-to-end parity of the PyTorch port's Fast render with the JAX package,
+its CLI, and the guards of the ported slice.
+
+The three golden Fast scenes (tests/test_golden.py) render on the CPU with
+the port's plain path and must sit within the on-chip verify tolerance
+(bench.py:548-551) of both the JAX render and the committed golden PNG.
+"""
+
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
+
+import test_golden as G  # noqa: E402
+from atm_raytracer_tpu.config import Config as JConfig  # noqa: E402
+from atm_raytracer_tpu.generators import render_fast as j_render_fast  # noqa: E402
+from atm_raytracer_tpu.terrain.store import Terrain as JTerrain  # noqa: E402
+from atm_raytracer_tpu_torch import cli  # noqa: E402
+from atm_raytracer_tpu_torch.config import Config as TConfig  # noqa: E402
+from atm_raytracer_tpu_torch.generators import fast as T  # noqa: E402
+from atm_raytracer_tpu_torch.terrain.store import Terrain as TTerrain  # noqa: E402
+from fixtures import make_terrain_folder  # noqa: E402
+from torch_parity import verify_tolerance  # noqa: E402
+
+REPO = Path(__file__).resolve().parent.parent
+FAST_SCENES = ("plain", "translucent", "flat_straight")
+
+
+@pytest.fixture(scope="module")
+def terrain_dir(tmp_path_factory):
+    d = tmp_path_factory.mktemp("torch_golden")
+    return make_terrain_folder(d, tiles=((49, 21),), n=181)
+
+
+def _config(scene, terrain_dir):
+    cfg = G._base_config(**G.SCENES[scene])
+    cfg["scene"]["terrain_folder"] = str(terrain_dir)
+    return cfg
+
+
+def _golden(scene):
+    from PIL import Image
+
+    return np.asarray(Image.open(G.GOLDEN_DIR / f"fast_{scene}.png").convert("RGB"))
+
+
+@pytest.mark.parametrize("scene", FAST_SCENES)
+def test_golden_scene_matches_jax_and_golden(scene, terrain_dir):
+    cfg = _config(scene, terrain_dir)
+    jt = JTerrain.from_folder(terrain_dir)
+    jres = j_render_fast(JConfig.from_dict(cfg).into_params(jt), jt)
+    tt = TTerrain.from_folder(terrain_dir)
+    tres = T.render_fast(TConfig.from_dict(cfg).into_params(tt), tt, "cpu")
+
+    assert tres.image.shape == jres.image.shape and tres.image.dtype == np.uint8
+    for other in (np.asarray(jres.image), _golden(scene)):
+        ok, frac_any, frac_big = verify_tolerance(tres.image, other)
+        assert ok, (scene, frac_any, frac_big)
+    np.testing.assert_allclose(tres.azimuth_deg, jres.azimuth_deg)
+    np.testing.assert_allclose(tres.observer, jres.observer)
+
+    jv = np.asarray(jres.hits.valid)
+    tv = tres.hits.valid.numpy()
+    assert (jv != tv).mean() <= 0.01
+    both = jv & tv
+    np.testing.assert_allclose(tres.hits.key.numpy()[both],
+                               np.asarray(jres.hits.key)[both], atol=1e-3)
+    np.testing.assert_allclose(tres.hits.elevation.numpy()[both],
+                               np.asarray(jres.hits.elevation)[both], atol=0.05)
+
+
+def test_cli_gen_writes_golden_png(tmp_path, terrain_dir):
+    import yaml
+
+    cfg = _config("plain", terrain_dir)
+    cfg["output"]["file"] = "out.png"
+    (tmp_path / "cfg.yaml").write_text(yaml.safe_dump(cfg))
+    proc = subprocess.run(
+        [sys.executable, "-m", "atm_raytracer_tpu_torch.cli", "gen",
+         "-c", "cfg.yaml", "--device", "cpu"],
+        cwd=tmp_path, capture_output=True, text=True, timeout=300,
+        env={**os.environ, "PYTHONPATH": str(REPO), "OMP_NUM_THREADS": "1"},
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert "Done." in proc.stdout
+    from PIL import Image
+
+    img = np.asarray(Image.open(tmp_path / "out.png").convert("RGB"))
+    ok, frac_any, frac_big = verify_tolerance(img, _golden("plain"))
+    assert ok, (frac_any, frac_big)
+
+
+def test_port_modules_import_no_jax():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import atm_raytracer_tpu_torch as p\n"
+        "names = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
+        "for n in names: importlib.import_module(n)\n"
+        "assert len(names) >= 20, names\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')]\n"
+        "assert not bad, bad\n"
+        "print(len(names))\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+
+
+@pytest.mark.parametrize("extra", [
+    {"scene": {"objects": [{
+        "position": {"latitude": 49.51, "longitude": 21.51,
+                     "altitude": {"Relative": 0.0}},
+        "shape": {"Cylinder": {"radius": 25.0, "height": 200.0}},
+        "color": {"r": 0.1, "g": 0.2, "b": 0.9},
+    }]}},
+    {"output": {"file_metadata": "meta.npz"}},
+    {"output": {"ticks": [{"Single": {"azimuth": 40.0, "size": 5, "labelled": True}}]}},
+    {"output": {"show_eye_level": True}},
+    {"output": {"generator": "Rectilinear"}},
+], ids=["objects", "metadata", "ticks", "eye_level", "generator"])
+def test_unported_features_raise(extra, terrain_dir):
+    cfg = _config("plain", terrain_dir)
+    for key, val in extra.items():
+        cfg[key].update(val)
+    config = TConfig.from_dict(cfg)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        cli.check_supported(config)
+
+
+def test_render_fast_refuses_objects(terrain_dir):
+    cfg = _config("plain", terrain_dir)
+    cfg["scene"]["objects"] = G.SCENES["objects"]["scene"]["objects"]
+    tt = TTerrain.from_folder(terrain_dir)
+    with pytest.raises(NotImplementedError, match="A9"):
+        T.render_fast(TConfig.from_dict(cfg).into_params(tt), tt, "cpu")
+
+
+def test_cli_refuses_cuda_without_a_card(monkeypatch, capsys):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        cli.resolve_device("cuda")
+    assert cli.main(["gen", "--device", "cuda", "-t", "/nonexistent"]) == 1
+    assert "is_available() is false" in capsys.readouterr().err
