@@ -8,9 +8,10 @@ src/generator/params.rs:531-676). Short flags are preserved, including
 a GPU the command fails loudly; ``--device cpu`` renders with the plain
 PyTorch versions of the kernels.
 
-This package renders the Fast generator without scene objects; the other
-generators, metadata output, annotations, ``view`` and the diagnostic tools
-are not ported yet and are refused with the ROADMAP item that will port them.
+This package renders the Fast and Rectilinear generators without scene
+objects; InterpolatingRectilinear, metadata output, annotations, ``view`` and
+the diagnostic tools are not ported yet and are refused with the ROADMAP item
+that will port them.
 """
 
 from __future__ import annotations
@@ -48,7 +49,7 @@ def _add_gen_parser(subparsers):
     p.add_argument("-c", "--config", dest="config")
     p.add_argument("--generator", dest="generator",
                    choices=["Fast", "Rectilinear", "InterpolatingRectilinear"],
-                   help="Override the generator (only Fast is ported)")
+                   help="Override the generator (Fast and Rectilinear are ported)")
     p.add_argument("--device", dest="device", default="cuda",
                    help="torch device to render on (default: cuda)")
     p.set_defaults(func=run_gen)
@@ -58,10 +59,9 @@ def check_supported(config) -> None:
     """Raise NotImplementedError for any part of a config this package does
     not render yet, naming the ROADMAP item that ports it."""
     out = config.output
-    if out.generator != "Fast":
-        item = "A10" if out.generator == "Rectilinear" else "A11"
+    if out.generator == "InterpolatingRectilinear":
         raise NotImplementedError(
-            f"generator {out.generator} is not ported yet (ROADMAP {item})"
+            "generator InterpolatingRectilinear is not ported yet (ROADMAP A11)"
         )
     if config.scene.objects:
         raise NotImplementedError("scene objects are not ported yet (ROADMAP A9)")
@@ -93,6 +93,7 @@ def resolve_device(name: str):
 def run_gen(args) -> int:
     from .config import Config, merge_cli, parse_config
     from .generators.fast import render_fast
+    from .generators.rectilinear import render_rectilinear
     from .render.image import save_png
     from .terrain.store import Terrain
 
@@ -110,8 +111,10 @@ def run_gen(args) -> int:
     phase(f"Using terrain data directory: {terrain_folder}")
     terrain = Terrain.from_folder(terrain_folder)
     params = config.into_params(terrain)
-    phase(f"Generating (Fast) on {device}...")
-    result = render_fast(params, terrain, device)
+    generator = params.output.generator
+    render = render_rectilinear if generator == "Rectilinear" else render_fast
+    phase(f"Generating ({generator}) on {device}...")
+    result = render(params, terrain, device)
     phase("100%...")
     phase("Outputting image...")
     save_png(result.image, Path(os.getcwd()) / params.output.file)

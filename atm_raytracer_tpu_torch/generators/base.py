@@ -10,6 +10,7 @@ Positions are observer-relative degrees.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
@@ -35,6 +36,9 @@ class RenderResult:
 
     image: np.ndarray  # [H, W, 3] uint8
     hits: HitBuffer
-    elevation_deg: np.ndarray  # [H]
-    azimuth_deg: np.ndarray  # [W], wrapped to [0, 360)
+    # Fast: [H] and [W] (azimuth wrapped to [0, 360)); Rectilinear: [H, W]
+    # each, host f64 (azimuth from atan2, in (-180, 180])
+    elevation_deg: np.ndarray
+    azimuth_deg: np.ndarray
     observer: tuple  # (lat0, lon0, alt_abs)
+    culled_rounds: Optional[int] = None  # rounds the culled Rectilinear path ran

@@ -8,6 +8,8 @@ both packages the same refraction table and terrain mosaic this way.
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 
@@ -24,9 +26,13 @@ def table_from_arrays(h0, inv_dh, values, poly, device="cpu") -> RefractionTable
 
 
 def pack_from_arrays(tiles, rows_m1, cols_m1, lat_min: int, lon_min: int,
-                     n_rows: int, n_cols: int, device="cpu") -> TerrainPack:
+                     n_rows: int, n_cols: int, device="cpu",
+                     grad_bound: float = math.inf,
+                     seam_jump: float = math.inf) -> TerrainPack:
     """A plain ``TerrainPack`` from a [T, S, S] tile stack (int16 or f32)
-    and its per-slot (rows−1, cols−1) scales."""
+    and its per-slot (rows−1, cols−1) scales. Pass the JAX pack's
+    ``grad_bound`` and ``seam_jump``; left unknown they are infinite, which
+    is conservative: the culled Rectilinear path then culls nothing."""
     tiles = np.asarray(tiles)
     if tiles.dtype not in (np.int16, np.float32):
         raise ValueError(f"tiles must be int16 or float32, got {tiles.dtype}")
@@ -40,4 +46,6 @@ def pack_from_arrays(tiles, rows_m1, cols_m1, lat_min: int, lon_min: int,
         lon_min=int(lon_min),
         n_rows=int(n_rows),
         n_cols=int(n_cols),
+        grad_bound=float(grad_bound),
+        seam_jump=float(seam_jump),
     )

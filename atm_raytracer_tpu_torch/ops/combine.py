@@ -184,12 +184,12 @@ def crossing_prop(ray_h, terr_elev, ks):
 def _gather_pairs(field: torch.Tensor, row_axis: int, ki: torch.Tensor):
     """Both segment-end values of ``field`` rows at integer segments ``ki``.
 
-    field: [R, N(, D)]; ki: [H, W, K] int with the field row given by axis
+    field: [R, N(, D)]; ki: [...] int with the field row given by axis
     ``row_axis`` of ki (0: ray rows, 1: terrain columns). Segments clamp to
     [0, N-2]. Returns (lo, hi) shaped ki(+D).
     """
     n = field.shape[1]
-    shape = [1, 1, 1]
+    shape = [1] * ki.ndim
     shape[row_axis] = ki.shape[row_axis]
     rows = torch.arange(ki.shape[row_axis], device=ki.device).reshape(shape)
     k = ki.to(torch.int64).clamp(0, n - 2)
@@ -204,6 +204,14 @@ def gather_ray_pairs(field: torch.Tensor, ki: torch.Tensor):
 def gather_column_pairs(field: torch.Tensor, ki: torch.Tensor):
     """(lo, hi) of a per-column field [W, N_t(,D)] at segments ki [H, W, K]."""
     return _gather_pairs(field, 1, ki)
+
+
+def gather_ray_field(field: torch.Tensor, keys: torch.Tensor) -> torch.Tensor:
+    """Lerp a per-ray field [B, N+1] at float keys [B, ...] (k + prop)."""
+    k = torch.floor(keys)
+    prop = keys - k
+    lo, hi = _gather_pairs(field, 0, k.to(torch.int64))
+    return lo * (1.0 - prop) + hi * prop
 
 
 def terrain_crossing_keys(ray_h, terr_elev, n_seg: int, max_hits: int = 1):

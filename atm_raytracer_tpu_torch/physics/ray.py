@@ -13,11 +13,17 @@ All rays march in lockstep. The coarse RK4 node loop is the hot, sequential
 part: ``march_nodes`` runs it as the CUDA kernel ``csrc/march.cu`` on CUDA
 tensors and as the plain PyTorch loop ``march_nodes_plain`` on CPU tensors.
 Hermite dense output and the path-length cumsum are tensor ops.
+
+The per-pixel Rectilinear generator marches through the fused scans
+``march_scan_light`` and ``march_scan``: Python loops over coarse windows
+that hand each window to a consumer, so the [..., N] altitude grid never
+exists. They have no kernel yet; they run as PyTorch ops on any device.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional, Tuple
 
 import numpy as np
@@ -183,23 +189,28 @@ def _eval_l(table: RefractionTable, h: torch.Tensor) -> torch.Tensor:
 
 
 def _acceleration(h, v, l, radius: Optional[float]):
-    """h'' per the module-docstring ODE, given l(h)."""
+    """h'' per the module-docstring ODE, given l(h); ``l`` None drops the
+    refraction term (straight rays: zero on the flat shape, the curved-
+    coordinate geometry term on the sphere)."""
     if radius is None:
-        return l * (1.0 + v * v)
+        return torch.zeros_like(h) if l is None else l * (1.0 + v * v)
     inv_r = _f32(1.0 / radius)
     u = 1.0 + h * inv_r
     geom = (u * u + 2.0 * v * v) / u * inv_r
-    return l * (u * u + v * v) + geom
+    return geom if l is None else l * (u * u + v * v) + geom
 
 
-def _rk4_step(h, v, dx: float, table: RefractionTable, radius):
-    """One classic RK4 step; l(h) at stage heights predicted from the
-    carried slope (h, h + dx/2·v, h + dx·v), l2 serving both k2 and k3."""
+def _rk4_stages(h, v, dx: float, table: Optional[RefractionTable], radius):
+    """The four RK4 stages (k·h, k·v) of one step; l(h) at stage heights
+    predicted from the carried slope (h, h + dx/2·v, h + dx·v), l2 serving
+    both k2 and k3. ``table`` None integrates without refraction."""
     half = _f32(np.float32(0.5) * np.float32(dx))
-    sixth = _f32(np.float32(dx) / np.float32(6.0))
-    l1 = _eval_l(table, h)
-    l2 = _eval_l(table, h + half * v)
-    l4 = _eval_l(table, h + dx * v)
+    if table is None:
+        l1 = l2 = l4 = None
+    else:
+        l1 = _eval_l(table, h)
+        l2 = _eval_l(table, h + half * v)
+        l4 = _eval_l(table, h + dx * v)
     k1v = _acceleration(h, v, l1, radius)
     k1h = v
     k2h = v + half * k1v
@@ -208,14 +219,213 @@ def _rk4_step(h, v, dx: float, table: RefractionTable, radius):
     k3v = _acceleration(h + half * k2h, k3h, l2, radius)
     k4h = v + dx * k3v
     k4v = _acceleration(h + dx * k3h, k4h, l4, radius)
-    h_new = h + sixth * (k1h + 2.0 * k2h + 2.0 * k3h + k4h)
-    v_new = v + sixth * (k1v + 2.0 * k2v + 2.0 * k3v + k4v)
-    return h_new, v_new
+    return (k1h, k2h, k3h, k4h), (k1v, k2v, k3v, k4v)
+
+
+def _rk4_combine(x, ks, dx: float):
+    """x + dx/6 · (k1 + 2 k2 + 2 k3 + k4)."""
+    sixth = _f32(np.float32(dx) / np.float32(6.0))
+    k1, k2, k3, k4 = ks
+    return x + sixth * (k1 + 2.0 * k2 + 2.0 * k3 + k4)
+
+
+def _rk4_step(h, v, dx: float, table: Optional[RefractionTable], radius):
+    """One classic RK4 step of (h, h')."""
+    kh, kv = _rk4_stages(h, v, dx, table, radius)
+    return _rk4_combine(h, kh, dx), _rk4_combine(v, kv, dx)
+
+
+def _path_speed(h, v, radius):
+    """dP/dx, the integrand of the reference's chord-sum path length
+    (utils.rs:42-53): flat √(1+h'²); spherical √(((h+R)/R)² + h'²)."""
+    if radius is None:
+        return torch.sqrt(1.0 + v * v)
+    u = 1.0 + h / radius
+    return torch.sqrt(u * u + v * v)
+
+
+def _rk4_step_quad(h, v, p, dx: float, table: Optional[RefractionTable], radius):
+    """One RK4 step carrying (h, h', path length): P by the 4th-order
+    quadrature of dP/dx over the same stages. (h, h') are bitwise those of
+    ``_rk4_step`` from the same state."""
+    kh, kv = _rk4_stages(h, v, dx, table, radius)
+    half = _f32(np.float32(0.5) * np.float32(dx))
+    k1h, k2h, k3h, k4h = kh
+    f = (
+        _path_speed(h, k1h, radius),
+        _path_speed(h + half * k1h, k2h, radius),
+        _path_speed(h + half * k2h, k3h, radius),
+        _path_speed(h + dx * k3h, k4h, radius),
+    )
+    return _rk4_combine(h, kh, dx), _rk4_combine(v, kv, dx), _rk4_combine(p, f, dx)
 
 
 def march_coarse(step: float) -> int:
     """Coarse RK4 window length in march steps (~800 m of ground distance)."""
     return max(1, int(800.0 // step))
+
+
+def hermite_coeffs(coarse: int) -> np.ndarray:
+    """The cubic Hermite basis (b00, b10, b01, b11) at t = j/C, j = 0..C:
+    a host [4, C+1] float32 array, computed in float32 as the JAX package
+    computes it. The one copy that ``hermite_plane`` (as Python floats) and
+    ``hermite_window`` (as a device tensor) both read, so the two forms give
+    bitwise-equal samples."""
+    t = np.arange(coarse + 1, dtype=np.float32) / np.float32(coarse)
+    t2 = t * t
+    t3 = t2 * t
+    two, three = np.float32(2.0), np.float32(3.0)
+    return np.stack([
+        two * t3 - three * t2 + np.float32(1.0),
+        t3 - two * t2 + t,
+        -two * t3 + three * t2,
+        t3 - t2,
+    ])
+
+
+@functools.lru_cache(maxsize=16)
+def _hermite_basis(coarse: int, device: torch.device) -> torch.Tensor:
+    """``hermite_coeffs`` on a device, uploaded once (callers must not
+    write to it)."""
+    return torch.from_numpy(hermite_coeffs(coarse)).to(device)
+
+
+def hermite_plane(h, vdx, h1, v1dx, coeffs: np.ndarray, j: int):
+    """Fine Hermite sample ``j`` of a window from its node states, with
+    ``vdx = v·dx_window`` and ``v1dx = v1·dx_window`` hoisted: the same
+    products and the same left-to-right sum as element j of
+    ``hermite_window``, so the values are bitwise equal."""
+    b00, b10, b01, b11 = (float(c[j]) for c in coeffs)
+    return b00 * h + b10 * vdx + b01 * h1 + b11 * v1dx
+
+
+def hermite_window(h, v, h1, v1, dx_window: float, coarse: int):
+    """Fine Hermite samples [..., C+1] of one coarse window from its node
+    states (any leading shape)."""
+    b00, b10, b01, b11 = _hermite_basis(coarse, h.device)
+    return (
+        b00 * h[..., None] + b10 * (v * dx_window)[..., None]
+        + b01 * h1[..., None] + b11 * (v1 * dx_window)[..., None]
+    )
+
+
+def _seg_lengths(h_f: torch.Tensor, step: float, radius) -> torch.Tensor:
+    """Chord lengths [..., n-1] between consecutive fine samples h_f[..., n],
+    the reference's calc_dist (utils.rs:42-53): flat √(dx² + dh²); spherical
+    with dx scaled by (h_avg + R)/R."""
+    dxf = _f32(step)
+    dh = h_f[..., 1:] - h_f[..., :-1]
+    if radius is None:
+        return torch.sqrt(_f32(np.float32(dxf) * np.float32(dxf)) + dh * dh)
+    dx_eff = dxf * ((h_f[..., 1:] + h_f[..., :-1]) * 0.5 + radius) / radius
+    return torch.sqrt(dx_eff * dx_eff + dh * dh)
+
+
+def rk4_window(h, v, plen, step: float, coarse: int,
+               table: Optional[RefractionTable], straight: bool, radius):
+    """One coarse RK4 step + Hermite dense output + chord path lengths.
+
+    Returns (h_f [..., C+1], plen_f [..., C+1], h1, v1) from the window-start
+    state (h, v, plen) of any shape: exactly the values a ``march_scan``
+    window produces from that state, so a captured window re-expands
+    bitwise (the culled Rectilinear path and the tilt-0 K = 1 post-scan test
+    rely on it).
+    """
+    dx = _f32(step * coarse)
+    h1, v1 = _rk4_step(h, v, dx, None if straight else table, radius)
+    h_f = hermite_window(h, v, h1, v1, dx, coarse)
+    plen_f = torch.cat(
+        [plen[..., None],
+         plen[..., None] + torch.cumsum(_seg_lengths(h_f, step, radius), dim=-1)],
+        dim=-1,
+    )
+    return h_f, plen_f, h1, v1
+
+
+def _scan_start(alt: float, elev_rad: torch.Tensor, shape: EarthShape,
+                n_steps: int, coarse: int):
+    """Initial state of the fused scans: (alt, v0) shaped like ``elev_rad``,
+    the clamped window length and the window count."""
+    elev_rad = elev_rad.to(torch.float32)
+    alt = torch.full_like(elev_rad, float(alt))
+    coarse = max(1, min(int(coarse), n_steps))
+    return alt, initial_slope(alt, elev_rad, shape), coarse, -(-n_steps // coarse)
+
+
+def march_scan_light(alt, elev_rad: torch.Tensor, step: float, n_steps: int,
+                     shape: EarthShape, table: Optional[RefractionTable],
+                     straight: bool, consumer, init_carry, coarse: int = 1):
+    """Fused march that hands each coarse window's NODE states to a consumer
+    and never forms the fine samples itself (the JAX package's
+    ``pass_nodes=True`` contract):
+
+        carry, win_min = consumer(carry, k0, (h0, v0, h1, v1, p0), alive0)
+
+    * ``k0`` — global fine index of the window start (a multiple of the
+      clamped ``coarse``), a Python int;
+    * ``(h0, v0)`` / ``(h1, v1)`` — ODE state at the window's two ends; the
+      consumer evaluates fine samples with ``hermite_plane``;
+    * ``p0`` — path length at the window start, advanced by the RK4
+      quadrature of dP/dx (``_rk4_step_quad``), not by fine chords;
+    * ``alive0`` — bool: no fine sample before the window fell below
+      DEATH_ALTITUDE. Death inside a window is the consumer's to resolve.
+
+    The consumer returns ``win_min``, the minimum of its fine samples
+    j = 0..C-1, from which the scan keeps the death flag. State may have any
+    shape (everything is elementwise). Returns the final carry.
+    """
+    h, v, coarse, n_coarse = _scan_start(alt, elev_rad, shape, n_steps, coarse)
+    radius = shape.radius
+    tb = None if straight else table
+    dx = _f32(step * coarse)
+    p = torch.zeros_like(h)
+    dead = torch.zeros(h.shape, dtype=torch.bool, device=h.device)
+    user = init_carry
+    for i in range(n_coarse):
+        h1, v1, p1 = _rk4_step_quad(h, v, p, dx, tb, radius)
+        user, win_min = consumer(user, i * coarse, (h, v, h1, v1, p), ~dead)
+        dead = dead | (win_min < DEATH_ALTITUDE)
+        h, v, p = h1, v1, p1
+    return user
+
+
+def march_scan(alt, elev_rad: torch.Tensor, step: float, n_steps: int,
+               shape: EarthShape, table: Optional[RefractionTable],
+               straight: bool, consumer, init_carry, coarse: int = 1,
+               with_slope: bool = False):
+    """Fused march that streams each coarse window's fine samples to a
+    consumer without forming the [..., N] altitude grid:
+
+        carry = consumer(carry, k0, h_f, plen_f, alive[, v])
+
+    * ``h_f`` / ``plen_f`` — [..., C+1] fine altitudes / cumulative chord
+      path lengths at k0..k0+C (``rk4_window``; windows share their ends);
+    * ``alive`` — [..., C]: segment j is marched iff no sample before
+      k0 + j fell below DEATH_ALTITUDE (the path-death rule, utils.rs:
+      159-171, as ``ops.combine.ray_alive_mask``);
+    * ``v`` — with ``with_slope``, the window-start slope: with h_f[..., 0]
+      and plen_f[..., 0] enough to re-integrate the window later.
+
+    Integrates ceil(n_steps/C)·C steps; the consumer masks the tail
+    (k0 + j >= n_steps). Returns the final carry.
+    """
+    h, v, coarse, n_coarse = _scan_start(alt, elev_rad, shape, n_steps, coarse)
+    plen = torch.zeros_like(h)
+    dead = torch.zeros(h.shape, dtype=torch.bool, device=h.device)
+    user = init_carry
+    for i in range(n_coarse):
+        h_f, plen_f, h1, v1 = rk4_window(h, v, plen, step, coarse, table,
+                                         straight, shape.radius)
+        pref = torch.cumsum((h_f[..., :-1] < DEATH_ALTITUDE).to(torch.int32), dim=-1)
+        no_prior = torch.cat([torch.zeros_like(pref[..., :1]), pref[..., :-1]], dim=-1)
+        alive = (~dead)[..., None] & (no_prior == 0)
+        if with_slope:
+            user = consumer(user, i * coarse, h_f, plen_f, alive, v)
+        else:
+            user = consumer(user, i * coarse, h_f, plen_f, alive)
+        dead = dead | (pref[..., -1] > 0)
+        h, v, plen = h1, v1, plen_f[..., -1]
+    return user
 
 
 def march_nodes_plain(alt, v0, dx: float, n_coarse: int,
@@ -339,15 +549,8 @@ def march_rays(
     if coarse == 1:
         h_fine = h_nodes[: n_steps + 1]  # [N+1, B]
     else:
-        # cubic Hermite dense output per coarse segment: t in [0, 1)
-        t = (torch.arange(coarse, dtype=torch.float32, device=alt.device)
-             [:, None, None] / float(coarse))
-        t2 = t * t
-        t3 = t2 * t
-        h00 = 2.0 * t3 - 3.0 * t2 + 1.0
-        h10 = t3 - 2.0 * t2 + t
-        h01 = -2.0 * t3 + 3.0 * t2
-        h11 = t3 - t2
+        # cubic Hermite dense output per coarse segment: t = j/C, j < C
+        h00, h10, h01, h11 = _hermite_basis(coarse, alt.device)[:, :coarse, None, None]
         hl = h_nodes[:-1][None]  # [1, Nc, B]
         hr = h_nodes[1:][None]
         vl = v_nodes[:-1][None] * dx
@@ -364,18 +567,10 @@ def _finish_march(h_fine, step: float, radius):
     """[N+1, B] fine altitudes → ([B, N+1] h, [B, N+1] path length), the
     path length summed like the reference's calc_dist (utils.rs:42-53)."""
     h_out = h_fine.transpose(0, 1).contiguous()  # [B, N+1]
-    dxf = _f32(step)
-    dxf2 = _f32(np.float32(dxf) * np.float32(dxf))
-    dh = h_out[..., 1:] - h_out[..., :-1]
-    if radius is None:
-        seg_len = torch.sqrt(dxf2 + dh * dh)
-    else:
-        dx_eff = dxf * ((h_out[..., 1:] + h_out[..., :-1]) * 0.5 + radius) / radius
-        seg_len = torch.sqrt(dx_eff * dx_eff + dh * dh)
     p_out = torch.cat(
         [torch.zeros(h_out.shape[:-1] + (1,), dtype=torch.float32,
                      device=h_out.device),
-         torch.cumsum(seg_len, dim=-1)],
+         torch.cumsum(_seg_lengths(h_out, step, radius), dim=-1)],
         dim=-1,
     )
     return h_out, p_out

@@ -17,6 +17,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from ..models.earth import DEGREE_DISTANCE
 from . import dted, geotiff
 
 
@@ -77,6 +78,12 @@ class TerrainPack:
     lon_min: int
     n_rows: int
     n_cols: int
+    # the mosaic's Lipschitz bound |∇elev| (m/m) and its largest step across
+    # a tile seam inside the requested box (m): the slack of the culled
+    # Rectilinear path's terrain envelope. Both must be conservative — a
+    # smaller value silently drops real crossings, a larger one culls less.
+    grad_bound: float
+    seam_jump: float
 
 
 class Terrain:
@@ -194,6 +201,63 @@ class Terrain:
             lon_min=lon_lo,
             n_rows=n_lats,
             n_cols=n_lons,
+            # rounded as the JAX package rounds them, so both cull alike
+            grad_bound=round(_grad_bound(keys, tiles), 6),
+            seam_jump=round(_seam_jump(dict(zip(keys, tiles)), lat_range,
+                                       lon_range), 3),
         )
         self._pack_cache[cache_key] = result
         return result
+
+
+def _grad_bound(keys, tiles) -> float:
+    """Lipschitz bound of the bilinear mosaic, meters of elevation per meter:
+    per tile sqrt(gx² + gy²) of its worst post differences along each axis
+    over the post spacing (longitude spacing at the tile's mid latitude,
+    cos clamped at 0.1)."""
+    bound = 0.0
+    for k, t in zip(keys, tiles):
+        nr, nc = t.elev.shape
+        e = t.elev.astype(np.float32)
+        sp_lat = DEGREE_DISTANCE / max(nr - 1, 1)
+        sp_lon = (DEGREE_DISTANCE * max(0.1, math.cos(math.radians(k[0] + 0.5)))
+                  / max(nc - 1, 1))
+        gy = float(np.abs(np.diff(e, axis=0)).max(initial=0.0)) / sp_lat
+        gx = float(np.abs(np.diff(e, axis=1)).max(initial=0.0)) / sp_lon
+        bound = max(bound, math.hypot(gx, gy))
+    return bound
+
+
+def _seam_jump(tile_by_key: Dict[Tuple[int, int], Tile], lat_range, lon_range) -> float:
+    """Largest step of the sampled field across a tile seam inside the
+    requested box, meters: where a missing cell (the 0.0 fallback) meets
+    real elevation, or adjacent tiles disagree on their shared edge. No
+    gradient bound covers a step, so the envelope adds it as slack."""
+
+    def edge(key, side):
+        t = tile_by_key.get(key)
+        if t is None:
+            return np.zeros(2, np.float32)
+        e = t.elev
+        return {"n": e[-1, :], "s": e[0, :], "e": e[:, -1], "w": e[:, 0]}[side].astype(
+            np.float32)
+
+    def jump(ea, eb):
+        # the largest difference of two piecewise-linear edges lies at a
+        # breakpoint of EITHER edge, so compare on the union of both grids
+        xa = np.linspace(0.0, 1.0, len(ea))
+        xb = np.linspace(0.0, 1.0, len(eb))
+        xs = np.union1d(xa, xb)
+        return float(np.abs(np.interp(xs, xa, ea) - np.interp(xs, xb, eb)).max(initial=0.0))
+
+    req_lat = range(math.floor(lat_range[0]), math.floor(lat_range[1]) + 1)
+    req_lon = range(math.floor(lon_range[0]), math.floor(lon_range[1]) + 1)
+    worst = 0.0
+    for la in req_lat:
+        for lo in req_lon:
+            here = (la, lo) in tile_by_key
+            if (here or (la, lo + 1) in tile_by_key) and lo + 1 in req_lon:
+                worst = max(worst, jump(edge((la, lo), "e"), edge((la, lo + 1), "w")))
+            if (here or (la + 1, lo) in tile_by_key) and la + 1 in req_lat:
+                worst = max(worst, jump(edge((la, lo), "n"), edge((la + 1, lo), "s")))
+    return worst

@@ -14,8 +14,12 @@ before the result line:
               K1 (combine) segments equal on ragged random fans, K = 1 and 4,
               and on the path-death and deep-terrain cases; K2 (march) nodes
               within 2e-2 m for the poly and table l(h), sphere and flat;
-4. goldens  — the three golden Fast scenes rendered on the card and with the
-              plain path on the CPU, within the verify tolerance;
+4. goldens  — the three golden Fast scenes and the three golden Rectilinear
+              scenes, plus the golden scene tilted onto the Rectilinear
+              culled path (1 degree, opaque) and its pixelwise path (-1
+              degree, translucent; its march goes through K2), rendered on
+              the card and with the plain path on the CPU, within the
+              verify tolerance;
 5. headline — 1920x1080, fov 40, 200 km in 50 m steps, refracted, spherical,
               over 45 synthetic 1201-post tiles: the render goes through both
               kernels (launch counts), matches the plain path on the card,
@@ -24,7 +28,17 @@ before the result line:
               at the headline shapes;
 6. profile  — a torch.profiler trace of the headline (device busy time,
               idle share, top kernels), stage times by CUDA events and the
-              peak device memory.
+              peak device memory;
+7. rectilinear — the Rectilinear generator (no kernel of its own yet) on
+              the headline scene: (a) at 192x108 on the card against the
+              CPU; (b) at 1920x1080, tilt 0: median frame wall of 5 renders
+              after a warm-up, peak device memory, device busy time and idle
+              share from a torch.profiler trace of one render, CUDA-event
+              stage times, and the K = 1 keys equal to the first keys of a
+              K = 2 render; (c) at tilt 1 degree through the culled path:
+              one timed render after a warm-up with its round count, and at
+              192x108 the culled keys equal to the dense path's (plain
+              march).
 
 The verify tolerance (the JAX package's bench.py verify): at most 1 % of
 pixels differ by more than 2 counts and at most 5 % differ at all.
@@ -231,9 +245,38 @@ def golden_config(scene: str) -> dict:
     return cfg
 
 
+def rect_golden_configs():
+    """(name, config) of the golden Rectilinear scenes and of the golden
+    scene tilted onto the culled and the pixelwise Rectilinear paths."""
+    cases = [(f"rectilinear_{s}", golden_config(s))
+             for s in ("plain", "translucent", "flat_straight")]
+    for name, scene, tilt in (("rectilinear culled, tilt 1", "plain", 1.0),
+                              ("rectilinear pixelwise, tilt -1", "translucent", -1.0)):
+        cfg = golden_config(scene)
+        cfg["view"]["frame"]["tilt"] = tilt
+        cases.append((name, cfg))
+    return cases
+
+
+def kernel_launches():
+    from atm_raytracer_tpu_torch import _kernels
+
+    return {k.source: k.launches for k in _kernels.KERNELS}
+
+
+def reset_launches():
+    from atm_raytracer_tpu_torch import _kernels
+
+    for k in _kernels.KERNELS:
+        k.launches = 0
+
+
 def phase_goldens(dev):
+    import torch
+
     from atm_raytracer_tpu_torch.config import Config
     from atm_raytracer_tpu_torch.generators.fast import render_fast
+    from atm_raytracer_tpu_torch.generators.rectilinear import render_rectilinear
     from atm_raytracer_tpu_torch.terrain.store import Terrain, Tile
 
     terrain = Terrain()
@@ -246,6 +289,19 @@ def phase_goldens(dev):
         check(ok, f"golden fast_{scene}: any={fa:.4f} big={fb:.4f} out of tolerance")
         say(f"[goldens] fast_{scene}: cuda vs cpu plain any={fa:.4f} "
             f"big={fb:.4f} max={mx}")
+    for name, cfg in rect_golden_configs():
+        params = Config.from_dict(cfg).into_params(terrain)
+        reset_launches()
+        gpu = render_rectilinear(params, terrain, dev)
+        torch.cuda.synchronize()
+        launches = kernel_launches()
+        cpu = render_rectilinear(params, terrain, "cpu")
+        ok, fa, fb, mx = image_tolerance(gpu.image, cpu.image)
+        check(ok, f"golden {name}: any={fa:.4f} big={fb:.4f} out of tolerance")
+        if "pixelwise" in name:
+            check(launches["march.cu"] > 0, f"{name}: the march did not go through K2")
+        say(f"[goldens] {name}: cuda vs cpu plain any={fa:.4f} big={fb:.4f} "
+            f"max={mx} (culled rounds {gpu.culled_rounds}, launches {launches})")
 
 
 def headline_terrain(params):
@@ -261,14 +317,16 @@ def headline_terrain(params):
     return terrain
 
 
-def headline_params(width=1920, height=1080, max_distance=200_000.0, step=50.0):
+def headline_params(width=1920, height=1080, max_distance=200_000.0, step=50.0,
+                    tilt=0.0):
     from atm_raytracer_tpu_torch.config import Config
 
     return Config.from_dict({
         "view": {
             "position": {"latitude": LAT0, "longitude": LON0,
                          "altitude": {"Relative": 100.0}},
-            "frame": {"direction": 45.0, "fov": 40.0, "max_distance": max_distance},
+            "frame": {"direction": 45.0, "fov": 40.0, "max_distance": max_distance,
+                      "tilt": tilt},
         },
         "simulation_step": step,
         "output": {"width": width, "height": height},
@@ -309,18 +367,16 @@ def phase_headline(dev, params, terrain, renders=20):
     import numpy as np
     import torch
 
-    from atm_raytracer_tpu_torch import _kernels
     from atm_raytracer_tpu_torch.generators import fast
     from atm_raytracer_tpu_torch.ops import combine
     from atm_raytracer_tpu_torch.physics import ray as R
 
     out = params.output
     # the main path, counted; this first render is also the warm-up
-    for k in _kernels.KERNELS:
-        k.launches = 0
+    reset_launches()
     result = fast.render_fast(params, terrain, dev)
     torch.cuda.synchronize()
-    launches = {k.source: k.launches for k in _kernels.KERNELS}
+    launches = kernel_launches()
     say(f"[headline] launches in one render: {launches}")
     for src, count in launches.items():
         check(count > 0, f"{src}: no launch in the headline render")
@@ -502,6 +558,216 @@ def phase_profile(dev, params, terrain, wall_s, renders=3, reps=10):
         f"{torch.cuda.max_memory_allocated(dev) / 2**20:.1f} MiB")
 
 
+def hits_agree(a, b):
+    """(fraction of pixels whose first-slot validity differs, max |key
+    difference| where both are valid) of two renders."""
+    va, vb = a.hits.valid[..., 0].cpu(), b.hits.valid[..., 0].cpu()
+    both = va & vb
+    dk = (a.hits.key[..., 0].cpu() - b.hits.key[..., 0].cpu()).abs()[both]
+    return float((va != vb).double().mean()), float(dk.max()) if dk.numel() else 0.0
+
+
+def trace_busy_ms(fn, name: str):
+    """Device busy time (union of the device records of a torch.profiler
+    trace of one ``fn()``) in ms, the record count, and ms by record name.
+    The trace file is parsed and deleted: one Rectilinear frame is ~2·10^5
+    records."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    trace = out_dir / f"{name}_trace.json"
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    prof.export_chrome_trace(str(trace))
+    events = [e for e in json.loads(trace.read_text())["traceEvents"]
+              if e.get("ph") == "X" and e.get("cat") in DEVICE_CATS]
+    trace.unlink()
+    check(bool(events), f"the profiler recorded no device activity ({name})")
+    spans = [(float(e["ts"]), float(e["ts"]) + float(e["dur"])) for e in events]
+    by_name: dict = {}
+    for e in events:
+        by_name[e["name"]] = by_name.get(e["name"], 0.0) + float(e["dur"]) / 1e3
+    return busy_us(spans) / 1e3, len(events), by_name
+
+
+def phase_rect_small(dev, terrain):
+    """(a) and the small half of (c): the 192x108 headline on the card
+    against the CPU, and the culled path against the dense one."""
+    import torch
+
+    from atm_raytracer_tpu_torch.generators.rectilinear import render_rectilinear
+
+    params = headline_params(192, 108)
+    t0 = time.perf_counter()
+    gpu = render_rectilinear(params, terrain, dev)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    cpu = render_rectilinear(params, terrain, "cpu")
+    t2 = time.perf_counter()
+    ok, fa, fb, mx = image_tolerance(gpu.image, cpu.image)
+    check(ok, f"rectilinear 192x108 cuda vs cpu: any={fa} big={fb} out of tolerance")
+    vdiff, dk = hits_agree(gpu, cpu)
+    check(vdiff <= 0.01 and dk <= 1e-3,
+          f"rectilinear 192x108 cuda vs cpu hits: valid differ {vdiff}, max dkey {dk}")
+    say(f"[rectilinear] 192x108 tilt 0: cuda vs cpu any={fa:.5f} big={fb:.5f} "
+        f"max={mx}; valid differ {vdiff:.5f}, max |dkey| {dk:.3g} "
+        f"(card {t1 - t0:.2f} s with set-up, cpu {t2 - t1:.2f} s)")
+
+    # the cull must drop no crossing: the same hits as the dense path. Keys
+    # agree to the rounding of the pixel angles only, since the dense path
+    # takes the host f64 angle grid and the culled path derives a float32
+    # one on the card (as the JAX package does); the plain march keeps the
+    # march kernel's own rounding out of the comparison
+    params = headline_params(192, 108, tilt=1.0)
+    culled = render_rectilinear(params, terrain, dev)
+    dense = render_rectilinear(params, terrain, dev, cull=False, plain=True)
+    torch.cuda.synchronize()
+    same_valid = torch.equal(culled.hits.valid, dense.hits.valid)
+    v = culled.hits.valid
+    dk = (culled.hits.key[v] - dense.hits.key[v]).abs()
+    dk_max = float(dk.max()) if dk.numel() else 0.0
+    check(same_valid and dk_max <= 1e-3,
+          f"rectilinear 192x108 tilt 1: culled vs dense masks equal {same_valid}, "
+          f"max |dkey| {dk_max}")
+    say(f"[rectilinear] 192x108 tilt 1: culled ({culled.culled_rounds} rounds) vs "
+        f"dense (plain march): hit masks equal, max |dkey| {dk_max:.3g}, "
+        f"{int((dk == 0).sum())} of {int(v.sum())} keys bitwise equal")
+
+
+def phase_rect_headline(dev, params, terrain, renders=5):
+    """(b): the 1920x1080 tilt-0 Rectilinear headline."""
+    import numpy as np
+    import torch
+
+    from atm_raytracer_tpu_torch.generators import rectilinear as rect
+
+    out = params.output
+    n_terr = int(math.ceil(params.view.frame.max_distance / params.simulation_step))
+    # the Rectilinear main path, counted; this first render is the warm-up
+    reset_launches()
+    t0 = time.perf_counter()
+    result = rect.render_rectilinear(params, terrain, dev)
+    torch.cuda.synchronize()
+    say(f"[rectilinear] first render {time.perf_counter() - t0:.3f} s; kernel "
+        f"launches {kernel_launches()} (the tilt-0 path has no kernel of its own yet)")
+    image = result.image
+    check(image.shape == (out.height, out.width, 3), f"image shape {image.shape}")
+    valid = result.hits.valid.cpu().numpy()
+    keys = result.hits.key.cpu().numpy()
+    frac_hit = float(valid.mean())
+    check(np.isfinite(keys[valid]).all() and bool((keys[valid] < n_terr).all()),
+          "a valid hit with a non-finite key or a key past the march")
+    check(0.05 < frac_hit < 0.95, f"implausible hit fraction {frac_hit}")
+    say(f"[rectilinear] headline {out.width}x{out.height} tilt 0: hit fraction "
+        f"{frac_hit:.4f}")
+
+    walls = []
+    for _ in range(renders):
+        t0 = time.perf_counter()
+        rect.render_rectilinear(params, terrain, dev)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    med = statistics.median(walls)
+    say(f"[rectilinear] frame wall over {renders} renders after the warm-up: median "
+        f"{med * 1e3:.3f} ms (min {min(walls) * 1e3:.3f}, max {max(walls) * 1e3:.3f}; "
+        f"all {', '.join(f'{w * 1e3:.3f}' for w in walls)})")
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    rect.render_rectilinear(params, terrain, dev)
+    say(f"[rectilinear] peak device memory of one render: "
+        f"{torch.cuda.max_memory_allocated(dev) / 2**20:.1f} MiB")
+
+    busy_ms, n_rec, by_name = trace_busy_ms(
+        lambda: rect.render_rectilinear(params, terrain, dev), "rect_headline")
+    say(f"[rectilinear] device busy {busy_ms:.3f} ms of one profiled render "
+        f"({n_rec} device records); idle share of the {med * 1e3:.3f} ms median "
+        f"frame wall: {1.0 - busy_ms / (med * 1e3):.4f}")
+    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]:
+        say(f"[rectilinear]   {ms:9.3f} ms  {name[:90]}")
+
+    # K = 1 against the first slot of K = 2 (tests/test_rectilinear.py:224-229)
+    r2 = rect.render_rectilinear(params, terrain, dev, max_hits=2)
+    v1, v2 = result.hits.valid[..., 0], r2.hits.valid[..., 0]
+    mask_bad = int((v1 != v2).sum())
+    both = v1 & v2
+    key_bad = int((result.hits.key[..., 0][both] != r2.hits.key[..., 0][both]).sum())
+    check(mask_bad == 0 and key_bad == 0,
+          f"K = 1 vs K = 2: {mask_bad} masks and {key_bad} keys differ")
+    say(f"[rectilinear] K = 1 keys == first keys of K = 2 on all "
+        f"{int(both.sum())} hit pixels; masks equal")
+
+    # stage times: each stage alone, CUDA-event means
+    pack = terrain.pack(*rect.terrain_bbox(params), dev)
+    alt0 = float(params.view.position.abs_altitude(terrain))
+    table = rect.build_refraction_table(params, alt0, dev)
+    az = torch.from_numpy(rect.camera.rectilinear_column_azimuths(
+        out.width, params.view.frame.fov, params.view.frame.direction
+    ).astype(np.float32)).to(dev)
+    step = float(params.simulation_step)
+    coarse = rect.march_coarse(step)
+    scan_kw = dict(shape=params.model.to_shape(), table=table, straight=False,
+                   step=step, n_seg=n_terr - 1, coarse=coarse)
+    elev_hw, _ = rect.camera.rectilinear_ray_params_device(
+        out.width, out.height, params.view.frame.fov, 0.0, 0.0, dev)
+    terr, normal = rect.terrain_columns(pack, params.model, az, LAT0, LON0, step, n_terr)
+    n_pad = -(-(n_terr - 1) // coarse) * coarse + 1 - n_terr
+    terr_pad = torch.nn.functional.pad(terr, (0, n_pad))
+    stacked = torch.cat([terr[..., None], normal], dim=-1)
+    found = rect.first_window_scan(elev_hw, terr_pad, alt0, **scan_kw)
+    key, plh = rect.first_hit_retest(*found, terr_pad, **scan_kw)
+    hit_kw = dict(model=params.model, lat0=LAT0, lon0=LON0, step=step,
+                  terrain_alpha=float(params.terrain_alpha))
+    hits = rect.column_hits(stacked, key, plh, az, **hit_kw)
+    image_t = rect._composite_hits(params.coloring, params.view.fog_distance, hits)
+    t = {
+        "terrain columns": cuda_ms(lambda: rect.terrain_columns(
+            pack, params.model, az, LAT0, LON0, step, n_terr), 3),
+        "scan (march_scan_light + window test)": cuda_ms(
+            lambda: rect.first_window_scan(elev_hw, terr_pad, alt0, **scan_kw), 1),
+        "post-scan re-expansion + exact test": cuda_ms(
+            lambda: rect.first_hit_retest(*found, terr_pad, **scan_kw), 3),
+        "hit reconstruction": cuda_ms(
+            lambda: rect.column_hits(stacked, key, plh, az, **hit_kw), 3),
+        "composite": cuda_ms(lambda: rect._composite_hits(
+            params.coloring, params.view.fog_distance, hits), 3),
+        "image to host": cuda_ms(lambda: image_t.cpu(), 3),
+    }
+    total = sum(t.values())
+    for name, ms in t.items():
+        say(f"[rectilinear] stage {name}: {ms:.3f} ms ({100.0 * ms / total:.1f} % "
+            f"of the stages' {total:.3f} ms)")
+    return med
+
+
+def phase_rect_culled(dev, terrain):
+    """(c): the tilt-1 headline through the culled path."""
+    import torch
+
+    from atm_raytracer_tpu_torch.generators.rectilinear import render_rectilinear
+
+    params = headline_params(tilt=1.0)
+    t0 = time.perf_counter()
+    warm = render_rectilinear(params, terrain, dev)
+    torch.cuda.synchronize()
+    first = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    result = render_rectilinear(params, terrain, dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check(torch.equal(result.hits.key, warm.hits.key), "culled path: two renders differ")
+    frac_hit = float(result.hits.valid.double().mean())
+    check(0.05 < frac_hit < 0.95, f"culled headline: implausible hit fraction {frac_hit}")
+    say(f"[rectilinear] headline tilt 1 (culled): wall {wall * 1e3:.3f} ms after a "
+        f"{first * 1e3:.3f} ms warm-up, {result.culled_rounds} rounds, hit fraction "
+        f"{frac_hit:.4f}, peak device memory "
+        f"{torch.cuda.max_memory_allocated(dev) / 2**20:.1f} MiB")
+
+
 def main() -> int:
     try:
         import torch
@@ -533,6 +799,9 @@ def main() -> int:
             f"{time.perf_counter() - t0:.1f} s")
         kernels, wall_s = phase_headline(dev, params, terrain)
         phase_profile(dev, params, terrain, wall_s)
+        phase_rect_small(dev, terrain)
+        phase_rect_headline(dev, params, terrain)
+        phase_rect_culled(dev, terrain)
     except SmokeFailure as e:
         say(f"FAIL: {e}")
         return 1

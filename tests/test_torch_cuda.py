@@ -17,6 +17,7 @@ torch = pytest.importorskip("torch")
 from atm_raytracer_tpu_torch import _kernels  # noqa: E402
 from atm_raytracer_tpu_torch.config import Config  # noqa: E402
 from atm_raytracer_tpu_torch.generators.fast import render_fast  # noqa: E402
+from atm_raytracer_tpu_torch.generators.rectilinear import render_rectilinear  # noqa: E402
 from atm_raytracer_tpu_torch.ops import combine  # noqa: E402
 from atm_raytracer_tpu_torch.physics import ray as R  # noqa: E402
 from atm_raytracer_tpu_torch.physics.atmosphere import Atmosphere, us_76  # noqa: E402
@@ -116,5 +117,67 @@ def test_render_on_card_matches_cpu(alpha, cuda_device):
     gpu = render_fast(params, terrain, cuda_device)
     assert [k.launches for k in _kernels.KERNELS] == [b + 1 for b in before]
     cpu = render_fast(params, terrain, "cpu")
+    ok, frac_any, frac_big = verify_tolerance(gpu.image, cpu.image)
+    assert ok, (frac_any, frac_big)
+
+
+def _rect_scene(tilt=0.0, alpha=1.0):
+    terrain = Terrain()
+    terrain.add_tile(Tile(49, 21, _hills()))
+    params = Config.from_dict({
+        "view": {"position": {"latitude": 49.5, "longitude": 21.5,
+                              "altitude": {"Relative": 30.0}},
+                 "frame": {"direction": 45.0, "fov": 25.0, "max_distance": 25000.0,
+                           "tilt": tilt}},
+        "scene": {"terrain_alpha": alpha},
+        "simulation_step": 100.0,
+        "output": {"width": 96, "height": 64},
+    }).into_params(terrain)
+    return terrain, params
+
+
+def _first_hits_close(a, b, key_atol):
+    va, vb = a.hits.valid[..., 0].cpu(), b.hits.valid[..., 0].cpu()
+    assert float((va != vb).double().mean()) <= 0.01
+    both = va & vb
+    dk = (a.hits.key[..., 0].cpu() - b.hits.key[..., 0].cpu()).abs()[both]
+    assert float(dk.max()) <= key_atol
+
+
+@pytest.mark.parametrize("alpha", [1.0, 0.65])
+def test_rectilinear_tilt0_on_card_matches_cpu(alpha, cuda_device):
+    terrain, params = _rect_scene(alpha=alpha)
+    gpu = render_rectilinear(params, terrain, cuda_device)
+    assert gpu.hits.key.device.type == "cuda"
+    cpu = render_rectilinear(params, terrain, "cpu")
+    ok, frac_any, frac_big = verify_tolerance(gpu.image, cpu.image)
+    assert ok, (frac_any, frac_big)
+    _first_hits_close(gpu, cpu, 1e-3)
+    if alpha == 1.0:  # K = 1 keys are the first keys of a K = 2 render
+        r2 = render_rectilinear(params, terrain, cuda_device, max_hits=2)
+        assert torch.equal(gpu.hits.valid[..., 0], r2.hits.valid[..., 0])
+        v = gpu.hits.valid[..., 0]
+        assert torch.equal(gpu.hits.key[..., 0][v], r2.hits.key[..., 0][v])
+
+
+def test_rectilinear_culled_on_card(cuda_device):
+    terrain, params = _rect_scene(tilt=1.5)
+    culled = render_rectilinear(params, terrain, cuda_device)
+    assert culled.culled_rounds >= 1
+    cpu = render_rectilinear(params, terrain, "cpu")
+    ok, frac_any, frac_big = verify_tolerance(culled.image, cpu.image)
+    assert ok, (frac_any, frac_big)
+    # the cull drops no crossing the dense path finds
+    dense = render_rectilinear(params, terrain, cuda_device, cull=False, plain=True)
+    assert torch.equal(culled.hits.valid, dense.hits.valid)
+    _first_hits_close(culled, dense, 1e-3)
+
+
+def test_rectilinear_pixelwise_marches_through_the_kernel(cuda_device):
+    terrain, params = _rect_scene(tilt=-1.0, alpha=0.65)
+    before = _kernels.MARCH.launches
+    gpu = render_rectilinear(params, terrain, cuda_device)
+    assert _kernels.MARCH.launches > before
+    cpu = render_rectilinear(params, terrain, "cpu")
     ok, frac_any, frac_big = verify_tolerance(gpu.image, cpu.image)
     assert ok, (frac_any, frac_big)

@@ -122,7 +122,7 @@ def test_port_modules_import_no_jax():
     {"output": {"file_metadata": "meta.npz"}},
     {"output": {"ticks": [{"Single": {"azimuth": 40.0, "size": 5, "labelled": True}}]}},
     {"output": {"show_eye_level": True}},
-    {"output": {"generator": "Rectilinear"}},
+    {"output": {"generator": "InterpolatingRectilinear"}},
 ], ids=["objects", "metadata", "ticks", "eye_level", "generator"])
 def test_unported_features_raise(extra, terrain_dir):
     cfg = _config("plain", terrain_dir)
