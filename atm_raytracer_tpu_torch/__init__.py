@@ -8,5 +8,7 @@ kernels for Hopper (``csrc/``): the coarse RK4 ray march
 (``ops.combine.terrain_crossing_segments``). On CPU tensors both run their
 plain PyTorch versions.
 
-Entry point: ``python -m atm_raytracer_tpu_torch.cli gen``.
+Entry point: ``python -m atm_raytracer_tpu_torch.cli`` with the subcommands
+``gen``, ``view``, ``output-atm``, ``output-ray-paths`` and
+``output-elev-profile``.
 """

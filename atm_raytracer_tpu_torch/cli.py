@@ -1,17 +1,19 @@
-"""CLI: ``gen`` with the reference's flag surface, plus ``--device``.
+"""CLI: the reference's five subcommands with its flag surface, plus ``--device``.
 
-Counterpart of ``atm_raytracer_tpu/cli.py`` (reference src/main.rs:17-39,
-src/generator/params.rs:531-676). Short flags are preserved, including
-``-h`` meaning height — use ``--help`` for help.
+Counterpart of ``atm_raytracer_tpu/cli.py`` (reference src/main.rs:17-39):
+``gen`` (src/generator/params.rs:531-676), ``view`` (src/viewer/mod.rs),
+``output-atm``, ``output-ray-paths`` and ``output-elev-profile``. Short
+flags are preserved, including ``-h`` meaning height — use ``--help`` for
+help on those subcommands.
 
-``--device`` defaults to ``cuda`` and is never chosen for the user: without
-a GPU the command fails loudly; ``--device cpu`` renders with the plain
-PyTorch versions of the kernels.
+``--device`` (``gen``, ``view``, ``output-ray-paths``) defaults to ``cuda``
+and is never chosen for the user: without a GPU the command fails loudly;
+``--device cpu`` runs the plain PyTorch versions of the kernels.
 
-This package renders the Fast and Rectilinear generators without scene
-objects; InterpolatingRectilinear, metadata output, annotations, ``view`` and
-the diagnostic tools are not ported yet and are refused with the ROADMAP item
-that will port them.
+``gen`` renders the Fast and Rectilinear generators, draws the annotation
+overlays, and writes the metadata artifact (``--output-meta``). Scene
+objects and the InterpolatingRectilinear generator are not ported yet and
+are refused with the ROADMAP item that will port them.
 """
 
 from __future__ import annotations
@@ -43,7 +45,14 @@ def _add_gen_parser(subparsers):
     p.add_argument("-s", "--straight", action="store_true")
     p.add_argument("--output", dest="output")
     p.add_argument("--output-meta", dest="output_meta",
-                   help="Metadata output (not ported yet: ROADMAP A7)")
+                   help="Write the per-pixel metadata artifact to this file")
+    p.add_argument("--meta-format", dest="meta_format",
+                   choices=["native", "reference"], default="native",
+                   help="Metadata artifact format: native npz (default), "
+                        "or gzip(bincode(AllData)) as transcribed from the "
+                        "reference's src/generator/mod.rs:26-45. Its "
+                        "atmosphere segment is a guess, so the reference's "
+                        "own viewer is not known to read it; `view` does")
     p.add_argument("-w", "--width", dest="width", type=int)
     p.add_argument("-h", "--height", dest="height", type=int)
     p.add_argument("-c", "--config", dest="config")
@@ -58,23 +67,12 @@ def _add_gen_parser(subparsers):
 def check_supported(config) -> None:
     """Raise NotImplementedError for any part of a config this package does
     not render yet, naming the ROADMAP item that ports it."""
-    out = config.output
-    if out.generator == "InterpolatingRectilinear":
+    if config.output.generator == "InterpolatingRectilinear":
         raise NotImplementedError(
             "generator InterpolatingRectilinear is not ported yet (ROADMAP A11)"
         )
     if config.scene.objects:
         raise NotImplementedError("scene objects are not ported yet (ROADMAP A9)")
-    if out.file_metadata:
-        raise NotImplementedError(
-            "metadata output (output.file_metadata / --output-meta) is not "
-            "ported yet (ROADMAP A7)"
-        )
-    if out.ticks or out.vertical_ticks or out.show_eye_level or out.show_flat_horizon:
-        raise NotImplementedError(
-            "annotations (ticks, vertical_ticks, show_eye_level, "
-            "show_flat_horizon) are not ported yet (ROADMAP: render/annotate.py)"
-        )
 
 
 def resolve_device(name: str):
@@ -94,6 +92,8 @@ def run_gen(args) -> int:
     from .config import Config, merge_cli, parse_config
     from .generators.fast import render_fast
     from .generators.rectilinear import render_rectilinear
+    from .meta.serialize import save_metadata
+    from .render.annotate import annotate_image
     from .render.image import save_png
     from .terrain.store import Terrain
 
@@ -117,9 +117,37 @@ def run_gen(args) -> int:
     result = render(params, terrain, device)
     phase("100%...")
     phase("Outputting image...")
-    save_png(result.image, Path(os.getcwd()) / params.output.file)
+    image = annotate_image(
+        result.image, params, result.elevation_deg, result.azimuth_deg,
+        result.observer[2],
+    )
+    save_png(image, Path(os.getcwd()) / params.output.file)
+    if params.output.file_metadata:
+        phase("Outputting metadata...")
+        save_metadata(params.output.file_metadata, config, result,
+                      fmt=args.meta_format)
     phase("Done.")
     return 0
+
+
+def _add_view_parser(subparsers):
+    p = subparsers.add_parser("view", help="View a metadata file")
+    p.add_argument("input", help="Path to the metadata file")
+    p.add_argument("--pixel", nargs=2, type=int, metavar=("X", "Y"),
+                   help="Headless: print info for one pixel")
+    p.add_argument("--save-image", dest="save_image",
+                   help="Headless: write the re-rendered PNG here")
+    p.add_argument("--device", dest="device", default="cuda",
+                   help="torch device to re-composite on (default: cuda)")
+    p.set_defaults(func=run_view_cmd)
+
+
+def run_view_cmd(args) -> int:
+    from .meta.viewer import run_view
+
+    return run_view(args.input, device=resolve_device(args.device),
+                    pixel=tuple(args.pixel) if args.pixel else None,
+                    save_image=args.save_image)
 
 
 def main(argv=None) -> int:
@@ -129,6 +157,13 @@ def main(argv=None) -> int:
     )
     subparsers = parser.add_subparsers(dest="subcommand", required=True)
     _add_gen_parser(subparsers)
+    _add_view_parser(subparsers)
+
+    from .tools import atm_printer, elev_profile, ray_path
+
+    atm_printer.add_parser(subparsers)
+    ray_path.add_parser(subparsers)
+    elev_profile.add_parser(subparsers)
     args = parser.parse_args(argv)
     try:
         return args.func(args)

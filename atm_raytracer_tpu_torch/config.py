@@ -1,9 +1,10 @@
-"""Config schema + lowering: YAML → dataclasses → runtime Params.
+"""Config schema + lowering: YAML ⇄ dataclasses → runtime Params.
 
 Counterpart of ``atm_raytracer_tpu/config.py``: schema-compatible with the
 reference YAML grammar (README.md:76-324, src/generator/params.rs:17-505)
 including its per-field defaults; the CLI-over-YAML merge mirrors
-read_config (params.rs:694-777).
+read_config (params.rs:694-777). ``Config.to_dict`` writes the tree back
+(the metadata artifact stores it), in the JAX package's spelling.
 
 Scene objects parse and validate as data, but this package does not render
 them yet: ``into_params`` keeps them unresolved (no terrain altitude, no
@@ -20,7 +21,13 @@ import numpy as np
 
 from .models.earth import EarthModel
 from .ops.coloring import ColoringParams
-from .physics.atmosphere import Atmosphere, AtmosphereDef, atmosphere_def_from_dict, us_76
+from .physics.atmosphere import (
+    Atmosphere,
+    AtmosphereDef,
+    atmosphere_def_from_dict,
+    atmosphere_def_to_dict,
+    us_76,
+)
 
 DEFAULT_WAVELENGTH = 530e-9  # params.rs:477-479
 DEFAULT_SIM_STEP = 50.0  # params.rs:473-475
@@ -47,6 +54,9 @@ class Altitude:
                 return Altitude(k, float(val))
         raise ValueError(f"invalid altitude: {v!r}")
 
+    def to_config(self):
+        return {self.kind: self.value}
+
 
 @dataclasses.dataclass
 class Position:
@@ -69,6 +79,13 @@ class Position:
             else Altitude("Relative", 1.0),
         )
 
+    def to_config(self):
+        return {
+            "latitude": self.latitude,
+            "longitude": self.longitude,
+            "altitude": self.altitude.to_config(),
+        }
+
 
 @dataclasses.dataclass
 class Color:
@@ -80,6 +97,9 @@ class Color:
     @staticmethod
     def from_config(d: dict) -> "Color":
         return Color(float(d["r"]), float(d["g"]), float(d["b"]), float(d.get("a", 1.0)))
+
+    def to_config(self):
+        return {"r": self.r, "g": self.g, "b": self.b, "a": self.a}
 
 
 @dataclasses.dataclass
@@ -111,6 +131,12 @@ class ConfShape:
                              texture_path=str(d["texture_path"]))
         raise ValueError(f"unknown shape {k!r}")
 
+    def to_config(self):
+        if self.kind == "Frustum":
+            return {"Frustum": {"r1": self.r1, "r2": self.r2, "height": self.height}}
+        return {"Billboard": {"width": self.width, "height": self.height,
+                              "texture_path": self.texture_path}}
+
 
 @dataclasses.dataclass
 class ConfObject:
@@ -126,6 +152,13 @@ class ConfObject:
             color=Color.from_config(d["color"]),
         )
 
+    def to_config(self):
+        return {
+            "position": self.position.to_config(),
+            "shape": self.shape.to_config(),
+            "color": self.color.to_config(),
+        }
+
 
 @dataclasses.dataclass
 class ConfScene:
@@ -140,6 +173,13 @@ class ConfScene:
             objects=[ConfObject.from_config(o) for o in d.get("objects", []) or []],
             terrain_alpha=float(d.get("terrain_alpha", 1.0)),
         )
+
+    def to_config(self):
+        return {
+            "terrain_folder": self.terrain_folder,
+            "objects": [o.to_config() for o in self.objects],
+            "terrain_alpha": self.terrain_alpha,
+        }
 
 
 @dataclasses.dataclass
@@ -157,6 +197,9 @@ class Frame:
             fov=float(d.get("fov", 30.0)),
             max_distance=float(d.get("max_distance", 150_000.0)),
         )
+
+    def to_config(self):
+        return dataclasses.asdict(self)
 
 
 @dataclasses.dataclass
@@ -192,6 +235,17 @@ class ConfColoring:
                 palette=palette,
             )
         raise ValueError(f"unknown coloring {k!r}")
+
+    def to_config(self):
+        if self.kind == "Simple":
+            return {"Simple": {"water_level": self.water_level}}
+        return {"Shading": {
+            "water_level": self.water_level,
+            "ambient_light": self.ambient_light,
+            "light_zenith_angle": self.light_zenith_angle,
+            "light_dir": self.light_dir,
+            "palette": self.palette,
+        }}
 
     def into_coloring(self, frame: Frame, position: Position,
                       model: EarthModel) -> ColoringParams:
@@ -239,6 +293,16 @@ class ConfView:
             ),
         )
 
+    def to_config(self):
+        out = {
+            "position": self.position.to_config(),
+            "frame": self.frame.to_config(),
+            "coloring": self.coloring.to_config(),
+        }
+        if self.fog_distance is not None:
+            out["fog_distance"] = self.fog_distance
+        return out
+
 
 @dataclasses.dataclass
 class Tick:
@@ -260,6 +324,18 @@ class Tick:
                         labelled=bool(d["labelled"]))
         return Tick("Multiple", bias=float(d["bias"]), step=float(d["step"]),
                     size=int(d["size"]), labelled=bool(d["labelled"]))
+
+    def to_config(self, vertical: bool = False):
+        if self.kind == "Single":
+            key = "elevation" if vertical else "azimuth"
+            return {"Single": {key: self.azimuth, "size": self.size,
+                               "labelled": self.labelled}}
+        return {"Multiple": {"bias": self.bias, "step": self.step,
+                             "size": self.size, "labelled": self.labelled}}
+
+    def angle(self) -> float:
+        """The angle whose decimals a label shows (renderer/mod.rs:208-225)."""
+        return self.azimuth if self.kind == "Single" else self.step
 
 
 def _check_generator(name: str) -> str:
@@ -298,6 +374,21 @@ class Output:
             generator=_check_generator(str(d.get("generator", "Fast"))),
         )
 
+    def to_config(self):
+        out = {
+            "file": self.file,
+            "width": self.width,
+            "height": self.height,
+            "ticks": [t.to_config() for t in self.ticks],
+            "vertical_ticks": [t.to_config(vertical=True) for t in self.vertical_ticks],
+            "show_eye_level": self.show_eye_level,
+            "show_flat_horizon": self.show_flat_horizon,
+            "generator": self.generator,
+        }
+        if self.file_metadata is not None:
+            out["file_metadata"] = self.file_metadata
+        return out
+
 
 @dataclasses.dataclass
 class Config:
@@ -328,6 +419,19 @@ class Config:
             simulation_step=float(d.get("simulation_step", DEFAULT_SIM_STEP)),
             output=Output.from_config(d.get("output", {}) or {}),
         )
+
+    def to_dict(self) -> dict:
+        """The YAML tree ``from_dict`` reads back (the artifact's config)."""
+        return {
+            "scene": self.scene.to_config(),
+            "view": self.view.to_config(),
+            "atmosphere": atmosphere_def_to_dict(self.atmosphere),
+            "earth_shape": self.earth_shape.to_config(),
+            "wavelength": self.wavelength,
+            "straight_rays": self.straight_rays,
+            "simulation_step": self.simulation_step,
+            "output": self.output.to_config(),
+        }
 
     def into_params(self, terrain) -> "Params":
         """Lower to runtime Params (params.rs:512-528). Objects stay as

@@ -29,12 +29,18 @@ class HitBuffer:
     kind: torch.Tensor  # [H, W, K] int32: 0 terrain / 1 rgba
     rgba: torch.Tensor  # [H, W, K, 4]
 
+    def to(self, device) -> "HitBuffer":
+        """The same hits with every field on ``device``."""
+        return HitBuffer(**{
+            f.name: getattr(self, f.name).to(device) for f in dataclasses.fields(self)
+        })
+
 
 @dataclasses.dataclass
 class RenderResult:
     """One rendered frame: host image + device hit buffers + angle grids."""
 
-    image: np.ndarray  # [H, W, 3] uint8
+    image: Optional[np.ndarray]  # [H, W, 3] uint8; None in a loaded artifact
     hits: HitBuffer
     # Fast: [H] and [W] (azimuth wrapped to [0, 360)); Rectilinear: [H, W]
     # each, host f64 (azimuth from atan2, in (-180, 180])

@@ -10,6 +10,9 @@ numpy; the device parts work on float32 tensors on any device:
   direct, azimuthal-equidistant line, lat-scaled flat), ~cm over 200 km;
 * ``world_directions`` — the local (north, east, up) basis;
 * ``normal_offsets`` — degree offsets of a NORMAL_DIFF-meter move.
+
+``coords_at_dist_host`` is the host f64 geodesic (absolute lat/lon), the
+oracle of those delta forms.
 """
 
 from __future__ import annotations
@@ -69,6 +72,17 @@ class EarthModel:
                 return EarthModel(kind="Ellipsoid", a=float(body["a"]),
                                   b=float(body["b"]))
         raise ValueError(f"invalid earth_shape config: {value!r}")
+
+    def to_config(self):
+        """The YAML value ``from_config`` reads; ObserverAe in the reference
+        binary's serde spelling ``proj_radius`` (mod.rs:26)."""
+        if self.kind == "Spherical":
+            return {"Spherical": {"radius": self.radius}}
+        if self.kind == "ObserverAe":
+            return {"ObserverAe": {"proj_radius": self.radius}}
+        if self.kind == "Ellipsoid":
+            return {"Ellipsoid": {"a": self.a, "b": self.b}}
+        return self.kind
 
     def _canonical(self) -> "EarthModel":
         """Resolve the Simple*/Wgs84 aliases (mod.rs:64-71,97-103,132-143)."""
@@ -155,6 +169,39 @@ class EarthModel:
         r = (90.0 - lat) * DEGREE_DISTANCE
         lo = np.deg2rad(lon)
         return np.stack([r * np.cos(lo), r * np.sin(lo), elev], axis=-1)
+
+    def coords_at_dist_host(self, lat0: float, lon0: float, az_deg, dist):
+        """(lat, lon) degrees at ``dist`` meters along an azimuth, host f64
+        and vectorized (directional_calc.rs): the oracle of the device
+        delta forms, and the walk of ``output-elev-profile``."""
+        m = self._canonical()
+        az = np.deg2rad(np.asarray(az_deg, np.float64))
+        dist = np.asarray(dist, np.float64)
+        if m.kind == "FlatDistorted":  # directional_calc.rs:41-48
+            dlat = np.cos(az) * dist / DEGREE_DISTANCE
+            dlon = np.sin(az) * dist / DEGREE_DISTANCE / np.cos(np.deg2rad(lat0))
+            return lat0 + dlat, lon0 + dlon
+        if m.kind == "AzimuthalEquidistant":  # directional_calc.rs:20-28
+            pos = self.as_cartesian(lat0, lon0, 0.0)
+            north, east, _ = self.world_directions(lat0, lon0)
+            dir_v = north * np.cos(az)[..., None] + east * np.sin(az)[..., None]
+            p2 = pos + dir_v * dist[..., None]
+            lon = np.rad2deg(np.arctan2(p2[..., 1], p2[..., 0]))
+            r = np.hypot(p2[..., 0], p2[..., 1])
+            return 90.0 - r / DEGREE_DISTANCE, lon
+        if m.kind in ("Spherical", "ObserverAe"):  # directional_calc.rs:71-86
+            # the spherical basis even for ObserverAe, whose calculator is
+            # the spherical one
+            la, lo = np.deg2rad(lat0), np.deg2rad(lon0)
+            pos = np.array([np.cos(la) * np.cos(lo), np.cos(la) * np.sin(lo), np.sin(la)])
+            dirn = np.array([-np.sin(la) * np.cos(lo), -np.sin(la) * np.sin(lo), np.cos(la)])
+            dire = np.array([-np.sin(lo), np.cos(lo), 0.0])
+            d = dirn * np.cos(az)[..., None] + dire * np.sin(az)[..., None]
+            ang = dist / m.radius
+            f = pos * np.cos(ang)[..., None] + d * np.sin(ang)[..., None]
+            return (np.rad2deg(np.arcsin(f[..., 2])),
+                    np.rad2deg(np.arctan2(f[..., 1], f[..., 0])))
+        return _vincenty_direct(m.a, m.b, lat0, lon0, az, dist)
 
     def geodesic_delta(self, lat0: float, lon0: float, az_deg: torch.Tensor,
                        dist: torch.Tensor):
@@ -304,3 +351,40 @@ def _vincenty_delta_device(a, b, lat0, az, dist, iters: int = 12):
         )
     )
     return torch.rad2deg(dlat), torch.rad2deg(dl)
+
+
+def _vincenty_direct(a, b, lat0, lon0, az_rad, dist, iters: int = 12):
+    """Vincenty direct problem, host f64 (directional_calc.rs:103-185). The
+    reference iterates to 1e-10; a fixed count converges in 3-4."""
+    f = (a - b) / a
+    red_lat = np.arctan((1.0 - f) * np.tan(np.deg2rad(np.float64(lat0))))
+    sig1 = np.arctan2(np.tan(red_lat), np.cos(az_rad))
+    alfa = np.arcsin(np.cos(red_lat) * np.sin(az_rad))
+    cos2 = np.cos(alfa) ** 2
+    u2 = cos2 * (a * a - b * b) / (b * b)
+    cap_a = 1.0 + u2 / 256.0 * (64.0 + u2 * (-12.0 + 5.0 * u2))
+    cap_b = u2 / 512.0 * (128.0 + u2 * (-64.0 + 37.0 * u2))
+    cap_c = f / 16.0 * cos2 * (4.0 + f * (4.0 - 3.0 * cos2))
+
+    base = dist / b / cap_a
+    sig = base
+    for _ in range(iters):
+        sigm = 2.0 * sig1 + sig
+        dsig = cap_b * np.sin(sig) * (
+            np.cos(sigm) + cap_b / 4.0 * np.cos(sig) * (-1.0 + 2.0 * np.cos(sigm) ** 2)
+        )
+        sig = base + dsig
+
+    sigm = 2.0 * sig1 + sig
+    sr, cr = np.sin(red_lat), np.cos(red_lat)
+    ss, cs = np.sin(sig), np.cos(sig)
+    ca1 = np.cos(az_rad)
+    lat2 = np.arctan(
+        (sr * cs + cr * ss * ca1)
+        / ((1.0 - f) * np.sqrt(np.sin(alfa) ** 2 + (sr * ss - cr * cs * ca1) ** 2))
+    )
+    lam = np.arctan(ss * np.sin(az_rad) / (cr * cs - sr * ss * ca1))
+    dl = lam - (1.0 - cap_c) * f * np.sin(alfa) * (
+        sig + cap_c * ss * (np.cos(sigm) + cap_c * cs * (-1.0 + 2.0 * np.cos(sigm) ** 2))
+    )
+    return np.rad2deg(lat2), lon0 + np.rad2deg(dl)

@@ -39,8 +39,11 @@ def composite(coloring: ColoringParams, fog_distance: Optional[float], valid,
     # The reference re-quantizes the running sum to the u8 grid after EVERY
     # trace point (add() returns Rgb<u8>: renderer/mod.rs:378-383,406,410,
     # utils/mod.rs:24-29). Fold in u8-count space, where integer-valued
-    # floats are exact, truncating after every slot.
-    colors255 = torch.round(colors * 255.0)
+    # floats are exact, truncating after every slot. An invalid slot's
+    # fields are whatever the hit path left there (an extrapolated path
+    # length can overflow the fog's exp), so its color is zeroed, not only
+    # its alpha: NaN · 0 would blacken the pixel.
+    colors255 = torch.where(valid[..., None], torch.round(colors * 255.0), 0.0)
     def255 = torch.round(def_color * 255.0)
     result = torch.zeros(colors.shape[:-2] + (3,), dtype=torch.float32,
                          device=colors.device)

@@ -4,8 +4,9 @@
     python3 chip_smoke.py
 
 Runs from the root of a checkout of this repository, on a machine with one
-CUDA GPU, ``nvcc`` and PyTorch built for CUDA. Imports nothing of JAX, PyYAML
-or Pillow. Phases, each printed as it ends; any failure exits non-zero
+CUDA GPU, ``nvcc`` and PyTorch built for CUDA, PyYAML and Pillow (the
+metadata phase writes the npz artifact's YAML config and a PNG). Imports
+nothing of JAX. Phases, each printed as it ends; any failure exits non-zero
 before the result line:
 
 1. device   — the card's name, and its power limit from nvidia-smi;
@@ -38,7 +39,15 @@ before the result line:
               K = 2 render; (c) at tilt 1 degree through the culled path:
               one timed render after a warm-up with its round count, and at
               192x108 the culled keys equal to the dense path's (plain
-              march).
+              march);
+8. metadata — the headline's artifact, npz and reference ``.dat``: saved,
+              loaded and re-composited on the card bit for bit, every field
+              exact (the render counted through both kernels); the
+              compaction on the card equal to the CPU's; ``view --pixel
+              --save-image`` on the card; the translucent headline (K = 4)
+              as npz; the 8192x2048 / fov 120 / 150 km artifact written and
+              read, timed, with the peak device memory; ``output-ray-paths``
+              on the card (through K2, counted) against the CPU.
 
 The verify tolerance (the JAX package's bench.py verify): at most 1 % of
 pixels differ by more than 2 counts and at most 5 % differ at all.
@@ -317,20 +326,25 @@ def headline_terrain(params):
     return terrain
 
 
-def headline_params(width=1920, height=1080, max_distance=200_000.0, step=50.0,
-                    tilt=0.0):
+def headline_config(width=1920, height=1080, max_distance=200_000.0, step=50.0,
+                    tilt=0.0, fov=40.0):
     from atm_raytracer_tpu_torch.config import Config
 
     return Config.from_dict({
         "view": {
             "position": {"latitude": LAT0, "longitude": LON0,
                          "altitude": {"Relative": 100.0}},
-            "frame": {"direction": 45.0, "fov": 40.0, "max_distance": max_distance,
+            "frame": {"direction": 45.0, "fov": fov, "max_distance": max_distance,
                       "tilt": tilt},
         },
         "simulation_step": step,
         "output": {"width": width, "height": height},
-    }).into_params(None)
+    })
+
+
+def headline_params(width=1920, height=1080, max_distance=200_000.0, step=50.0,
+                    tilt=0.0):
+    return headline_config(width, height, max_distance, step, tilt).into_params(None)
 
 
 def headline_inputs(params, terrain, dev):
@@ -768,6 +782,175 @@ def phase_rect_culled(dev, terrain):
         f"{torch.cuda.max_memory_allocated(dev) / 2**20:.1f} MiB")
 
 
+def hits_equal_on_valid(got, want, fields) -> None:
+    """Equal masks, and each field bitwise equal on the valid slots (host)."""
+    import torch
+
+    check(torch.equal(got.valid, want.valid), "artifact: hit masks differ")
+    v = want.valid
+    for f in fields:
+        check(torch.equal(getattr(got, f)[v], getattr(want, f)[v]),
+              f"artifact: field {f} differs on the valid slots")
+
+
+ALL_FIELDS = ("key", "dlat", "dlon", "distance", "elevation", "path_length",
+              "normal", "kind", "rgba")
+
+
+def artifact_round_trip(tag, config, result, dev, tmp, fmt):
+    """Save, load and re-composite on the card; the image must be the
+    render's bit for bit and every stored field exact. Returns the path."""
+    from atm_raytracer_tpu_torch.meta.serialize import load_metadata, save_metadata
+    from atm_raytracer_tpu_torch.meta.viewer import _render_from_metadata
+
+    path = Path(tmp) / f"{tag}.{'npz' if fmt == 'native' else 'dat'}"
+    t0 = time.perf_counter()
+    save_metadata(path, config, result, fmt=fmt)
+    t1 = time.perf_counter()
+    config2, loaded = load_metadata(path)
+    t2 = time.perf_counter()
+    image = _render_from_metadata(config2, loaded, dev)
+    t3 = time.perf_counter()
+    bad = int((image != result.image).any(axis=-1).sum())
+    check(bad == 0, f"{tag} {fmt}: the re-composite differs from the render in {bad} pixels")
+    # the .dat stores the distance and not the key (meta/bincode.py)
+    fields = ALL_FIELDS if fmt == "native" else tuple(f for f in ALL_FIELDS if f != "key")
+    hits_equal_on_valid(loaded.hits, result.hits.to("cpu"), fields)
+    say(f"[metadata] {tag} {fmt}: {int(loaded.hits.valid.sum())} valid slots, "
+        f"{path.stat().st_size} bytes, save {t1 - t0:.3f} s, load {t2 - t1:.3f} s, "
+        f"re-composite on the card {(t3 - t2) * 1e3:.3f} ms: image bit-exact, "
+        f"fields exact on the valid slots")
+    return path
+
+
+def phase_metadata(dev, terrain, size=(1920, 1080), big=(8192, 2048)):
+    """8. metadata and tools: the artifact, ``view`` and ``output-ray-paths``
+    of the headline scene; the compaction on the card against the CPU; the
+    artifact at the size users write it (the JAX package's 8192x2048,
+    fov 120, 150 km metadata configuration)."""
+    import argparse
+    import contextlib
+    import io
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from atm_raytracer_tpu_torch import cli
+    from atm_raytracer_tpu_torch.generators.fast import render_fast
+    from atm_raytracer_tpu_torch.meta.serialize import (
+        PACKED_FIELDS, _pack_artifact, load_metadata, save_metadata,
+    )
+    from atm_raytracer_tpu_torch.tools import ray_path
+
+    t_phase = time.perf_counter()
+    config = headline_config(*size)
+    with tempfile.TemporaryDirectory() as tmp:
+        # (a) the gen path with --output-meta, counted, and both formats
+        reset_launches()
+        result = render_fast(config.into_params(terrain), terrain, dev)
+        torch.cuda.synchronize()
+        launches = kernel_launches()
+        check(all(n > 0 for n in launches.values()),
+              f"metadata: the render missed a kernel: {launches}")
+        say(f"[metadata] {size[0]}x{size[1]} headline render: launches {launches}")
+        npz = artifact_round_trip("headline", config, result, dev, tmp, "native")
+        artifact_round_trip("headline", config, result, dev, tmp, "reference")
+
+        # (b) the compaction on the card against the same hits on the CPU
+        t0 = time.perf_counter()
+        bits, count, seg = _pack_artifact(result.hits)
+        took = time.perf_counter() - t0
+        bits_c, count_c, seg_c = _pack_artifact(result.hits.to("cpu"))
+        check(np.array_equal(bits, bits_c) and count == count_c,
+              "compaction: card and CPU bit words or counts differ")
+        for name in PACKED_FIELDS:
+            check(np.array_equal(seg[name], seg_c[name]),
+                  f"compaction: card and CPU segment {name} differ")
+        say(f"[metadata] compaction on the card == CPU: {count} slots, "
+            f"{bits.size} words, {took * 1e3:.3f} ms with the copies to the host")
+
+        # (f) view --pixel / --save-image on the npz of (a), on the card
+        y, x = (int(v) for v in np.argwhere(result.hits.valid[..., 0].cpu().numpy())[-1])
+        png = Path(tmp) / "view.png"
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = cli.main(["view", str(npz), "--pixel", str(x), str(y),
+                           "--device", str(dev), "--save-image", str(png)])
+        text = out.getvalue()
+        check(rc == 0 and "Trace point 0 (terrain)" in text,
+              f"view --pixel {x} {y}: rc {rc}, output {text!r}")
+        from PIL import Image
+
+        saved = np.asarray(Image.open(png).convert("RGB"))
+        check(np.array_equal(saved, result.image), "view --save-image: not the render")
+        say(f"[metadata] view --pixel {x} {y} --save-image: "
+            + " | ".join(text.strip().splitlines()[-3:]))
+
+        # (c) the translucent headline, K = 4, npz only
+        config.scene.terrain_alpha = 0.65
+        result = render_fast(config.into_params(terrain), terrain, dev)
+        check(result.hits.valid.shape[-1] == 4, "translucent: K should be 4")
+        artifact_round_trip("translucent K=4", config, result, dev, tmp, "native")
+        del result
+
+        # (d) the size users write artifacts at
+        config = headline_config(*big, max_distance=150_000.0, fov=120.0)
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        result = render_fast(config.into_params(terrain), terrain, dev)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        path = Path(tmp) / "big.npz"
+        save_metadata(path, config, result)
+        t2 = time.perf_counter()
+        _, loaded = load_metadata(path)
+        t3 = time.perf_counter()
+        peak = torch.cuda.max_memory_allocated(dev) / 2**20
+        hits_equal_on_valid(loaded.hits, result.hits.to("cpu"), ("key", "elevation"))
+        say(f"[metadata] {big[0]}x{big[1]} fov 120 150 km: render {t1 - t0:.3f} s (first "
+            f"at this size, with set-up), {int(loaded.hits.valid.sum())} valid slots, "
+            f"npz {path.stat().st_size} bytes, save {t2 - t1:.3f} s, load "
+            f"{t3 - t2:.3f} s, peak device memory {peak:.1f} MiB")
+        del result, loaded
+
+        # (e) output-ray-paths: the fan marches through K2 on the card; the
+        # heights are compared unrounded, the printed table only smoked
+        cfg_path = Path(tmp) / "headline.json"  # JSON is YAML
+        cfg_path.write_text(json.dumps(headline_config().to_dict()))
+        reset_launches()
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = cli.main(["output-ray-paths", str(cfg_path), "--device", str(dev)])
+        rows = out.getvalue().splitlines()
+        k2 = kernel_launches()["march.cu"]
+        check(rc == 0 and k2 > 0 and len(rows[0].split()) == 22,
+              f"output-ray-paths: rc {rc}, K2 launches {k2}, first row {rows[0]!r}")
+        say(f"[metadata] output-ray-paths CLI on the card: {len(rows)} rows, "
+            f"K2 launches {k2}")
+        for name, extra in (("defaults", {}), ("100 km", {"cutoff": 100_000.0,
+                                                          "output_step": 1000.0})):
+            args = argparse.Namespace(
+                input=str(cfg_path), height=2.0, min_ang=-1.0, max_ang=1.0,
+                angle_step=0.1, ray_step=50.0, cutoff=10_000.0, output_step=50.0)
+            for k, v in extra.items():
+                setattr(args, k, v)
+            reset_launches()
+            xs, gpu = ray_path.fan_heights(args, dev)
+            k2 = kernel_launches()["march.cu"]
+            xs_c, cpu = ray_path.fan_heights(args, torch.device("cpu"))
+            k2_cpu = kernel_launches()["march.cu"] - k2
+            check(k2 > 0 and k2_cpu == 0, f"output-ray-paths {name}: K2 launches "
+                  f"{k2} on the card, {k2_cpu} on the CPU")
+            err = float(np.abs(gpu - cpu).max())
+            check(np.array_equal(xs, xs_c) and gpu.shape == cpu.shape and err <= K2_ATOL,
+                  f"output-ray-paths {name}: card vs CPU max |dh| {err} m")
+            say(f"[metadata] output-ray-paths {name}: {gpu.shape[1]} rows x "
+                f"{gpu.shape[0]} rays, K2 launches {k2}, card vs CPU max |dh| "
+                f"{err:.6g} m")
+    say(f"[metadata] phase wall {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     try:
         import torch
@@ -802,6 +985,7 @@ def main() -> int:
         phase_rect_small(dev, terrain)
         phase_rect_headline(dev, params, terrain)
         phase_rect_culled(dev, terrain)
+        phase_metadata(dev, terrain)
     except SmokeFailure as e:
         say(f"FAIL: {e}")
         return 1

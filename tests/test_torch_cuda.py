@@ -181,3 +181,58 @@ def test_rectilinear_pixelwise_marches_through_the_kernel(cuda_device):
     cpu = render_rectilinear(params, terrain, "cpu")
     ok, frac_any, frac_big = verify_tolerance(gpu.image, cpu.image)
     assert ok, (frac_any, frac_big)
+
+
+@pytest.mark.parametrize("alpha", [1.0, 0.65])
+def test_artifact_compaction_on_card_equals_cpu(alpha, cuda_device):
+    from atm_raytracer_tpu_torch.meta.serialize import PACKED_FIELDS, _pack_artifact
+
+    terrain, params = _rect_scene(alpha=alpha)
+    hits = render_fast(params, terrain, cuda_device).hits
+    bits, count, seg = _pack_artifact(hits)
+    bits_c, count_c, seg_c = _pack_artifact(hits.to("cpu"))
+    np.testing.assert_array_equal(bits, bits_c)
+    assert count == count_c == int(hits.valid.sum())
+    for name in PACKED_FIELDS:
+        np.testing.assert_array_equal(seg[name], seg_c[name], err_msg=name)
+
+
+@pytest.mark.parametrize("fmt", ["native", "reference"])
+def test_recomposite_on_card_equals_render(fmt, cuda_device, tmp_path):
+    from atm_raytracer_tpu_torch.meta.serialize import load_metadata, save_metadata
+    from atm_raytracer_tpu_torch.meta.viewer import _render_from_metadata
+
+    terrain, _ = _rect_scene(alpha=0.65)
+    config = Config.from_dict({
+        "view": {"position": {"latitude": 49.5, "longitude": 21.5,
+                              "altitude": {"Relative": 30.0}},
+                 "frame": {"direction": 45.0, "fov": 25.0, "max_distance": 25000.0}},
+        "scene": {"terrain_alpha": 0.65},
+        "simulation_step": 100.0,
+        "output": {"width": 96, "height": 64},
+    })
+    result = render_fast(config.into_params(terrain), terrain, cuda_device)
+    path = tmp_path / ("m.npz" if fmt == "native" else "m.dat")
+    save_metadata(path, config, result, fmt=fmt)
+    loaded_config, loaded = load_metadata(path)
+    on_card = _render_from_metadata(loaded_config, loaded, cuda_device)
+    np.testing.assert_array_equal(on_card, result.image)
+    np.testing.assert_array_equal(on_card, _render_from_metadata(loaded_config, loaded, "cpu"))
+
+
+def test_ray_paths_march_through_the_kernel(cuda_device, tmp_path):
+    import argparse
+
+    from atm_raytracer_tpu_torch.tools.ray_path import fan_heights
+
+    cfg = tmp_path / "config.json"  # JSON is YAML
+    cfg.write_text('{"view": {"position": {"latitude": 49.5, "longitude": 21.5}}}')
+    args = argparse.Namespace(input=str(cfg), height=2.0, min_ang=-1.0, max_ang=1.0,
+                              angle_step=0.1, ray_step=50.0, cutoff=100000.0,
+                              output_step=50.0)
+    before = _kernels.MARCH.launches
+    xs, h = fan_heights(args, cuda_device)
+    assert _kernels.MARCH.launches == before + 1
+    xs_c, h_c = fan_heights(args, torch.device("cpu"))
+    np.testing.assert_array_equal(xs, xs_c)
+    assert float(np.abs(h - h_c).max()) <= 2e-2  # m, as the Pallas march
