@@ -111,10 +111,11 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 
-# K1: first-crossing segments (ops/combine.py)
+# K1: chunk envelopes + first-crossing segments (ops/combine.py); one launch
+# counted per call
 COMBINE = CudaKernel(
     "combine.cu", "crossing_segments",
-    [_P, _I, _P, _I, _P, _I, _I, _I, _I, _P, _P],
+    [_P, _I, _P, _I, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
 )
 # K2: coarse RK4 march nodes (physics/ray.py)
 MARCH = CudaKernel(

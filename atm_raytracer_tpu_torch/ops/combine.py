@@ -9,7 +9,11 @@ columns [W, N_t] → the first K crossing SEGMENT INDICES per pixel [H, W, K].
 
 ``terrain_crossing_segments`` is the H·W·N hot loop: on CUDA tensors it
 launches the kernel ``csrc/combine.cu`` (K1); on CPU tensors it runs the
-plain chunked PyTorch version ``terrain_crossing_segments_plain``.
+plain chunked PyTorch version ``terrain_crossing_segments_plain``. K1 first
+takes the min and max of each block tile's rows over each chunk of
+segments (``crossing_envelopes_plain`` is its plain version) and skips the
+chunks whose ray and terrain envelopes do not overlap: no segment there
+can cross.
 
 Path death (gen_path_cache stops one element after h < −1000,
 utils.rs:159-171): segment k of ray h participates iff no sample j < k of
@@ -26,6 +30,10 @@ from ..physics.ray import DEATH_ALTITUDE
 
 NO_HIT = float("inf")
 NO_HIT_SEG = 2**30  # integer sentinel (segment index form)
+# K1's block tile and segment chunk (csrc/combine.cu TH, TW, CH)
+TILE_H = 8
+TILE_W = 32
+CHUNK = 128
 
 
 def ray_alive_mask(ray_h: torch.Tensor) -> torch.Tensor:
@@ -152,23 +160,59 @@ def terrain_crossing_segments(ray_h: torch.Tensor, terr_elev: torch.Tensor,
     return crossing_segments_cuda(ray_h, terr_elev, n_seg, max_hits)
 
 
+def _tile_envelope(rows: torch.Tensor, n_seg: int, tile: int):
+    """(lo, hi) [ceil(R/tile), ceil(n_seg/CHUNK)]: min and max of each tile
+    of ``tile`` rows over samples c·CHUNK … min((c+1)·CHUNK, n_seg), both
+    ends included (the CHUNK+1 samples chunk c's tests read). NaN samples
+    are left out (+inf / −inf where a tile-chunk holds nothing else)."""
+    n_rows = rows.shape[0]
+    n_tiles, n_chunks = -(-n_rows // tile), -(-n_seg // CHUNK)
+    pad = rows.new_full((n_tiles * tile, n_chunks * CHUNK + 1), float("nan"),
+                        dtype=torch.float32)
+    pad[:n_rows, : n_seg + 1] = rows[:, : n_seg + 1]
+    win = pad.unfold(1, CHUNK + 1, CHUNK).reshape(n_tiles, tile, n_chunks, CHUNK + 1)
+    nan = torch.isnan(win)
+    lo = torch.where(nan, float("inf"), win).amin(dim=(1, 3))
+    hi = torch.where(nan, float("-inf"), win).amax(dim=(1, 3))
+    return lo, hi
+
+
+def crossing_envelopes_plain(ray_h: torch.Tensor, terr_elev: torch.Tensor, n_seg: int):
+    """Plain version of K1's envelope prepass: (ray_lo, ray_hi) over tiles
+    of TILE_H rays and (terr_lo, terr_hi) over tiles of TILE_W columns, each
+    [tiles, ceil(n_seg/CHUNK)] float32. K1 skips chunk c of a block when
+    ray_lo > terr_hi or ray_hi < terr_lo there."""
+    return (*_tile_envelope(ray_h, n_seg, TILE_H), *_tile_envelope(terr_elev, n_seg, TILE_W))
+
+
 def crossing_segments_cuda(ray_h: torch.Tensor, terr_elev: torch.Tensor,
                            n_seg: int, max_hits: int) -> torch.Tensor:
     """Launch K1 (csrc/combine.cu) on CUDA tensors; int32 [H, W, K]."""
+    return crossing_segments_envelopes_cuda(ray_h, terr_elev, n_seg, max_hits)[0]
+
+
+def crossing_segments_envelopes_cuda(ray_h: torch.Tensor, terr_elev: torch.Tensor,
+                                     n_seg: int, max_hits: int):
+    """K1's segments and the envelopes its prepass wrote (the scratch, in
+    ``crossing_envelopes_plain``'s order)."""
     _check_combine_args(ray_h, terr_elev, n_seg, max_hits)
     ray = ray_h.to(torch.float32).contiguous()
     terr = terr_elev.to(torch.float32).contiguous()
     h_n, w_n = ray.shape[0], terr.shape[0]
-    out = torch.empty((h_n, w_n, max_hits), dtype=torch.int32, device=ray.device)
+    dev = ray.device
+    out = torch.empty((h_n, w_n, max_hits), dtype=torch.int32, device=dev)
+    n_chunks = -(-n_seg // CHUNK)
+    env = tuple(torch.empty((-(-n // tile), n_chunks), dtype=torch.float32, device=dev)
+                for n, tile in ((h_n, TILE_H), (h_n, TILE_H), (w_n, TILE_W), (w_n, TILE_W)))
     if h_n == 0 or w_n == 0:
-        return out
+        return out, env
     limit = ray_death_limit(ray, n_seg).contiguous()
     _kernels.COMBINE.call(
         ray.data_ptr(), ray.shape[1], terr.data_ptr(), terr.shape[1],
         limit.data_ptr(), h_n, w_n, int(n_seg), int(max_hits),
-        out.data_ptr(), _kernels.stream_ptr(ray.device),
+        *(e.data_ptr() for e in env), out.data_ptr(), _kernels.stream_ptr(dev),
     )
-    return out
+    return out, env
 
 
 def crossing_prop(ray_h, terr_elev, ks):

@@ -2,6 +2,11 @@
 """Drive the PyTorch port's main path once on one NVIDIA GPU and check it.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --fast-wall PACKAGE_ROOT   # one tree's Fast headline wall
+
+The second form times only the Fast headline (median of 20 renders after a
+warm-up) with the ``atm_raytracer_tpu_torch`` package found under
+PACKAGE_ROOT, e.g. an unpacked parent commit, for comparisons in turns.
 
 Runs from the root of a checkout of this repository, on a machine with one
 CUDA GPU, ``nvcc`` and PyTorch built for CUDA, PyYAML and Pillow (the
@@ -13,8 +18,13 @@ before the result line:
 2. build    — both CUDA kernels built from ``atm_raytracer_tpu_torch/csrc``;
 3. kernels  — each kernel against its plain PyTorch version on the card:
               K1 (combine) segments equal on ragged random fans, K = 1 and 4,
-              and on the path-death and deep-terrain cases; K2 (march) nodes
-              within 2e-2 m for the poly and table l(h), sphere and flat;
+              on the path-death and deep-terrain cases, on two fans where
+              each branch of the envelope cull fires (ray tiles above, then
+              below, the terrain for whole chunks before crossing) and on a
+              crossing at a chunk's last segment; K1's envelopes equal to
+              ``crossing_envelopes_plain`` (torch.equal) on every case; K2
+              (march) nodes within 2e-2 m for the poly and table l(h),
+              sphere and flat;
 4. goldens  — the three golden Fast scenes and the three golden Rectilinear
               scenes, plus the golden scene tilted onto the Rectilinear
               culled path (1 degree, opaque) and its pixelwise path (-1
@@ -26,7 +36,10 @@ before the result line:
               kernels (launch counts), matches the plain path on the card,
               and is timed (median frame wall of 20 renders after a
               warm-up), with each kernel's time beside its plain version's
-              at the headline shapes;
+              and its bound at the headline shapes; K1's work counted: the
+              sign tests the per-pixel scan needs (T_need), the live and
+              total chunks, the tests in live chunks, and no first
+              crossing in a culled chunk;
 6. profile  — a torch.profiler trace of the headline (device busy time,
               idle share, top kernels), stage times by CUDA events and the
               peak device memory;
@@ -70,6 +83,10 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 LAT0, LON0 = 49.5, 21.5
 K2_ATOL = 2e-2  # meters: the bound the JAX package holds its Pallas march to
+# NVIDIA's H100 SXM data sheet, at the full 700 W: HBM3 rate, float32 peak
+# outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
 
 
 class SmokeFailure(Exception):
@@ -175,6 +192,28 @@ def random_fan(rng, h_n, w_n, n_samp, n_terr_samp):
     return ray.astype(np.float32), terr.astype(np.float32)
 
 
+def cull_fan(rng, h_n, w_n, n_seg, above, extra=0):
+    """Ray tiles far above (``above``) or below the terrain for whole chunks,
+    then crossing it near sample 0.55·n_seg: each branch of K1's cull fires."""
+    import numpy as np
+
+    k = np.arange(n_seg + 1)[None, :]
+    k_x = int(0.55 * n_seg) + 3 * np.arange(h_n)[:, None]
+    ramp = np.maximum(k - k_x, 0) * rng.uniform(2.0, 4.0, (h_n, 1))
+    ray = ((300.0 - ramp) if above else (-100.0 + ramp)) + rng.normal(0.0, 2.0, ramp.shape)
+    _, terr = random_fan(rng, 1, w_n, 1, n_seg + 1 + extra)
+    return ray.astype(np.float32), terr
+
+
+def cull_counts(env):
+    """(culled with the rays above, culled with the rays below, live) of the
+    (ray tile, terrain tile, chunk) triples of K1's envelopes."""
+    ray_lo, ray_hi, terr_lo, terr_hi = env
+    above = ray_lo[:, None] > terr_hi[None]
+    below = ray_hi[:, None] < terr_lo[None]
+    return int(above.sum()), int(below.sum()), int((~(above | below)).sum())
+
+
 def phase_kernels(dev):
     """K1 and K2 against their plain versions on the card."""
     import numpy as np
@@ -197,16 +236,34 @@ def phase_kernels(dev):
     deep = np.full((1, n + 1), 10.0, np.float32)
     deep[0, 10:] = -1100.0  # dead above a -1500 m floor: no crossing
     cases.append(("deep", deep, np.full((1, n + 1), -1500.0, np.float32), n))
+    # the cull's two branches, and a crossing that only the sample two chunks
+    # share reveals (the last segment of chunk 1)
+    cases.append(("above then crossing", *cull_fan(rng, 21, 70, 700, True, extra=11), 700))
+    cases.append(("below then crossing", *cull_fan(rng, 21, 70, 700, False), 700))
+    edge = np.full((21, 701), -100.0, np.float32) + rng.normal(0.0, 2.0, (21, 701)).astype(
+        np.float32)
+    edge[:, : 2 * combine.CHUNK] += 500.0
+    cases.append(("chunk edge", edge, cases[-1][2], 700))
     for name, ray, terr, n_seg in cases:
         rt, tt = torch.from_numpy(ray).to(dev), torch.from_numpy(terr).to(dev)
+        env_p = combine.crossing_envelopes_plain(rt, tt, n_seg)
+        above, below, live = cull_counts(env_p)
+        if name.startswith("above"):
+            check(above > 0 and live > 0, f"K1 {name}: the cull above never fired")
+        if name.startswith("below"):
+            check(below > 0 and live > 0, f"K1 {name}: the cull below never fired")
         for k in (1, 4):
-            got = combine.crossing_segments_cuda(rt, tt, n_seg, k)
+            got, env = combine.crossing_segments_envelopes_cuda(rt, tt, n_seg, k)
             want = combine.terrain_crossing_segments_plain(rt, tt, n_seg, k)
             torch.cuda.synchronize()
             bad = int((got != want).sum())
             check(bad == 0, f"K1 {name} K={k}: {bad} segments differ from plain")
-            say(f"[kernels] K1 {name} K={k}: equal "
-                f"({int((want < n_seg).sum())} hits)")
+            check(all(torch.equal(a, b) for a, b in zip(env, env_p)),
+                  f"K1 {name} K={k}: the envelopes differ from crossing_envelopes_plain")
+            check(name != "chunk edge" or bool((want[..., 0] == 2 * combine.CHUNK - 1).all()),
+                  "K1 chunk edge: a pixel does not cross at the last segment of chunk 1")
+            say(f"[kernels] K1 {name} K={k}: equal ({int((want < n_seg).sum())} hits); "
+                f"envelopes equal (culled above {above}, below {below}, live {live})")
     check(int(combine.crossing_segments_cuda(
         torch.from_numpy(death).to(dev), torch.zeros((1, n + 1), device=dev), n, 2
     )[0, 0, 1]) == combine.NO_HIT_SEG, "K1 death: a crossing after death counted")
@@ -377,6 +434,94 @@ def headline_inputs(params, terrain, dev):
     return args, kwargs
 
 
+def k1_work(segs, limit, env, n_seg):
+    """K1's work at K = 1, counted from its output and its envelopes.
+
+    A pixel's scan needs min(first segment + 1, limit) sign tests (T_need);
+    in chunk c it runs clip(need - c·CHUNK, 0, CHUNK) of them. A block
+    streams chunk c while one of its pixels still needs a test there; with
+    the cull it stages only the live ones. Lane slots count a warp (one ray
+    row, 32 columns) as long as its longest lane.
+    """
+    import torch
+
+    from atm_raytracer_tpu_torch.ops import combine as C
+
+    h_n, w_n = segs.shape[:2]
+    th, tw, ch = C.TILE_H, C.TILE_W, C.CHUNK
+    n_rt, n_tt, n_c = -(-h_n // th), -(-w_n // tw), -(-n_seg // ch)
+    need = torch.zeros((n_rt * th, n_tt * tw), dtype=torch.int32, device=segs.device)
+    need[:h_n, :w_n] = torch.minimum(segs[..., 0] + 1, limit.clamp(max=n_seg)[:, None])
+    k0 = torch.arange(n_c, dtype=torch.int32, device=segs.device) * ch
+    tests = (need[..., None] - k0).clamp(0, ch).reshape(n_rt, th, n_tt, tw, n_c)
+    block_tests = tests.sum(dim=(1, 3))  # [n_rt, n_tt, n_c]
+    lane_slots = tests.amax(dim=3).sum(dim=1) * tw
+    streamed = block_tests > 0
+    ray_lo, ray_hi, terr_lo, terr_hi = env
+    culled = (ray_lo[:, None] > terr_hi[None]) | (ray_hi[:, None] < terr_lo[None])
+    live = streamed & ~culled
+    hh, ww = torch.nonzero(segs[..., 0] < n_seg, as_tuple=True)
+    return {
+        "t_need": int(need.long().sum()), "chunks": n_rt * n_tt * n_c,
+        "streamed_uncull": int(streamed.sum()), "live": int(live.sum()),
+        "tests": int(block_tests[live].sum()),
+        "lane_slots_uncull": int(lane_slots[streamed].sum()),
+        "lane_slots": int(lane_slots[live].sum()),
+        # exactness: no pixel's first crossing lies in a culled chunk
+        "hits_in_culled": int(culled[hh // th, ww // tw, segs[hh, ww, 0].long() // ch].sum()),
+    }
+
+
+def k1_kernels_ms(ray_h, terr, n_seg, reps=20):
+    """Device ms of K1's envelope and segment kernels, means of ``reps``
+    K = 1 calls, from a torch.profiler trace."""
+    from atm_raytracer_tpu_torch.ops import combine
+
+    _, _, by_name = trace_busy_ms(lambda: [combine.crossing_segments_cuda(
+        ray_h, terr, n_seg, 1) for _ in range(reps)], "k1")
+    env = sum(v for k, v in by_name.items() if "chunk_envelopes" in k) / reps
+    seg = sum(v for k, v in by_name.items() if "crossing_segments_kernel" in k) / reps
+    check(env > 0 and seg > 0, f"K1's kernels missing from the trace: {list(by_name)}")
+    return env, seg
+
+
+def bound(n_bytes: float, n_ops: float):
+    """(ms, what bounds it): the larger of the bytes over the H100's HBM
+    rate and the float32 operations over its peak float32 rate."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / FP32_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def k2_ops(n_rays: int, n_coarse: int, n_poly: int) -> int:
+    """Float32 operations of csrc/march.cu's loop with the Chebyshev l(h),
+    counted from the source (each +, -, *, /, min, max, compare one): an
+    eval_l is 35 + 3·n_poly (clamp 2, segment search 3 a segment, t 6,
+    Clenshaw 6 x 4, last step 3); a step is three eval_l, four accel of 11,
+    4 for the stage heights of l2 and l4, 12 for the stage slopes and
+    heights, 14 for the update of h and v."""
+    return n_rays * n_coarse * (3 * (35 + 3 * n_poly) + 4 * 11 + 4 + 12 + 14)
+
+
+def fast_walls(dev, params, terrain, renders: int) -> float:
+    """Median Fast frame wall (s) of ``renders`` renders, each ending in a
+    synchronize; the caller has warmed up."""
+    import torch
+
+    from atm_raytracer_tpu_torch.generators.fast import render_fast
+
+    walls = []
+    for _ in range(renders):
+        t0 = time.perf_counter()
+        render_fast(params, terrain, dev)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    q1, med, q3 = statistics.quantiles(walls, n=4)
+    say(f"[headline] frame wall over {renders} renders after the warm-up: "
+        f"median {med * 1e3:.3f} ms (min {min(walls) * 1e3:.3f}, q1 {q1 * 1e3:.3f}, "
+        f"q3 {q3 * 1e3:.3f}, max {max(walls) * 1e3:.3f})")
+    return med
+
+
 def phase_headline(dev, params, terrain, renders=20):
     import numpy as np
     import torch
@@ -408,16 +553,7 @@ def phase_headline(dev, params, terrain, renders=20):
     check(bool((keys[valid] < n_terr).all()), "hit key past the march")
     say(f"[headline] image {image.shape}, hit fraction {frac_hit:.4f}")
 
-    walls = []
-    for _ in range(renders):
-        t0 = time.perf_counter()
-        fast.render_fast(params, terrain, dev)
-        torch.cuda.synchronize()
-        walls.append(time.perf_counter() - t0)
-    q1, med, q3 = statistics.quantiles(walls, n=4)
-    say(f"[headline] frame wall over {renders} renders after the warm-up: "
-        f"median {med * 1e3:.3f} ms (min {min(walls) * 1e3:.3f}, q1 {q1 * 1e3:.3f}, "
-        f"q3 {q3 * 1e3:.3f}, max {max(walls) * 1e3:.3f})")
+    med = fast_walls(dev, params, terrain, renders)
 
     # the plain path on the card: same pipeline, plain march + plain combine;
     # a pixel's segment is floor(key) where it holds a hit
@@ -438,11 +574,27 @@ def phase_headline(dev, params, terrain, renders=20):
                                step=step, n_terr=n_terr)
     terr, _ = fast.terrain_columns(pack, params.model, az, LAT0, LON0, step, n_terr)
     n_seg = n_terr - 1
-    segs_k = combine.crossing_segments_cuda(ray_h, terr, n_seg, 1)
+    segs_k, env_k = combine.crossing_segments_envelopes_cuda(ray_h, terr, n_seg, 1)
     segs_p = combine.terrain_crossing_segments_plain(ray_h, terr, n_seg, 1)
+    env_p = combine.crossing_envelopes_plain(ray_h, terr, n_seg)
     k1_bad = int((segs_k != segs_p).sum())
     check(k1_bad == 0, f"K1 vs plain on the headline inputs: {k1_bad} differ")
+    check(all(torch.equal(a, b) for a, b in zip(env_k, env_p)),
+          "K1's envelopes vs crossing_envelopes_plain on the headline inputs differ")
     k1_err = float((segs_k.long() - segs_p.long()).abs().max())
+    limit = combine.ray_death_limit(ray_h, n_seg)
+    work = k1_work(segs_p, limit, env_p, n_seg)
+    check(work["hits_in_culled"] == 0, f"{work['hits_in_culled']} hits in culled chunks")
+    say(f"[headline] K1 work: T_need {work['t_need']} sign tests (per-pixel early "
+        f"exit); block-chunks {work['chunks']}, streamed without the cull "
+        f"{work['streamed_uncull']}, live {work['live']} "
+        f"({100.0 * work['live'] / work['streamed_uncull']:.2f} %); tests in live "
+        f"chunks {work['tests']} ({work['t_need'] / max(work['tests'], 1):.1f}x fewer); "
+        f"lane slots {work['lane_slots']} (without the cull {work['lane_slots_uncull']})")
+    h_n, w_n = ray_h.shape[0], terr.shape[0]
+    k1_bytes = 4 * ((h_n + w_n) * (n_seg + 1) + h_n * w_n + h_n)
+    k1_ops = 3 * work["tests"] + 2 * (h_n + w_n) * (n_seg + 1)  # tests; envelope min, max
+    k1_bound_ms, k1_bound_by = bound(k1_bytes, k1_ops)
 
     coarse = R.march_coarse(step)
     n_coarse = -(-(n_terr - 1) // coarse)
@@ -454,27 +606,46 @@ def phase_headline(dev, params, terrain, renders=20):
     k2_err = float((hk - hp).abs().max())
     check(k2_err <= K2_ATOL, f"K2 headline nodes differ by {k2_err} m")
 
-    k1_ms = cuda_ms(lambda: combine.crossing_segments_cuda(ray_h, terr, n_seg, 1), 5)
+    k1_ms = cuda_ms(lambda: combine.crossing_segments_cuda(ray_h, terr, n_seg, 1), 20)
     k1_plain_ms = cuda_ms(
         lambda: combine.terrain_crossing_segments_plain(ray_h, terr, n_seg, 1), 2)
     k2_ms = cuda_ms(lambda: R.march_nodes(alt, v0, dx, n_coarse, table, shape.radius), 20)
     k2_plain_ms = cuda_ms(
         lambda: R.march_nodes_plain(alt, v0, dx, n_coarse, table, shape.radius), 2)
-    say(f"[headline] K1 {k1_ms:.3f} ms vs plain {k1_plain_ms:.3f} ms "
-        f"([{out.height}, {out.width}] x {n_seg} segments)")
+    # the two kernels' own device time, without the wrapper's death limit;
+    # with the rays lifted above all terrain every chunk is culled, which
+    # leaves the cost of walking the grid
+    k1_env_ms, k1_seg_ms = k1_kernels_ms(ray_h, terr, n_seg)
+    sky_env_ms, sky_seg_ms = k1_kernels_ms(ray_h + 1e5, terr, n_seg)
+    say(f"[headline] K1 kernels alone (profiler, mean of 20): envelopes {k1_env_ms:.4f} ms "
+        f"+ segments {k1_seg_ms:.4f} ms; the wrapper by CUDA events {k1_ms:.4f} ms; "
+        f"segments with every chunk culled (rays +1e5 m) {sky_seg_ms:.4f} ms")
+    n_poly = len(table.poly)
+    k2_bytes = 4 * (2 * h_n + 10 * n_poly + 2 * h_n * (n_coarse + 1))
+    k2_bound_ms, k2_bound_by = bound(k2_bytes, k2_ops(h_n, n_coarse, n_poly))
+    say(f"[headline] K1 {k1_ms:.4f} ms vs plain {k1_plain_ms:.3f} ms "
+        f"([{out.height}, {out.width}] x {n_seg} segments); bound {k1_bound_ms:.4f} ms "
+        f"by {k1_bound_by} ({k1_bytes} B, {k1_ops} float32 operations): "
+        f"{100.0 * k1_bound_ms / k1_ms:.1f} % of the bound")
     say(f"[headline] K2 {k2_ms:.3f} ms vs plain {k2_plain_ms:.3f} ms "
-        f"({out.height} rays x {n_coarse} steps, max |dh| {k2_err:.3g} m)")
+        f"({out.height} rays x {n_coarse} steps, {n_poly} Chebyshev segments, max |dh| "
+        f"{k2_err:.3g} m); bound {k2_bound_ms:.4f} ms by {k2_bound_by} ({k2_bytes} B, "
+        f"{k2_ops(h_n, n_coarse, n_poly)} float32 operations): "
+        f"{100.0 * k2_bound_ms / k2_ms:.2f} % of the bound")
     kernels = [
         {"name": "K1 crossing_segments", "route": "cuda",
          "source": "atm_raytracer_tpu_torch/csrc/combine.cu",
          "replaces": "atm_raytracer_tpu/experimental/combine_pallas.py:89",
          "launches": launches["combine.cu"], "max_abs_err": k1_err,
-         "ms": k1_ms, "plain_ms": k1_plain_ms},
+         "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound_ms,
+         "bound_by": k1_bound_by, "library_ms": None, "tests": work["tests"],
+         "device_ms": k1_env_ms + k1_seg_ms},
         {"name": "K2 march_nodes", "route": "cuda",
          "source": "atm_raytracer_tpu_torch/csrc/march.cu",
          "replaces": "atm_raytracer_tpu/experimental/march_pallas.py:18",
          "launches": launches["march.cu"], "max_abs_err": k2_err,
-         "ms": k2_ms, "plain_ms": k2_plain_ms},
+         "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound_ms,
+         "bound_by": k2_bound_by, "library_ms": None},
     ]
     return kernels, med
 
@@ -951,7 +1122,7 @@ def phase_metadata(dev, terrain, size=(1920, 1080), big=(8192, 2048)):
     say(f"[metadata] phase wall {time.perf_counter() - t_phase:.1f} s")
 
 
-def main() -> int:
+def main(argv) -> int:
     try:
         import torch
     except ImportError:
@@ -960,16 +1131,31 @@ def main() -> int:
     if not torch.cuda.is_available():
         say("FAIL: torch.cuda.is_available() is false; this check needs a GPU")
         return 1
-    sys.path.insert(0, str(ROOT))
+    wall_only = argv[:1] == ["--fast-wall"]
+    if argv and not (wall_only and len(argv) == 2):
+        say("usage: chip_smoke.py [--fast-wall PACKAGE_ROOT]")
+        return 2
+    pkg_root = Path(argv[1]).resolve() if wall_only else ROOT
+    sys.path.insert(0, str(pkg_root))
     try:
-        import atm_raytracer_tpu_torch  # noqa: F401
+        import atm_raytracer_tpu_torch
     except ImportError as e:
-        say(f"FAIL: the atm_raytracer_tpu_torch package is not beside "
-            f"chip_smoke.py ({e})")
+        say(f"FAIL: no atm_raytracer_tpu_torch package in {pkg_root} ({e})")
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda:0")
+    if wall_only:  # the parent comparison: one tree's Fast headline wall
+        say(f"[fast-wall] package {Path(atm_raytracer_tpu_torch.__file__).parent}")
+        phase_device()
+        params = headline_params()
+        terrain = headline_terrain(params)
+        from atm_raytracer_tpu_torch.generators.fast import render_fast
+
+        render_fast(params, terrain, dev)
+        torch.cuda.synchronize()
+        fast_walls(dev, params, terrain, 20)
+        return 0
     try:
         name = phase_device()
         phase_build()
@@ -1001,4 +1187,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -17,6 +17,7 @@ from atm_raytracer_tpu.experimental.combine_pallas import first_crossing_pallas 
 from atm_raytracer_tpu.ops import combine as JC  # noqa: E402
 from atm_raytracer_tpu_torch.ops import combine as TC  # noqa: E402
 from test_combine import brute_force_keys  # noqa: E402
+from torch_parity import cull_fan  # noqa: E402
 
 
 def _fan(seed, h_n, w_n, n_seg, extra=0):
@@ -129,6 +130,79 @@ def test_pair_gathers_and_prop_match_jax():
     tlo, thi = TC.gather_column_pairs(torch.from_numpy(stack), torch.from_numpy(ks))
     np.testing.assert_array_equal(tlo.numpy(), np.asarray(jlo))
     np.testing.assert_array_equal(thi.numpy(), np.asarray(jhi))
+
+
+def _brute_envelope(rows, n_seg, tile):
+    n_tiles, n_chunks = -(-rows.shape[0] // tile), -(-n_seg // TC.CHUNK)
+    lo = np.empty((n_tiles, n_chunks), np.float32)
+    hi = np.empty((n_tiles, n_chunks), np.float32)
+    for i in range(n_tiles):
+        for c in range(n_chunks):
+            k0 = c * TC.CHUNK
+            block = rows[i * tile:(i + 1) * tile, k0:min(k0 + TC.CHUNK, n_seg) + 1]
+            lo[i, c], hi[i, c] = np.nanmin(block), np.nanmax(block)
+    return lo, hi
+
+
+@pytest.mark.parametrize("fan", ["ragged", "above", "below"])
+def test_envelopes_plain_match_brute_force(fan):
+    n_seg = 301
+    if fan == "ragged":
+        ray, terr = _fan(8, 13, 45, n_seg, extra=9)
+    else:
+        ray, terr = cull_fan(9, 13, 45, n_seg, fan == "above", extra=9)
+    ray[4, 128] = np.nan  # the overlap sample of chunks 0 and 1
+    terr[40, 7] = np.nan
+    got = TC.crossing_envelopes_plain(torch.from_numpy(ray), torch.from_numpy(terr), n_seg)
+    want = (*_brute_envelope(ray, n_seg, TC.TILE_H), *_brute_envelope(terr, n_seg, TC.TILE_W))
+    assert [tuple(g.shape) for g in got] == [(2, 3), (2, 3), (2, 3), (2, 3)]
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), w)
+
+
+def _segments_from_cube(cross, k):
+    """First k crossing indices of a [H, W, n_seg] bool cube, ascending."""
+    idx = np.where(cross, np.arange(cross.shape[-1], dtype=np.int64), TC.NO_HIT_SEG)
+    return np.sort(idx, axis=-1)[..., :k]
+
+
+@pytest.mark.parametrize("max_hits", [1, 2, 3, 4])
+@pytest.mark.parametrize("case", ["fan", "above", "below", "all_below", "step"])
+def test_envelope_cull_drops_no_crossing(case, max_hits):
+    n_seg = 700
+    if case == "fan":
+        ray, terr = _fan(10 + max_hits, 21, 70, n_seg)
+    elif case in ("all_below", "step"):
+        _, terr = _fan(10 + max_hits, 21, 70, n_seg)
+        noise = np.random.default_rng(max_hits).normal(0.0, 2.0, (21, n_seg + 1))
+        ray = (terr.min() - 60.0 + noise).astype(np.float32)  # all culled
+        if case == "step":  # above the terrain up to sample 2·CHUNK − 1: every
+            # crossing is the last segment of chunk 1, which only the
+            # chunks' shared sample 2·CHUNK reveals
+            ray[:, : 2 * TC.CHUNK] += np.float32(terr.max() - terr.min() + 120.0)
+    else:
+        ray, terr = cull_fan(10 + max_hits, 21, 70, n_seg, case == "above")
+    r, t = torch.from_numpy(ray), torch.from_numpy(terr)
+    ray_lo, ray_hi, terr_lo, terr_hi = (
+        e.numpy() for e in TC.crossing_envelopes_plain(r, t, n_seg))
+    culled = ((ray_lo[:, None, :] > terr_hi[None, :, :])
+              | (ray_hi[:, None, :] < terr_lo[None, :, :]))  # [tiles_h, tiles_w, C]
+    # the plain sign cube, with the death bound
+    d = ray[:, None, :] - terr[None, :, : n_seg + 1]
+    alive = TC.ray_alive_mask(r).numpy()
+    cross = (d[..., :-1] * d[..., 1:] < 0.0) & alive[:, None, :]
+    seg_culled = culled[np.arange(ray.shape[0])[:, None, None] // TC.TILE_H,
+                        np.arange(terr.shape[0])[None, :, None] // TC.TILE_W,
+                        np.arange(n_seg)[None, None, :] // TC.CHUNK]
+    assert not (cross & seg_culled).any()
+    if case == "all_below":
+        assert culled.all()
+    elif case != "fan":  # both outcomes occur, so the check has teeth
+        assert culled.any() and not culled.all() and cross.any()
+    if case == "step":
+        assert cross[..., 2 * TC.CHUNK - 1].all() and cross.sum() == cross[..., 0].size
+    want = TC.terrain_crossing_segments_plain(r, t, n_seg, max_hits).numpy()
+    np.testing.assert_array_equal(_segments_from_cube(cross & ~seg_culled, max_hits), want)
 
 
 def test_rejects_short_rows_and_bad_k():

@@ -22,7 +22,7 @@ from atm_raytracer_tpu_torch.ops import combine  # noqa: E402
 from atm_raytracer_tpu_torch.physics import ray as R  # noqa: E402
 from atm_raytracer_tpu_torch.physics.atmosphere import Atmosphere, us_76  # noqa: E402
 from atm_raytracer_tpu_torch.terrain.store import Terrain, Tile  # noqa: E402
-from torch_parity import cuda_device, verify_tolerance  # noqa: E402,F401
+from torch_parity import cuda_device, cull_fan, verify_tolerance  # noqa: E402,F401
 
 pytestmark = pytest.mark.cuda
 
@@ -44,12 +44,25 @@ def _death(floor):
     return ray, np.full((1, 51), floor, np.float32), 50
 
 
+def _chunk_edge(n_seg=700):
+    """Every crossing is the last segment of chunk 1, which only the sample
+    chunks 1 and 2 share reveals."""
+    ray, terr, _ = _fan(4, 21, 70, n_seg)
+    ray = np.float32(terr.min() - 60.0) + np.random.default_rng(4).normal(
+        0.0, 2.0, ray.shape).astype(np.float32)
+    ray[:, : 2 * combine.CHUNK] += np.float32(terr.max() - terr.min() + 120.0)
+    return ray, terr, n_seg
+
+
 COMBINE_CASES = {
     "fan": lambda: _fan(1, 6, 7, 50),
     "ragged": lambda: _fan(2, 37, 45, 301, extra=9),
     "tall": lambda: _fan(3, 130, 33, 1000),
     "death": lambda: _death(0.0),
     "deep_terrain": lambda: _death(-1500.0),
+    "above_then_cross": lambda: (*cull_fan(5, 21, 70, 700, True, extra=11), 700),
+    "below_then_cross": lambda: (*cull_fan(6, 21, 70, 700, False), 700),
+    "chunk_edge": _chunk_edge,
 }
 
 
@@ -68,6 +81,21 @@ def test_combine_kernel_equals_plain(case, max_hits, cuda_device):
     cpu = combine.terrain_crossing_segments(torch.from_numpy(ray), torch.from_numpy(terr),
                                             n_seg, max_hits)
     assert torch.equal(got.cpu(), cpu)
+
+
+@pytest.mark.parametrize("case", list(COMBINE_CASES) + ["nan"])
+def test_envelope_kernel_equals_plain(case, cuda_device):
+    ray, terr, n_seg = COMBINE_CASES["ragged" if case == "nan" else case]()
+    if case == "nan":
+        ray[4, 128] = np.nan  # the sample chunks 0 and 1 share
+        terr[40, 7] = np.nan
+    r = torch.from_numpy(ray).to(cuda_device)
+    t = torch.from_numpy(terr).to(cuda_device)
+    _, env = combine.crossing_segments_envelopes_cuda(r, t, n_seg, 1)
+    want = combine.crossing_envelopes_plain(r, t, n_seg)
+    torch.cuda.synchronize()
+    for got_e, want_e in zip(env, want):
+        assert torch.equal(got_e, want_e)
 
 
 @pytest.fixture(scope="module")

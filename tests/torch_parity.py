@@ -17,6 +17,22 @@ def verify_tolerance(a, b):
     return frac_big <= 0.01 and frac_any <= 0.05, frac_any, frac_big
 
 
+def cull_fan(seed, h_n, w_n, n_seg, above, extra=0):
+    """A combine fan whose ray tiles lie far above (``above``) or far below
+    the terrain for whole chunks, then cross it near sample 0.55·n_seg, each
+    row a little later: each branch of K1's envelope cull fires. The terrain
+    may run ``extra`` samples past the rays."""
+    rng = np.random.default_rng(seed)
+    k = np.arange(n_seg + 1)[None, :]
+    k_x = int(0.55 * n_seg) + 3 * np.arange(h_n)[:, None]
+    ramp = np.maximum(k - k_x, 0) * rng.uniform(2.0, 4.0, (h_n, 1))
+    ray = ((300.0 - ramp) if above else (-100.0 + ramp)) + rng.normal(0.0, 2.0, ramp.shape)
+    n_t = n_seg + 1 + extra
+    terr = (100.0 + 30.0 * np.sin(np.arange(n_t) / 5.0)[None, :]
+            + rng.uniform(-5.0, 5.0, (w_n, n_t)))
+    return ray.astype(np.float32), terr.astype(np.float32)
+
+
 @pytest.fixture
 def cuda_device():
     """A CUDA device, or a skip: decided when the test runs, never at import."""
