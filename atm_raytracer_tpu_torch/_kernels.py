@@ -14,7 +14,8 @@ implementation: a missing compiler or a failed build raises.
 ``--use_fast_math`` is deliberately absent (flushed denormals would break
 the combine kernel's exact parity with the plain version), and
 ``-fmad=false`` keeps the march kernel's rounding that of the unfused
-PyTorch ops it is compared with.
+PyTorch ops it is compared with (its fine altitudes are bit-equal to the
+PyTorch Hermite fill of its own nodes).
 """
 
 from __future__ import annotations
@@ -117,10 +118,12 @@ COMBINE = CudaKernel(
     "combine.cu", "crossing_segments",
     [_P, _I, _P, _I, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
 )
-# K2: coarse RK4 march nodes (physics/ray.py)
+# K2: the fused march — RK4 nodes, Hermite fill, chord path lengths and their
+# prefix sum, or the nodes alone (physics/ray.py)
 MARCH = CudaKernel(
-    "march.cu", "march_nodes",
-    [_P, _P, _I, _F, _I, _P, _I, _P, _I, _F, _F, _F, _I, _P, _P, _P],
+    "march.cu", "march_rays",
+    [_P, _P, _I, _F, _I, _I, _I, _P, _I, _P, _I, _F, _F, _F, _F, _I, _F, _F, _P,
+     _P, _P, _P, _P, _P, _I, _P],
 )
 
 KERNELS = (COMBINE, MARCH)

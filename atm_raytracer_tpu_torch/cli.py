@@ -112,10 +112,17 @@ def run_gen(args) -> int:
     terrain = Terrain.from_folder(terrain_folder)
     params = config.into_params(terrain)
     generator = params.output.generator
-    render = render_rectilinear if generator == "Rectilinear" else render_fast
     phase(f"Generating ({generator}) on {device}...")
-    result = render(params, terrain, device)
-    phase("100%...")
+
+    def progress(pct):
+        # per-percent progress counter, fast.rs:78-87 / rectilinear.rs:40-49
+        phase(f"{pct}%...")
+
+    if generator == "Rectilinear":
+        result = render_rectilinear(params, terrain, device, progress=progress)
+    else:  # Fast is one launch sequence: its only line is the last
+        result = render_fast(params, terrain, device)
+        progress(100)
     phase("Outputting image...")
     image = annotate_image(
         result.image, params, result.elevation_deg, result.azimuth_deg,
@@ -170,7 +177,7 @@ def main(argv=None) -> int:
     except Exception as e:  # main.rs:36-38 prints "ERROR: {}"
         if os.environ.get("ATM_RAYTRACER_TRACEBACK"):
             raise
-        print(f"ERROR: {type(e).__name__}: {e}", file=sys.stderr)
+        print(f"ERROR: {e}", file=sys.stderr)
         return 1
 
 

@@ -92,6 +92,31 @@ def _composite_hits(coloring, fog_distance, hits: HitBuffer) -> torch.Tensor:
     )
 
 
+def percent_reporter(progress):
+    """``emit(frac)`` for a render's host loops: hands ``progress`` the whole
+    percent round(100·frac) when it rises, so the values it sees are
+    monotone (the reference's per-percent counter, rectilinear.rs:40-49)."""
+    last = [-1]
+
+    def emit(frac: float) -> None:
+        pct = min(100, int(round(float(frac) * 100.0)))
+        if progress is not None and pct > last[0]:
+            last[0] = pct
+            progress(pct)
+
+    return emit
+
+
+def _window_progress(emit, k0: int, coarse: int, n_coarse: int) -> None:
+    """Progress of the tilt-0 scans after the window at ``k0``: about 32
+    lines a frame and always the last window, as the JAX package emits."""
+    if emit is None:
+        return
+    w_i = k0 // coarse
+    if w_i % max(1, n_coarse // 32) == 0 or w_i == n_coarse - 1:
+        emit(min(1.0, (k0 + coarse) / (n_coarse * coarse)))
+
+
 # ---------------------------------------------------------------------------
 # tilt == 0: column-shared terrain, march streamed into the crossing search
 # ---------------------------------------------------------------------------
@@ -99,7 +124,7 @@ def _composite_hits(coloring, fog_distance, hits: HitBuffer) -> torch.Tensor:
 
 def first_window_scan(elev_hw, terr_pad, alt0, *, shape: EarthShape,
                       table: Optional[RefractionTable], straight: bool,
-                      step: float, n_seg: int, coarse: int):
+                      step: float, n_seg: int, coarse: int, emit=None):
     """K = 1, the scan: each pixel's FIRST window holding a sign change of
     ray − terrain, and the ODE state at its start.
 
@@ -107,6 +132,7 @@ def first_window_scan(elev_hw, terr_pad, alt0, *, shape: EarthShape,
     [H, W]: altitude, slope and path length at that window's start).
     ``terr_pad`` [W, n_coarse·C + 1] is each column's terrain, zero-padded
     past the march. ``first_hit_retest`` resolves the flagged windows.
+    ``emit`` (``percent_reporter``) receives the scan's progress.
     """
     h_n, w_n = elev_hw.shape
     n_coarse = -(-n_seg // coarse)
@@ -141,6 +167,7 @@ def first_window_scan(elev_hw, terr_pad, alt0, *, shape: EarthShape,
             torch.where(has, v0, s_v),
             torch.where(has, p0, s_p),
         )
+        _window_progress(emit, k0, coarse, n_coarse)
         return carry, win_min
 
     z2 = torch.zeros((h_n, w_n), dtype=torch.float32, device=elev_hw.device)
@@ -206,11 +233,12 @@ def first_hit_retest(best_w, s_h, s_v, s_p, terr_pad, *, shape: EarthShape,
 
 def _multi_hit_scan(elev_hw, terr_pad, alt0, *, shape: EarthShape,
                     table: Optional[RefractionTable], straight: bool,
-                    step: float, n_seg: int, coarse: int, max_hits: int):
+                    step: float, n_seg: int, coarse: int, max_hits: int, emit=None):
     """K > 1: the first ``max_hits`` crossing keys and path lengths
     ([H, W, K], ascending; +inf = empty slot, path length 0 there)."""
     h_n, w_n = elev_hw.shape
     dev = elev_hw.device
+    n_coarse = -(-n_seg // coarse)
 
     def consumer(carry, k0, h_f, plen_f, alive):
         key, plh = carry
@@ -236,6 +264,7 @@ def _multi_hit_scan(elev_hw, terr_pad, alt0, *, shape: EarthShape,
         # smallest of carry + window, each with its own path length
         key, order = torch.topk(torch.cat([key, keyc], dim=-1), max_hits,
                                 dim=-1, largest=False, sorted=True)
+        _window_progress(emit, k0, coarse, n_coarse)
         return key, torch.cat([plh, plc], dim=-1).gather(-1, order)
 
     key0 = torch.full((h_n, w_n, max_hits), combine.NO_HIT, dtype=torch.float32,
@@ -249,7 +278,7 @@ def fused_shared_core(pack: TerrainPack, table: Optional[RefractionTable],
                       model: EarthModel, shape: EarthShape, straight: bool,
                       step: float, n_terr: int, max_hits: int, lat0: float,
                       lon0: float, coloring, fog_distance: Optional[float],
-                      terrain_alpha: float):
+                      terrain_alpha: float, emit=None):
     """The whole tilt-0 Rectilinear frame on the device of ``az_deg`` [W]:
     (image [H, W, 3] u8, hits [H, W, K]). ``cam`` = (width, height, fov).
 
@@ -274,10 +303,11 @@ def fused_shared_core(pack: TerrainPack, table: Optional[RefractionTable],
     scan_kw = dict(shape=shape, table=table, straight=straight, step=step,
                    n_seg=n_seg, coarse=coarse)
     if max_hits == 1:
-        found = first_window_scan(elev_hw, terr_pad, alt0, **scan_kw)
+        found = first_window_scan(elev_hw, terr_pad, alt0, emit=emit, **scan_kw)
         key, plh = first_hit_retest(*found, terr_pad, **scan_kw)
     else:
-        key, plh = _multi_hit_scan(elev_hw, terr_pad, alt0, max_hits=max_hits, **scan_kw)
+        key, plh = _multi_hit_scan(elev_hw, terr_pad, alt0, max_hits=max_hits,
+                                   emit=emit, **scan_kw)
     hits = column_hits(stacked, key, plh, az, model=model, lat0=lat0, lon0=lon0,
                        step=step, terrain_alpha=terrain_alpha)
     return _composite_hits(coloring, fog_distance, hits), hits
@@ -311,7 +341,7 @@ def fused_culled_core(pack: TerrainPack, table: Optional[RefractionTable], alt0,
                       *, cam: tuple, model: EarthModel, shape: EarthShape,
                       straight: bool, step: float, n_terr: int, lat0: float,
                       lon0: float, coloring, fog_distance: Optional[float],
-                      terrain_alpha: float):
+                      terrain_alpha: float, emit=None):
     """Exact tilted-pinhole frame without dense per-pixel terrain sampling,
     on the device of ``pack``: (image [P, 3] u8, hits [P, 1], rounds) with
     P = W·H pixels in row-major order. ``cam`` = (width, height, fov, tilt,
@@ -330,6 +360,8 @@ def fused_culled_core(pack: TerrainPack, table: Optional[RefractionTable], alt0,
        each pixel's own azimuth only there;
     4. rounds: 2-3 repeat on the next M_CAND candidates for pixels with
        candidates left and no hit yet, one host sync per round.
+
+    ``emit`` receives the share of the blocks whose candidates were tested.
     """
     width, height, fov, tilt, direction = cam
     dev = pack.tiles.device
@@ -469,6 +501,8 @@ def fused_culled_core(pack: TerrainPack, table: Optional[RefractionTable], alt0,
             plh[px] = torch.where(better, plc, plh[px])
         skip += M_CAND
         rounds += 1
+        if emit is not None:
+            emit(min(1.0, skip / nb))
         if skip >= nb or not bool((torch.isinf(key[:, 0]) & (cnt > skip)).any()):
             break
 
@@ -579,7 +613,7 @@ def _frame_hits(parts, h: int, w: int) -> HitBuffer:
 
 def render_rectilinear(params: Params, terrain: Terrain, device,
                        max_hits: Optional[int] = None, cull: bool = True,
-                       plain: bool = False) -> RenderResult:
+                       plain: bool = False, progress=None) -> RenderResult:
     """Full Rectilinear render (rectilinear.rs:24-60) on ``device``.
 
     tilt 0 takes the fused shared-column path; a tilted opaque frame
@@ -587,6 +621,9 @@ def render_rectilinear(params: Params, terrain: Terrain, device,
     dense pixelwise path, whose march goes through the march kernel on a
     CUDA device unless ``plain``. The image comes back to the host; the hits
     stay on the device. The angle grids of the result are the host f64 ones.
+    ``progress`` (if given) receives monotone whole-percent values from the
+    host loops (windows of the tilt-0 scan, culled rounds, dense chunks),
+    ending at 100.
     """
     if params.objects:
         raise NotImplementedError(
@@ -620,16 +657,17 @@ def render_rectilinear(params: Params, terrain: Terrain, device,
         terrain_alpha=float(params.terrain_alpha),
     )
     rounds = None
+    emit = percent_reporter(progress)
     if frame.tilt == 0.0:
         az = camera.rectilinear_column_azimuths(w, frame.fov, frame.direction)
         image, hits = fused_shared_core(
             pack, table, torch.from_numpy(az.astype(np.float32)).to(device), alt0,
-            cam=(w, h, float(frame.fov)), max_hits=int(max_hits), **kw)
+            cam=(w, h, float(frame.fov)), max_hits=int(max_hits), emit=emit, **kw)
     elif max_hits == 1 and cull:
         image, hits, rounds = fused_culled_core(
             pack, table, alt0,
             cam=(w, h, float(frame.fov), float(frame.tilt), float(frame.direction)),
-            **kw)
+            emit=emit, **kw)
         image = image.reshape(h, w, 3)
         hits = _frame_hits([hits], h, w)
     else:
@@ -637,14 +675,16 @@ def render_rectilinear(params: Params, terrain: Terrain, device,
         dir_flat = torch.from_numpy(
             np.rad2deg(dir_rad).reshape(-1).astype(np.float32)).to(device)
         chunk = PIXEL_ROWS * w
-        parts = [
-            rectilinear_core(pack, table, elev_flat[c0:c0 + chunk],
-                             dir_flat[c0:c0 + chunk], alt0, max_hits=int(max_hits),
-                             plain=plain, **kw)
-            for c0 in range(0, h * w, chunk)
-        ]
+        starts = range(0, h * w, chunk)
+        parts = []
+        for i, c0 in enumerate(starts):
+            parts.append(rectilinear_core(
+                pack, table, elev_flat[c0:c0 + chunk], dir_flat[c0:c0 + chunk], alt0,
+                max_hits=int(max_hits), plain=plain, **kw))
+            emit((i + 1) / len(starts))
         image = torch.cat([p[0] for p in parts], dim=0).reshape(h, w, 3)
         hits = _frame_hits([p[1] for p in parts], h, w)
+    emit(1.0)
     return RenderResult(
         image=image.cpu().numpy(),
         hits=hits,

@@ -9,10 +9,12 @@ initial conditions and path-length rule are documented there:
 
 with l(h) = d(ln n)/dh from a host-built f64 table (``RefractionTable``).
 
-All rays march in lockstep. The coarse RK4 node loop is the hot, sequential
-part: ``march_nodes`` runs it as the CUDA kernel ``csrc/march.cu`` on CUDA
-tensors and as the plain PyTorch loop ``march_nodes_plain`` on CPU tensors.
-Hermite dense output and the path-length cumsum are tensor ops.
+All rays march in lockstep. On CUDA tensors ``march_rays`` is one launch of
+the CUDA kernel ``csrc/march.cu`` (K2): the coarse RK4 node loop, the
+Hermite dense output and the chord path lengths with their prefix sum,
+written as [B, N+1] rows; ``march_nodes`` is the same kernel writing the
+nodes only. On CPU tensors both run the plain PyTorch path
+(``march_nodes_plain``, ``hermite_fill``, ``_finish_march``).
 
 The per-pixel Rectilinear generator marches through the fused scans
 ``march_scan_light`` and ``march_scan``: Python loops over coarse windows
@@ -60,6 +62,9 @@ class RefractionTable:
     values: torch.Tensor  # [n] f32
     pairs: torch.Tensor  # [n-1, 2] f32: (values[i], values[i+1])
     poly: Optional[Tuple] = None  # ((h_lo, h_hi, (c0..c6)), ...)
+    # poly_rows by device, built on first use (callers must not write to them)
+    _rows: dict = dataclasses.field(default_factory=dict, init=False, repr=False,
+                                    compare=False)
 
     @staticmethod
     def build(atm: Atmosphere, wavelength: float, h_lo: float = -2000.0,
@@ -97,11 +102,15 @@ class RefractionTable:
 
     def poly_rows(self) -> torch.Tensor:
         """The fit as the march kernel's data: [S, 10] f32 rows of
-        (lo, hi, width, c0..c6), width = max(hi - lo, 1e-30)."""
-        rows = [
-            [lo, hi, max(hi - lo, 1e-30), *coeffs] for lo, hi, coeffs in self.poly
-        ]
-        return torch.tensor(rows, dtype=torch.float32, device=self.values.device)
+        (lo, hi, width, c0..c6), width = max(hi - lo, 1e-30), on the table's
+        device; built and uploaded once per table and device."""
+        dev = self.values.device
+        if dev not in self._rows:
+            rows = [
+                [lo, hi, max(hi - lo, 1e-30), *coeffs] for lo, hi, coeffs in self.poly
+            ]
+            self._rows[dev] = torch.tensor(rows, dtype=torch.float32, device=dev)
+        return self._rows[dev]
 
 
 def _fit_piecewise_cheb(
@@ -441,48 +450,100 @@ def march_nodes_plain(alt, v0, dx: float, n_coarse: int,
     return torch.stack(hs), torch.stack(vs)
 
 
+@functools.lru_cache(maxsize=8)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def default_rays_per_cta(b: int, device) -> int:
+    """Rays a CTA of K2 marches for a batch of ``b``: 8 while that leaves
+    at most a few CTAs an SM, so each ray's serial chain keeps a scheduler
+    nearly to itself; 32 for larger batches, where the card is full and
+    fewer, fuller producer warps dispatch fewer instructions (the sweep
+    in PERF.md)."""
+    return 8 if -(-b // 8) <= 4 * _sm_count(torch.device(device)) else 32
+
+
 def march_nodes(alt: torch.Tensor, v0: torch.Tensor, dx: float, n_coarse: int,
                 table: RefractionTable, radius: Optional[float]):
     """Coarse RK4 nodes (h, v) [n_coarse+1, B] f32.
 
-    CPU tensors run ``march_nodes_plain``; CUDA tensors launch the kernel
-    ``csrc/march.cu`` (K2) and raise if it cannot build or launch.
+    CPU tensors run ``march_nodes_plain``; CUDA tensors launch K2
+    (``csrc/march.cu``) with its fine outputs off, and raise if it cannot
+    build or launch.
     """
     if alt.device.type == "cpu":
         return march_nodes_plain(alt, v0, dx, n_coarse, table, radius)
     if alt.device.type != "cuda":
         raise ValueError(f"march_nodes: unsupported device {alt.device}")
-    return march_nodes_cuda(alt, v0, dx, n_coarse, table, radius)
+    _, _, h, v = march_cuda(alt, v0, dx, n_coarse, table, radius)
+    return h, v
 
 
-def march_nodes_cuda(alt: torch.Tensor, v0: torch.Tensor, dx: float,
-                     n_coarse: int, table: RefractionTable,
-                     radius: Optional[float]):
-    """Launch K2 (csrc/march.cu) on CUDA tensors: one thread per ray, l(h)
-    from ``table.poly`` when it exists, else from the table itself."""
+def march_cuda(alt: torch.Tensor, v0: torch.Tensor, dx: float, n_coarse: int,
+               table: RefractionTable, radius: Optional[float], *,
+               fine: Optional[Tuple[float, int, int]] = None, nodes: bool = True,
+               rays_per_cta: Optional[int] = None,
+               clocks: Optional[torch.Tensor] = None):
+    """Launch K2 (csrc/march.cu) on CUDA tensors: (h, p, node_h, node_v).
+
+    ``fine`` = (step, coarse, n_steps) with dx = _f32(step·coarse) writes
+    the fine altitudes and path lengths h, p [B, n_steps+1] (else None);
+    ``nodes`` writes the nodes (h, v) [n_coarse+1, B] (else None). l(h)
+    comes from ``table.poly`` when it exists, else from the table itself.
+    ``rays_per_cta`` (1..32) defaults to ``default_rays_per_cta(B)``.
+    ``clocks`` (int64 [n_coarse + 1 + 2·CTAs] on the device, CTAs =
+    ceil(B / rays_per_cta)) receives the clock64() stamps of CTA 0's steps,
+    then each CTA's start and end on the %globaltimer clock (ns).
+    """
     alt = alt.to(torch.float32).contiguous()
     v0 = v0.to(torch.float32).contiguous()
     if alt.shape != v0.shape or alt.ndim != 1:
-        raise ValueError("march_nodes: alt and v0 must be equal [B] vectors")
+        raise ValueError("march_cuda: alt and v0 must be equal [B] vectors")
     if table.pairs.device != alt.device:
-        raise ValueError("march_nodes: table and rays live on different devices")
+        raise ValueError("march_cuda: table and rays live on different devices")
+    if fine is None and not nodes:
+        raise ValueError("march_cuda: nothing to write")
     b = alt.shape[0]
-    out_h = torch.empty((n_coarse + 1, b), dtype=torch.float32, device=alt.device)
-    out_v = torch.empty_like(out_h)
+    dev = alt.device
+    rays_per_cta = int(rays_per_cta or default_rays_per_cta(b, dev))
+    if clocks is not None and (
+            clocks.dtype != torch.int64 or clocks.device != dev
+            or clocks.numel() < n_coarse + 1 + 2 * -(-b // rays_per_cta)):
+        raise ValueError("march_cuda: clocks must be int64 [n_coarse + 1 + 2·CTAs] "
+                         "on the rays' device")
+    step, coarse, n_steps = fine if fine is not None else (dx, 1, n_coarse)
+    n_out = n_steps + 1
+    out_h = out_p = node_h = node_v = None
+    basis = None
+    if fine is not None:
+        out_h = torch.empty((b, n_out), dtype=torch.float32, device=dev)
+        out_p = torch.empty_like(out_h)
+        basis = _hermite_basis(coarse, dev)
+    if nodes:
+        node_h = torch.empty((n_coarse + 1, b), dtype=torch.float32, device=dev)
+        node_v = torch.empty_like(node_h)
     if b == 0:
-        return out_h, out_v
+        return out_h, out_p, node_h, node_v
     pairs = table.pairs.contiguous()
     # without a fit the kernel reads the table; the poly pointer is unused
     poly = table.poly_rows() if table.poly is not None else pairs
     n_poly = len(table.poly) if table.poly is not None else 0
     inv_r = 0.0 if radius is None else _f32(1.0 / radius)
+    fstep = _f32(step)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
     _kernels.MARCH.call(
-        alt.data_ptr(), v0.data_ptr(), b, _f32(dx), int(n_coarse),
+        alt.data_ptr(), v0.data_ptr(), b, _f32(dx), int(n_coarse), int(coarse), n_out,
         poly.data_ptr(), n_poly, pairs.data_ptr(), int(table.values.shape[0]),
-        table.h0, table.inv_dh, inv_r, 0 if radius is None else 1,
-        out_h.data_ptr(), out_v.data_ptr(), _kernels.stream_ptr(alt.device),
+        table.h0, table.inv_dh, inv_r, 0.0 if radius is None else _f32(radius),
+        0 if radius is None else 1, fstep, _f32(np.float32(fstep) * np.float32(fstep)),
+        ptr(basis), ptr(out_h), ptr(out_p), ptr(node_h), ptr(node_v), ptr(clocks),
+        rays_per_cta, _kernels.stream_ptr(dev),
     )
-    return out_h, out_v
+    return out_h, out_p, node_h, node_v
 
 
 def initial_slope(alt: torch.Tensor, elev_rad: torch.Tensor,
@@ -528,12 +589,18 @@ def march_rays(
 
     ``alt`` is a scalar or [B] (meters), ``elev_rad`` [B] on the target
     device. ``coarse`` = C > 1 integrates RK4 at C·step and fills the fine
-    grid by cubic Hermite dense output. ``plain`` runs the node loop as
-    ``march_nodes_plain`` on any device — the kernel's oracle on the card.
+    grid by cubic Hermite dense output. On CUDA tensors the nodes, the fill
+    and the path lengths are one launch of K2 (``march_cuda``); CPU tensors,
+    or ``plain`` on any device (the kernel's oracle on the card), run
+    ``march_nodes_plain``, ``hermite_fill`` and ``_finish_march``.
     """
     elev_rad = elev_rad.to(torch.float32)
-    alt = torch.as_tensor(alt, dtype=torch.float32, device=elev_rad.device)
-    alt = alt.expand(elev_rad.shape).contiguous()
+    if isinstance(alt, torch.Tensor):
+        alt = alt.to(device=elev_rad.device, dtype=torch.float32)
+        alt = alt.expand(elev_rad.shape).contiguous()
+    else:  # filled on the device: no blocking copy from pageable host memory
+        alt = torch.full(elev_rad.shape, float(alt), dtype=torch.float32,
+                         device=elev_rad.device)
     radius = shape.radius
     if table is None or straight:
         h_fine = _straight_dense(alt, elev_rad, step, n_steps, shape)
@@ -543,34 +610,48 @@ def march_rays(
     coarse = max(1, min(int(coarse), n_steps))
     n_coarse = -(-n_steps // coarse)
     dx = _f32(step * coarse)
-    nodes = march_nodes_plain if plain else march_nodes
-    h_nodes, v_nodes = nodes(alt, v0, dx, n_coarse, table, radius)
+    if plain or alt.device.type == "cpu":
+        h_nodes, v_nodes = march_nodes_plain(alt, v0, dx, n_coarse, table, radius)
+        h_fine = hermite_fill(h_nodes, v_nodes, dx, coarse, n_steps)
+        return _finish_march(h_fine, step, radius)
+    if alt.device.type != "cuda":
+        raise ValueError(f"march_rays: unsupported device {alt.device}")
+    h, p, _, _ = march_cuda(alt, v0, dx, n_coarse, table, radius,
+                            fine=(step, coarse, n_steps), nodes=False)
+    return h, p
 
+
+def hermite_fill(h_nodes, v_nodes, dx: float, coarse: int, n_steps: int):
+    """Fine altitudes [N+1, B] from the nodes [n_coarse+1, B]: the nodes
+    themselves when C = 1, else the cubic Hermite samples t = j/C, j < C, of
+    each coarse window, then the last node, cut to N+1."""
     if coarse == 1:
-        h_fine = h_nodes[: n_steps + 1]  # [N+1, B]
-    else:
-        # cubic Hermite dense output per coarse segment: t = j/C, j < C
-        h00, h10, h01, h11 = _hermite_basis(coarse, alt.device)[:, :coarse, None, None]
-        hl = h_nodes[:-1][None]  # [1, Nc, B]
-        hr = h_nodes[1:][None]
-        vl = v_nodes[:-1][None] * dx
-        vr = v_nodes[1:][None] * dx
-        seg = h00 * hl + h10 * vl + h01 * hr + h11 * vr  # [C, Nc, B]
-        h_fine = torch.cat(
-            [seg.permute(1, 0, 2).reshape(-1, seg.shape[2]), h_nodes[-1:]],
-            dim=0,
-        )[: n_steps + 1]
-    return _finish_march(h_fine, step, radius)
+        return h_nodes[: n_steps + 1]
+    h00, h10, h01, h11 = _hermite_basis(coarse, h_nodes.device)[:, :coarse, None, None]
+    hl = h_nodes[:-1][None]  # [1, Nc, B]
+    hr = h_nodes[1:][None]
+    vl = v_nodes[:-1][None] * dx
+    vr = v_nodes[1:][None] * dx
+    seg = h00 * hl + h10 * vl + h01 * hr + h11 * vr  # [C, Nc, B]
+    return torch.cat(
+        [seg.permute(1, 0, 2).reshape(-1, seg.shape[2]), h_nodes[-1:]],
+        dim=0,
+    )[: n_steps + 1]
 
 
 def _finish_march(h_fine, step: float, radius):
     """[N+1, B] fine altitudes → ([B, N+1] h, [B, N+1] path length), the
-    path length summed like the reference's calc_dist (utils.rs:42-53)."""
+    path length summed like the reference's calc_dist (utils.rs:42-53).
+
+    The prefix sum runs in float64, rounded once: what the CPU's float32
+    cumsum does anyway, and on the card exact where a float32 scan drifts
+    by ~16 ulp over 4000 chords (K2 sums the same way)."""
     h_out = h_fine.transpose(0, 1).contiguous()  # [B, N+1]
     p_out = torch.cat(
         [torch.zeros(h_out.shape[:-1] + (1,), dtype=torch.float32,
                      device=h_out.device),
-         torch.cumsum(_seg_lengths(h_out, step, radius), dim=-1)],
+         torch.cumsum(_seg_lengths(h_out, step, radius), dim=-1,
+                      dtype=torch.float64).to(torch.float32)],
         dim=-1,
     )
     return h_out, p_out

@@ -23,8 +23,17 @@ before the result line:
               below, the terrain for whole chunks before crossing) and on a
               crossing at a chunk's last segment; K1's envelopes equal to
               ``crossing_envelopes_plain`` (torch.equal) on every case; K2
-              (march) nodes within 2e-2 m for the poly and table l(h),
-              sphere and flat;
+              (the fused march) for the poly and table l(h), sphere and
+              flat: the nodes-only launch within 2e-2 m of the plain loop,
+              and on B x N x C of 1 x 3999 x 16, 21 x 200 x 1, 1080 x 3999
+              x 16, 1080 x 330 x 16 (a ragged tail) and, once, 540 000 x
+              3999 x 16 (past 2^31 elements), and with a 10-segment fit
+              (past the registers' 8; rays from its zero-width piece take
+              the IEEE-division fallback): its nodes within 2e-2 m, its
+              fine h torch.equal to the PyTorch Hermite fill of its own
+              nodes, its p within rtol 1e-6 / atol 1e-3 m of that fill's
+              path length (the largest difference printed in ulp); what
+              the card's PyTorch computes for ``x / w``, w a Python float;
 4. goldens  — the three golden Fast scenes and the three golden Rectilinear
               scenes, plus the golden scene tilted onto the Rectilinear
               culled path (1 degree, opaque) and its pixelwise path (-1
@@ -33,13 +42,20 @@ before the result line:
               verify tolerance;
 5. headline — 1920x1080, fov 40, 200 km in 50 m steps, refracted, spherical,
               over 45 synthetic 1201-post tiles: the render goes through both
-              kernels (launch counts), matches the plain path on the card,
-              and is timed (median frame wall of 20 renders after a
+              kernels (launch counts; K2 once), matches the plain path on the
+              card, and is timed (median frame wall of 20 renders after a
               warm-up), with each kernel's time beside its plain version's
               and its bound at the headline shapes; K1's work counted: the
               sign tests the per-pixel scan needs (T_need), the live and
               total chunks, the tests in live chunks, and no first
-              crossing in a culled chunk;
+              crossing in a culled chunk; K2: the march call by CUDA events
+              and its kernel alone by the profiler (with the march's other
+              device records), the cycles a step by clock64() (fused and
+              nodes only) with the CTAs' span by %globaltimer, the
+              latencies of single operations (``scripts/k2_clock_probe.py``)
+              and the chain floor they give, the bytes bound, the p ulp
+              difference, and the rays-per-CTA sweep at 1080, 122 880 and
+              21 rays;
 6. profile  — a torch.profiler trace of the headline (device busy time,
               idle share, top kernels), stage times by CUDA events and the
               peak device memory;
@@ -282,8 +298,116 @@ def phase_kernels(dev):
             err = float((hk - hp).abs().max())
             sname = "flat" if shape.is_flat else "sphere"
             check(err <= K2_ATOL, f"K2 {poly_name} {sname}: max |dh| {err} m > {K2_ATOL}")
-            say(f"[kernels] K2 {poly_name} {sname}: max |dh| {err:.3g} m "
+            say(f"[kernels] K2 nodes only, {poly_name} {sname}: max |dh| {err:.3g} m "
                 f"(v {float((vk - vp).abs().max()):.3g})")
+            for b, n, c in K2_CASES:
+                if b > 100_000 and (poly_name, sname) != ("poly", "sphere"):
+                    continue  # the 64-bit offsets once, at the headline's l(h) form
+                k2_case(dev, tb, shape, b, n, c, f"{poly_name} {sname}")
+    fit = split_fit(table.poly)
+    lo = next(lo for lo, hi, _ in fit if lo == hi)
+    split = dataclasses.replace(table, poly=fit)
+    for shape in (R.EarthShape(6_371_000.0), R.FLAT):
+        sname = "flat" if shape.is_flat else "sphere"
+        k2_case(dev, split, shape, 1080, 330, 16, f"{len(fit)}-segment fit {sname}")
+        k2_case(dev, split, shape, 64, 330, 16,
+                f"{len(fit)}-segment fit {sname}, rays from the zero-width piece", alt=lo)
+    scalar_division_probe(dev)
+
+
+def split_fit(poly):
+    """A fit of more segments than K2 keeps in registers: each segment of
+    ``poly`` cut in three with its coefficients kept, the second segment's
+    first piece one sample wide (lo == hi, the zero-width edge piece whose
+    division K2 cannot take on its fast path)."""
+    out = []
+    for i, (lo, hi, c) in enumerate(poly):
+        m1, m2 = lo + round((hi - lo) / 3), lo + round(2 * (hi - lo) / 3)
+        if i == 1:
+            out.append((lo, lo, c))
+            lo += 1.0
+        out += [(lo, m1 - 1.0, c), (m1, m2 - 1.0, c), (m2, hi, c)]
+    return tuple(out)
+
+
+# K2's cases on the card, with the poly and table l(h), sphere and flat:
+# (B rays, N steps, C); the step is 50 m
+K2_CASES = (
+    (1, 3999, 16),  # one ray at the headline's length: 3999 = 249·16 + 15
+    (21, 200, 1),  # the output-ray-paths fan: C = 1, the nodes are the samples
+    (1080, 3999, 16),  # the Fast headline
+    (1080, 330, 16),  # a ragged tail: 330 = 20·16 + 10
+    (540_000, 3999, 16),  # B·(N+1) = 2 160 540 000 > 2^31: 64-bit offsets
+)
+
+
+def ulp_diff(got, want) -> float:
+    """Largest |got - want| in units of the float32 spacing at ``want``."""
+    import torch
+
+    a = want.abs()
+    spacing = torch.nextafter(a, torch.full_like(a, math.inf)) - a
+    return float(((got - want).abs() / spacing).max())
+
+
+def k2_case(dev, tb, shape, b, n, c, tag, step=50.0, alt=100.0):
+    """K2's contract on one case: the fused launch's nodes within K2_ATOL of
+    ``march_nodes_plain``; its fine h ``torch.equal`` to the PyTorch Hermite
+    fill of its own nodes; its p within rtol 1e-6 / atol 1e-3 m of
+    ``_finish_march``'s path length of that h. Above 4096 rays the plain
+    side runs on the first and last 2048 rays only."""
+    import torch
+
+    from atm_raytracer_tpu_torch import _kernels
+    from atm_raytracer_tpu_torch.physics import ray as R
+
+    elev = torch.deg2rad(torch.linspace(-0.6, 1.5, b, device=dev) if b > 1
+                         else torch.full((1,), 0.05, device=dev))
+    alt = torch.full_like(elev, alt)
+    v0 = R.initial_slope(alt, elev, shape)
+    coarse = max(1, min(c, n))
+    n_coarse = -(-n // coarse)
+    dx = R._f32(step * coarse)
+    before = _kernels.MARCH.launches
+    h, p, nh, nv = R.march_cuda(alt, v0, dx, n_coarse, tb, shape.radius,
+                                fine=(step, coarse, n), nodes=True)
+    check(_kernels.MARCH.launches == before + 1, f"K2 {tag} B={b}: not one launch")
+    sel = (torch.arange(b, device=dev) if b <= 4096 else
+           torch.cat([torch.arange(2048, device=dev), torch.arange(b - 2048, b, device=dev)]))
+    hp_nodes, _ = R.march_nodes_plain(alt[sel], v0[sel], dx, n_coarse, tb, shape.radius)
+    fill = R.hermite_fill(nh[:, sel], nv[:, sel], dx, coarse, n)
+    h_t, p_t = R._finish_march(fill, step, shape.radius)
+    torch.cuda.synchronize()
+    node_err = float((nh[:, sel] - hp_nodes).abs().max())
+    check(node_err <= K2_ATOL, f"K2 {tag} B={b} N={n} C={c}: nodes {node_err} m from plain")
+    check(h.shape == (b, n + 1) and torch.equal(h[sel], h_t),
+          f"K2 {tag} B={b} N={n} C={c}: fine h differs from the Hermite fill of its nodes")
+    p_ok = torch.allclose(p[sel], p_t, rtol=1e-6, atol=1e-3)
+    dp = float((p[sel] - p_t).abs().max())
+    ulp = ulp_diff(p[sel], p_t)
+    check(p_ok, f"K2 {tag} B={b} N={n} C={c}: p differs by {dp} m ({ulp:.1f} ulp)")
+    say(f"[kernels] K2 {tag} B={b} N={n} C={c}: nodes max |dh| {node_err:.3g} m; "
+        f"h == Hermite fill of its nodes; p max |dp| {dp:.3g} m = {ulp:.1f} ulp "
+        f"(p_N {float(p_t[:, -1].max()):.1f} m)")
+    del h, p, nh, nv
+
+
+def scalar_division_probe(dev):
+    """What PyTorch's CUDA true division by a Python scalar computes, beside
+    the CPU's: the plain march divides by Python scalars (``eval_l_poly``'s
+    width, ``_seg_lengths``' radius), the kernel with IEEE division."""
+    import numpy as np
+    import torch
+
+    x = torch.rand(1 << 22, device=dev, generator=torch.Generator(dev).manual_seed(3))
+    x = x * 2e5 + 1.0
+    for w in (7.3, 6_371_000.0, 9999.0):
+        card = x / w
+        recip = x * float(np.float32(1.0) / np.float32(w))
+        cpu = (x.cpu() / w).to(dev)
+        say(f"[kernels] x / {w} on the card: equal to x * fl32(1/w) "
+            f"{torch.equal(card, recip)}; equal to the CPU's division "
+            f"{torch.equal(card, cpu)} ({int((card != cpu).sum())} of {x.numel()} differ)")
 
 
 def golden_config(scene: str) -> dict:
@@ -492,14 +616,149 @@ def bound(n_bytes: float, n_ops: float):
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
-def k2_ops(n_rays: int, n_coarse: int, n_poly: int) -> int:
-    """Float32 operations of csrc/march.cu's loop with the Chebyshev l(h),
-    counted from the source (each +, -, *, /, min, max, compare one): an
-    eval_l is 35 + 3·n_poly (clamp 2, segment search 3 a segment, t 6,
-    Clenshaw 6 x 4, last step 3); a step is three eval_l, four accel of 11,
-    4 for the stage heights of l2 and l4, 12 for the stage slopes and
-    heights, 14 for the update of h and v."""
-    return n_rays * n_coarse * (3 * (35 + 3 * n_poly) + 4 * 11 + 4 + 12 + 14)
+def k2_ops(n_rays: int, n_coarse: int, n_samples: int) -> int:
+    """Operations of csrc/march.cu with the Chebyshev l(h) on the sphere,
+    counted from the source (each +, -, *, /, sqrt, min, max, compare,
+    select one). A step: three eval_l of 45 (clamp 2, the search over the
+    register lows 7 compares + 7 adds, t 6, Clenshaw 1 + 6 x 3, last 3, the
+    NaN select 1), four accel of 11, 4 for the stage heights of l2 and l4,
+    12 for the stage slopes and heights, 14 for the update of h and v: 209.
+    A fine sample: the Hermite 7, the chord 10, its add to the prefix sum 1:
+    18."""
+    return n_rays * (n_coarse * 209 + n_samples * 18)
+
+
+# The critical path of one K2 step (sphere, Chebyshev l(h) with <= 8
+# segments), counted from csrc/march.cu, from v to the next step's v: the
+# stage height of l2 (2); eval_l: the clamp (2), the sign-bit search and its
+# sum (6), the row address (2), a shared load, h - lo (1), the division's
+# residual corrections with the segment's precomputed reciprocal (5), t
+# (4), Clenshaw (1 + 6 x 3 + 3), the NaN select (1); k2v = l2 x A + G (2),
+# k3h (2), k3v from k3h (2 v, x v, + u^2, the correction tail 5, x 1/R, +:
+# 10; recip(u) hangs off the path), k4h (2), k4v (10), the v update (3):
+# 74 dependent integer or float32 operations, each taken at the measured
+# float32 add latency, and one shared load. (The l1 path through k2h is
+# shorter.)
+K2_CHAIN_STEP = {"fadd": 74, "lds_chase": 1}
+
+
+def k2_chain_floor_cycles(latency: dict) -> float:
+    """Cycles of one step's critical path, from measured latencies."""
+    return sum(n * latency[op] for op, n in K2_CHAIN_STEP.items())
+
+
+def k2_clocks(dev, alt, v0, dx, n_coarse, table, radius, fine=None):
+    """A clocked K2 launch, the fused one with ``fine``, else the nodes
+    alone: (cycles a step of CTA 0 by clock64(), ms by CUDA events, the
+    CTAs' span start to end by %globaltimer in ms, CTA 0's own in ms, the
+    latest CTA start in ms after the first)."""
+    import torch
+
+    from atm_raytracer_tpu_torch.physics import ray as R
+
+    r = R.default_rays_per_cta(alt.shape[0], dev)
+    n_cta = -(-alt.shape[0] // r)
+    clocks = torch.zeros(n_coarse + 1 + 2 * n_cta, dtype=torch.int64, device=dev)
+    ms = cuda_ms(lambda: R.march_cuda(alt, v0, dx, n_coarse, table, radius, fine=fine,
+                                      nodes=fine is None, clocks=clocks), 10)
+    c = clocks.cpu()
+    cta = c[n_coarse + 1:].reshape(n_cta, 2).double() / 1e6
+    return (float(c[n_coarse] - c[0]) / n_coarse, ms, float(cta[:, 1].max() - cta[:, 0].min()),
+            float(cta[0, 1] - cta[0, 0]), float(cta[:, 0].max() - cta[:, 0].min()))
+
+
+def k2_headline(dev, table, elev_deg, alt0, shape, step, n_terr):
+    """K2 at the Fast headline: the main path's call (``march_rows``) by CUDA
+    events, the kernel alone by the profiler, the plain version, the cycles
+    a step from clock64(), the rays-per-CTA sweep, the p ulp difference
+    against the PyTorch fill, and the bytes bound and the chain floor."""
+    import torch
+
+    from atm_raytracer_tpu_torch.generators import fast
+    from atm_raytracer_tpu_torch.physics import ray as R
+
+    sys.path.insert(0, str(ROOT / "scripts"))
+    import k2_clock_probe
+
+    radius = shape.radius
+    n = n_terr - 1
+    coarse = R.march_coarse(step)
+    n_coarse = -(-n // coarse)
+    dx = R._f32(step * coarse)
+    b = elev_deg.shape[0]
+    alt = torch.full_like(elev_deg, alt0)
+    v0 = R.initial_slope(alt, torch.deg2rad(elev_deg), shape)
+    fine = (step, coarse, n)
+
+    def rows(plain=False):
+        return fast.march_rows(table, elev_deg, alt0, shape=shape, straight=False,
+                               step=step, n_terr=n_terr, plain=plain)
+
+    h, p = rows()
+    hp, pp = rows(plain=True)
+    _, _, nh, nv = R.march_cuda(alt, v0, dx, n_coarse, table, radius, fine=fine)
+    h_t, p_t = R._finish_march(R.hermite_fill(nh, nv, dx, coarse, n), step, radius)
+    torch.cuda.synchronize()
+    check(torch.equal(h, h_t), "K2 headline: h differs from the Hermite fill of its nodes")
+    p_ulp = ulp_diff(p, p_t)
+    check(torch.allclose(p, p_t, rtol=1e-6, atol=1e-3), f"K2 headline: p off by {p_ulp} ulp")
+    err = float((h - hp).abs().max())
+    check(err <= K2_ATOL, f"K2 headline: h {err} m from the plain path")
+    p_err = float((p - pp).abs().max())
+
+    ms = cuda_ms(rows, 20)
+    plain_ms = cuda_ms(lambda: rows(plain=True), 2)
+    _, _, by_name = trace_busy_ms(lambda: [rows() for _ in range(20)], "k2")
+    device_ms = sum(v for k, v in by_name.items() if "march_kernel" in k) / 20
+    check(device_ms > 0, f"K2's kernel missing from the trace: {list(by_name)}")
+    others = {k[:60]: round(v / 20, 5) for k, v in by_name.items() if "march_kernel" not in k}
+
+    cyc_fused, clocked_ms, span_ms, cta0_ms, late_ms = k2_clocks(
+        dev, alt, v0, dx, n_coarse, table, radius, fine)
+    cyc_chain, chain_ms, chain_span_ms, _, _ = k2_clocks(dev, alt, v0, dx, n_coarse, table,
+                                                          radius)
+    ghz = cyc_fused * n_coarse / (cta0_ms * 1e6)  # CTA 0's cycles over its own time
+    lat = k2_clock_probe.measure_latencies(dev)
+    floor_cycles = k2_chain_floor_cycles(lat)
+    chain_floor_ms = n_coarse * floor_cycles / (ghz * 1e6)
+
+    sweep = {}
+    for n_rays, n_s, c in ((b, n, coarse), (64 * 1920, n, coarse), (21, 200, 1)):
+        e = torch.deg2rad(torch.linspace(-0.6, 1.5, n_rays, device=dev))
+        a = torch.full_like(e, alt0)
+        vv = R.initial_slope(a, e, shape)
+        nc = -(-n_s // c)
+        for r in (4, 8, 16, 32):
+            sweep[f"B={n_rays} R={r}"] = cuda_ms(lambda: R.march_cuda(
+                a, vv, R._f32(step * c), nc, table, radius, fine=(step, c, n_s),
+                nodes=False, rays_per_cta=r), 5 if n_rays > 10_000 else 20)
+        sweep[f"B={n_rays} auto R={R.default_rays_per_cta(n_rays, dev)}"] = cuda_ms(lambda: R.march_rays(
+            a, e, step, n_s, shape, table, False, coarse=c), 5 if n_rays > 10_000 else 20)
+
+    n_bytes = 4 * (2 * b + 10 * len(table.poly) + 4 * (coarse + 1) + 2 * b * (n + 1))
+    n_ops = k2_ops(b, n_coarse, n + 1)
+    bound_ms, bound_by = bound(n_bytes, n_ops)
+    say(f"[headline] K2 (march_rows: one launch) {ms:.4f} ms by CUDA events, kernel alone "
+        f"{device_ms:.4f} ms (profiler, mean of 20); plain {plain_ms:.3f} ms; {b} rays x "
+        f"{n_coarse} steps x {n + 1} samples; max |dh| vs plain {err:.3g} m, max |dp| "
+        f"{p_err:.3g} m; the march's other device records a call (ms): {others}")
+    say(f"[headline] K2 p vs the PyTorch path length of its own h: {p_ulp:.1f} ulp at most")
+    say(f"[headline] K2 cycles a step (clock64, CTA 0): fused {cyc_fused:.1f}, nodes only "
+        f"{cyc_chain:.1f} (launches {clocked_ms:.4f} / {chain_ms:.4f} ms by CUDA events; "
+        f"CTAs start to end {span_ms:.4f} / {chain_span_ms:.4f} ms by %globaltimer, CTA 0 "
+        f"{cta0_ms:.4f} ms at {ghz:.3f} GHz, the last CTA started {late_ms:.4f} ms after "
+        f"the first); "
+        f"latencies (cycles) {json.dumps({k: round(v, 2) for k, v in lat.items()})}; "
+        f"critical path {K2_CHAIN_STEP} = {floor_cycles:.1f} cycles a step")
+    say(f"[headline] K2 bound {bound_ms:.4f} ms by {bound_by} ({n_bytes} B, {n_ops} "
+        f"operations): {100.0 * bound_ms / ms:.2f} % of the bound; chain floor "
+        f"{chain_floor_ms:.4f} ms ({n_coarse} x {floor_cycles:.1f} cycles at {ghz:.3f} "
+        f"GHz): {100.0 * chain_floor_ms / ms:.1f} % of it")
+    say(f"[headline] K2 rays-per-CTA sweep (ms, CUDA events): "
+        + ", ".join(f"{k} {v:.4f}" for k, v in sweep.items()))
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "chain_floor_ms": chain_floor_ms, "device_ms": device_ms,
+            "cycles_per_step": cyc_fused, "p_ulp": p_ulp}
 
 
 def fast_walls(dev, params, terrain, renders: int) -> float:
@@ -539,6 +798,7 @@ def phase_headline(dev, params, terrain, renders=20):
     say(f"[headline] launches in one render: {launches}")
     for src, count in launches.items():
         check(count > 0, f"{src}: no launch in the headline render")
+    check(launches["march.cu"] == 1, "K2: not one launch in the headline render")
 
     image = result.image
     hits = result.hits
@@ -596,22 +856,11 @@ def phase_headline(dev, params, terrain, renders=20):
     k1_ops = 3 * work["tests"] + 2 * (h_n + w_n) * (n_seg + 1)  # tests; envelope min, max
     k1_bound_ms, k1_bound_by = bound(k1_bytes, k1_ops)
 
-    coarse = R.march_coarse(step)
-    n_coarse = -(-(n_terr - 1) // coarse)
-    dx = float(step * coarse)
-    alt = torch.full_like(elev, alt0)
-    v0 = R.initial_slope(alt, torch.deg2rad(elev), shape)
-    hk, _ = R.march_nodes(alt, v0, dx, n_coarse, table, shape.radius)
-    hp, _ = R.march_nodes_plain(alt, v0, dx, n_coarse, table, shape.radius)
-    k2_err = float((hk - hp).abs().max())
-    check(k2_err <= K2_ATOL, f"K2 headline nodes differ by {k2_err} m")
+    k2 = k2_headline(dev, table, elev, alt0, shape, step, n_terr)
 
     k1_ms = cuda_ms(lambda: combine.crossing_segments_cuda(ray_h, terr, n_seg, 1), 20)
     k1_plain_ms = cuda_ms(
         lambda: combine.terrain_crossing_segments_plain(ray_h, terr, n_seg, 1), 2)
-    k2_ms = cuda_ms(lambda: R.march_nodes(alt, v0, dx, n_coarse, table, shape.radius), 20)
-    k2_plain_ms = cuda_ms(
-        lambda: R.march_nodes_plain(alt, v0, dx, n_coarse, table, shape.radius), 2)
     # the two kernels' own device time, without the wrapper's death limit;
     # with the rays lifted above all terrain every chunk is culled, which
     # leaves the cost of walking the grid
@@ -620,18 +869,10 @@ def phase_headline(dev, params, terrain, renders=20):
     say(f"[headline] K1 kernels alone (profiler, mean of 20): envelopes {k1_env_ms:.4f} ms "
         f"+ segments {k1_seg_ms:.4f} ms; the wrapper by CUDA events {k1_ms:.4f} ms; "
         f"segments with every chunk culled (rays +1e5 m) {sky_seg_ms:.4f} ms")
-    n_poly = len(table.poly)
-    k2_bytes = 4 * (2 * h_n + 10 * n_poly + 2 * h_n * (n_coarse + 1))
-    k2_bound_ms, k2_bound_by = bound(k2_bytes, k2_ops(h_n, n_coarse, n_poly))
     say(f"[headline] K1 {k1_ms:.4f} ms vs plain {k1_plain_ms:.3f} ms "
         f"([{out.height}, {out.width}] x {n_seg} segments); bound {k1_bound_ms:.4f} ms "
         f"by {k1_bound_by} ({k1_bytes} B, {k1_ops} float32 operations): "
         f"{100.0 * k1_bound_ms / k1_ms:.1f} % of the bound")
-    say(f"[headline] K2 {k2_ms:.3f} ms vs plain {k2_plain_ms:.3f} ms "
-        f"({out.height} rays x {n_coarse} steps, {n_poly} Chebyshev segments, max |dh| "
-        f"{k2_err:.3g} m); bound {k2_bound_ms:.4f} ms by {k2_bound_by} ({k2_bytes} B, "
-        f"{k2_ops(h_n, n_coarse, n_poly)} float32 operations): "
-        f"{100.0 * k2_bound_ms / k2_ms:.2f} % of the bound")
     kernels = [
         {"name": "K1 crossing_segments", "route": "cuda",
          "source": "atm_raytracer_tpu_torch/csrc/combine.cu",
@@ -640,12 +881,10 @@ def phase_headline(dev, params, terrain, renders=20):
          "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound_ms,
          "bound_by": k1_bound_by, "library_ms": None, "tests": work["tests"],
          "device_ms": k1_env_ms + k1_seg_ms},
-        {"name": "K2 march_nodes", "route": "cuda",
+        {"name": "K2 march_rays", "route": "cuda",
          "source": "atm_raytracer_tpu_torch/csrc/march.cu",
          "replaces": "atm_raytracer_tpu/experimental/march_pallas.py:18",
-         "launches": launches["march.cu"], "max_abs_err": k2_err,
-         "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound_ms,
-         "bound_by": k2_bound_by, "library_ms": None},
+         "launches": launches["march.cu"], "library_ms": None, **k2},
     ]
     return kernels, med
 
@@ -720,7 +959,7 @@ def phase_profile(dev, params, terrain, wall_s, renders=3, reps=10):
     hit_kw = {k: v for k, v in kw.items() if k not in ("coloring", "fog_distance")}
     image, _ = fast.fast_core(*args, **kw)
     t = {
-        "march (K2 + Hermite + cumsum)": cuda_ms(lambda: fast.march_rows(
+        "march (K2: nodes, Hermite fill, path lengths)": cuda_ms(lambda: fast.march_rows(
             table, elev, alt0, shape=kw["shape"], straight=False, step=step,
             n_terr=n_terr), reps),
         "terrain columns": cuda_ms(lambda: fast.terrain_columns(

@@ -22,7 +22,7 @@ from atm_raytracer_tpu_torch.ops import combine  # noqa: E402
 from atm_raytracer_tpu_torch.physics import ray as R  # noqa: E402
 from atm_raytracer_tpu_torch.physics.atmosphere import Atmosphere, us_76  # noqa: E402
 from atm_raytracer_tpu_torch.terrain.store import Terrain, Tile  # noqa: E402
-from torch_parity import cuda_device, cull_fan, verify_tolerance  # noqa: E402,F401
+from torch_parity import cuda_device, cull_fan, split_fit, verify_tolerance  # noqa: E402,F401
 
 pytestmark = pytest.mark.cuda
 
@@ -120,6 +120,78 @@ def test_march_kernel_matches_plain(table, l_form, radius, cuda_device):
     hp, _ = R.march_nodes_plain(alt, v0, 800.0, 250, tb, radius)
     torch.cuda.synchronize()
     assert float((hk - hp).abs().max()) <= 2e-2  # m, as the Pallas march
+
+
+MARCH_CASES = {  # (B rays, N steps of 50 m, C)
+    "one_ray_headline_length": (1, 3999, 16),  # 3999 = 249·16 + 15
+    "fan21_c1": (21, 200, 1),  # output-ray-paths: the nodes are the samples
+    "headline": (1080, 3999, 16),
+    "ragged_tail": (1080, 330, 16),  # 330 = 20·16 + 10
+    "c16_no_tail": (37, 320, 16),
+}
+
+
+def _march_contract(tb, radius, b, n, c, device, check_rows=None, alt0=100.0):
+    """K2's contract: nodes within 2e-2 m of march_nodes_plain; fine h
+    torch.equal to the PyTorch Hermite fill of the kernel's own nodes; p
+    within rtol 1e-6 / atol 1e-3 m of _finish_march's path length of it."""
+    elev = torch.deg2rad(torch.linspace(-0.6, 1.5, b, device=device) if b > 1
+                         else torch.full((1,), 0.05, device=device))
+    alt = torch.full_like(elev, alt0)
+    v0 = R.initial_slope(alt, elev, R.EarthShape(radius))
+    coarse = max(1, min(c, n))
+    n_coarse = -(-n // coarse)
+    dx = R._f32(50.0 * coarse)
+    before = _kernels.MARCH.launches
+    h, p, nh, nv = R.march_cuda(alt, v0, dx, n_coarse, tb, radius, fine=(50.0, coarse, n))
+    assert _kernels.MARCH.launches == before + 1
+    assert h.shape == p.shape == (b, n + 1) and nh.shape == (n_coarse + 1, b)
+    sel = torch.arange(b, device=device) if check_rows is None else check_rows
+    hp, _ = R.march_nodes_plain(alt[sel], v0[sel], dx, n_coarse, tb, radius)
+    h_t, p_t = R._finish_march(R.hermite_fill(nh[:, sel], nv[:, sel], dx, coarse, n),
+                               50.0, radius)
+    torch.cuda.synchronize()
+    assert float((nh[:, sel] - hp).abs().max()) <= 2e-2  # m, as the Pallas march
+    assert torch.equal(h[sel], h_t)
+    torch.testing.assert_close(p[sel], p_t, rtol=1e-6, atol=1e-3)
+    # march_rays on the card is this launch; plain=True is its oracle
+    before = _kernels.MARCH.launches
+    hr, pr = R.march_rays(alt0, elev, 50.0, n, R.EarthShape(radius), tb, False,
+                          coarse=c)
+    assert _kernels.MARCH.launches == before + 1
+    assert torch.equal(hr, h) and torch.equal(pr, p)
+
+
+@pytest.mark.parametrize("case", list(MARCH_CASES))
+@pytest.mark.parametrize("l_form", ["poly", "table", "poly_split"])
+@pytest.mark.parametrize("radius", [6_371_000.0, None], ids=["sphere", "flat"])
+def test_fused_march_kernel_contract(table, l_form, radius, case, cuda_device):
+    poly = {"poly": table.poly, "table": None, "poly_split": split_fit(table.poly)}[l_form]
+    tb = dataclasses.replace(
+        table, values=table.values.to(cuda_device), pairs=table.pairs.to(cuda_device),
+        poly=poly,
+    )
+    _march_contract(tb, radius, *MARCH_CASES[case], cuda_device)
+
+
+@pytest.mark.parametrize("radius", [6_371_000.0, None], ids=["sphere", "flat"])
+def test_fused_march_kernel_zero_width_segment(table, radius, cuda_device):
+    """Rays that start in a zero-width fit segment (width 1e-30: outside the
+    kernel's fast division) take the step marched again with IEEE division."""
+    fit = split_fit(table.poly)
+    tb = dataclasses.replace(table, values=table.values.to(cuda_device),
+                             pairs=table.pairs.to(cuda_device), poly=fit)
+    lo = next(lo for lo, hi, _ in fit if lo == hi)
+    _march_contract(tb, radius, 64, 330, 16, cuda_device, alt0=lo)
+
+
+def test_fused_march_kernel_64bit_offsets(table, cuda_device):
+    """B·(N+1) = 540 000 · 4000 > 2^31: the rows past the 32-bit range."""
+    tb = dataclasses.replace(table, values=table.values.to(cuda_device),
+                             pairs=table.pairs.to(cuda_device))
+    b = 540_000
+    rows = torch.cat([torch.arange(256), torch.arange(b - 1024, b)]).to(cuda_device)
+    _march_contract(tb, 6_371_000.0, b, 3999, 16, cuda_device, check_rows=rows)
 
 
 def _hills(n=121):

@@ -177,3 +177,25 @@ def test_cli_refuses_cuda_without_a_card(monkeypatch, capsys):
         cli.resolve_device("cuda")
     assert cli.main(["gen", "--device", "cuda", "-t", "/nonexistent"]) == 1
     assert "is_available() is false" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("config", ["missing", "bad_shape"])
+def test_cli_error_line_matches_jax(config, tmp_path):
+    """A failed command prints the JAX CLI's line, ``ERROR: <msg>``
+    (main.rs:36-38), to stderr and exits 1."""
+    cfg = tmp_path / "c.yaml"
+    if config == "bad_shape":
+        cfg.write_text("earth_shape: Bogus\n")
+    lines = []
+    for pkg in ("atm_raytracer_tpu", "atm_raytracer_tpu_torch"):
+        proc = subprocess.run(
+            [sys.executable, "-m", f"{pkg}.cli", "gen", "-c", str(cfg), "--device", "cpu"]
+            if pkg.endswith("torch") else
+            [sys.executable, "-m", f"{pkg}.cli", "gen", "-c", str(cfg)],
+            cwd=tmp_path, capture_output=True, text=True, timeout=300,
+            env={**os.environ, "PYTHONPATH": str(REPO), "ATM_RAYTRACER_PLATFORM": "cpu",
+                 "OMP_NUM_THREADS": "1"},
+        )
+        assert proc.returncode == 1, proc.stderr
+        lines.append(proc.stderr.strip().splitlines()[-1])
+    assert lines[0].startswith("ERROR: ") and lines[1] == lines[0]

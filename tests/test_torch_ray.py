@@ -63,7 +63,7 @@ def test_lookup_and_poly_match_jax(tables):
 
 
 @pytest.mark.parametrize("l_form", ["poly", "table"])
-@pytest.mark.parametrize("coarse", [1, 8])
+@pytest.mark.parametrize("coarse", [1, 8, 16])
 @pytest.mark.parametrize("straight", [False, True])
 @pytest.mark.parametrize("sphere", [True, False])
 def test_march_rays_matches_jax(tables, sphere, straight, coarse, l_form):
@@ -82,6 +82,39 @@ def test_march_rays_matches_jax(tables, sphere, straight, coarse, l_form):
     assert th.shape == (elev.size, n + 1) and tp.shape == th.shape
     np.testing.assert_allclose(th.numpy(), np.asarray(jh), atol=2e-2)
     np.testing.assert_allclose(tp.numpy(), np.asarray(jp), rtol=1e-5)
+
+
+@pytest.mark.parametrize("l_form", ["poly", "table"])
+@pytest.mark.parametrize("sphere", [True, False])
+@pytest.mark.parametrize("n, coarse, n_rays", [(330, 16, 5), (330, 16, 1), (57, 1, 1)],
+                         ids=["ragged_tail", "one_ray_ragged", "one_ray_c1"])
+def test_march_rays_ragged_and_single_ray_match_jax(tables, n, coarse, n_rays, sphere,
+                                                    l_form):
+    """N not a multiple of C (sample N from the last window's Hermite at
+    j = N - (Nc-1)·C), one ray, and C = 1 (the nodes are the samples)."""
+    jt, tt = tables
+    if l_form == "table":
+        jt = dataclasses.replace(jt, poly=None)
+        tt = dataclasses.replace(tt, poly=None)
+    elev = np.deg2rad(np.linspace(-0.4, 1.2, n_rays) if n_rays > 1
+                      else np.array([0.05])).astype(np.float32)
+    jshape = JR.EarthShape(R) if sphere else JR.FLAT
+    tshape = TR.EarthShape(R) if sphere else TR.FLAT
+    jh, jp = JR.march_rays(100.0, jnp.asarray(elev), 50.0, n, jshape, jt, False,
+                           coarse=coarse)
+    th, tp = TR.march_rays(100.0, torch.from_numpy(elev), 50.0, n, tshape, tt, False,
+                           coarse=coarse)
+    assert th.shape == (n_rays, n + 1) and tp.shape == th.shape
+    np.testing.assert_allclose(th.numpy(), np.asarray(jh), atol=2e-2)
+    np.testing.assert_allclose(tp.numpy(), np.asarray(jp), rtol=1e-5)
+    # the ragged tail's last sample is the last window's Hermite, not a node
+    if n % coarse:
+        h_nodes, v_nodes = TR.march_nodes_plain(
+            torch.full((n_rays,), 100.0), TR.initial_slope(
+                torch.full((n_rays,), 100.0), torch.from_numpy(elev), tshape),
+            TR._f32(50.0 * coarse), -(-n // coarse), tt, tshape.radius)
+        fill = TR.hermite_fill(h_nodes, v_nodes, TR._f32(50.0 * coarse), coarse, n)
+        assert torch.equal(fill.t(), th)
 
 
 @pytest.mark.parametrize("sphere", [True, False])
@@ -108,3 +141,33 @@ def test_march_nodes_wrapper_takes_plain_on_cpu(tables):
     hp, vp = TR.march_nodes_plain(alt, v0, 800.0, 30, tt, R)
     assert torch.equal(h, hp) and torch.equal(v, vp)
     assert TR._kernels.MARCH.launches == launches  # no kernel on the CPU
+
+
+@pytest.mark.parametrize("coarse", [1, 16])
+@pytest.mark.parametrize("sphere", [True, False])
+def test_march_rays_on_cpu_launches_no_kernel(tables, sphere, coarse):
+    """On CPU tensors march_rays is the plain path (the kernel's oracle on
+    the card, ``plain=True``) and launches nothing."""
+    _, tt = tables
+    shape = TR.EarthShape(R) if sphere else TR.FLAT
+    elev = torch.deg2rad(torch.linspace(-0.3, 0.9, 9))
+    launches = TR._kernels.MARCH.launches
+    h, p = TR.march_rays(40.0, elev, 50.0, 330, shape, tt, False, coarse=coarse)
+    hp, pp = TR.march_rays(40.0, elev, 50.0, 330, shape, tt, False, coarse=coarse,
+                           plain=True)
+    assert TR._kernels.MARCH.launches == launches
+    assert torch.equal(h, hp) and torch.equal(p, pp)
+
+
+def test_poly_rows_built_once_per_table(tables):
+    _, tt = tables
+    rows = tt.poly_rows()
+    assert rows is tt.poly_rows()  # no rebuild, no second upload
+    assert rows.shape == (len(tt.poly), 10) and rows.dtype == torch.float32
+    for row, (lo, hi, coeffs) in zip(rows.tolist(), tt.poly):
+        np.testing.assert_array_equal(
+            np.float32(row), np.float32([lo, hi, max(hi - lo, 1e-30), *coeffs]))
+    # a replaced table (another fit, another device) builds its own rows
+    other = dataclasses.replace(tt, poly=tt.poly[:2])
+    assert other.poly_rows().shape == (2, 10)
+    assert tt.poly_rows() is rows

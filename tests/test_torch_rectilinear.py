@@ -469,6 +469,57 @@ def test_cli_gen_rectilinear_writes_golden_png(tmp_path, golden_dir):
     assert ok, (frac_any, frac_big)
 
 
+PERCENT_LINE = r"^\d+\.\d{3}: (\d+)%\.\.\.$"  # the JAX CLI's phase() line
+
+
+def _percent_lines(stdout):
+    import re
+
+    return [int(m.group(1)) for m in
+            (re.match(PERCENT_LINE, ln) for ln in stdout.splitlines()) if m]
+
+
+def test_cli_gen_rectilinear_prints_progress_like_jax(tmp_path, golden_dir):
+    """``gen --generator Rectilinear`` prints monotone whole-percent lines
+    ending at 100, in the JAX CLI's format and at its percents."""
+    import yaml
+
+    cfg = _golden_config("plain", golden_dir)
+    cfg["output"]["file"] = "out.png"
+    (tmp_path / "cfg.yaml").write_text(yaml.safe_dump(cfg))
+    outs = []
+    for pkg, extra in (("atm_raytracer_tpu", []),
+                       ("atm_raytracer_tpu_torch", ["--device", "cpu"])):
+        proc = subprocess.run(
+            [sys.executable, "-m", f"{pkg}.cli", "gen", "-c", "cfg.yaml", *extra],
+            cwd=tmp_path, capture_output=True, text=True, timeout=600,
+            env={**os.environ, "PYTHONPATH": str(REPO), "OMP_NUM_THREADS": "1",
+                 "ATM_RAYTRACER_PLATFORM": "cpu"},
+        )
+        assert proc.returncode == 0, proc.stderr
+        outs.append(proc.stdout)
+    pct = _percent_lines(outs[1])
+    assert len(pct) > 1 and pct[-1] == 100
+    assert all(a < b for a, b in zip(pct, pct[1:]))
+    assert sum("%..." in ln for ln in outs[1].splitlines()) == len(pct)
+    assert pct == sorted(set(_percent_lines(outs[0])))
+
+
+@pytest.mark.parametrize("path", ["culled", "dense", "multi_hit"])
+def test_rectilinear_progress_is_monotone_to_100(path, golden_dir, terrains):
+    _, tt = terrains
+    cfg = _golden_config("plain", golden_dir, tilt=0.0 if path == "multi_hit" else 1.0)
+    if path == "dense":
+        cfg["output"]["height"] = 130  # three chunks of PIXEL_ROWS rows
+    got = []
+    res = t_render(TConfig.from_dict(cfg).into_params(tt), tt, "cpu",
+                   cull=path != "dense", max_hits=2 if path == "multi_hit" else None,
+                   progress=got.append)
+    assert (res.culled_rounds is not None) == (path == "culled")
+    assert got[-1] == 100 and all(a < b for a, b in zip(got, got[1:]))
+    assert len(got) > 1
+
+
 def test_render_rectilinear_refuses_objects(golden_dir, terrains):
     _, tt = terrains
     cfg = _golden_config("plain", golden_dir)

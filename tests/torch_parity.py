@@ -33,6 +33,21 @@ def cull_fan(seed, h_n, w_n, n_seg, above, extra=0):
     return ray.astype(np.float32), terr.astype(np.float32)
 
 
+def split_fit(poly):
+    """A fit of more segments than the march kernel keeps in registers: each
+    segment of ``poly`` cut in three with its coefficients kept, the second
+    segment's first piece one sample wide (lo == hi, the zero-width edge
+    piece whose division the kernel cannot take on its fast path)."""
+    out = []
+    for i, (lo, hi, c) in enumerate(poly):
+        m1, m2 = lo + round((hi - lo) / 3), lo + round(2 * (hi - lo) / 3)
+        if i == 1:
+            out.append((lo, lo, c))
+            lo += 1.0
+        out += [(lo, m1 - 1.0, c), (m1, m2 - 1.0, c), (m2, hi, c)]
+    return tuple(out)
+
+
 @pytest.fixture
 def cuda_device():
     """A CUDA device, or a skip: decided when the test runs, never at import."""
