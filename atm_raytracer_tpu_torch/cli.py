@@ -10,10 +10,10 @@ help on those subcommands.
 and is never chosen for the user: without a GPU the command fails loudly;
 ``--device cpu`` runs the plain PyTorch versions of the kernels.
 
-``gen`` renders the Fast and Rectilinear generators, draws the annotation
-overlays, and writes the metadata artifact (``--output-meta``). Scene
-objects and the InterpolatingRectilinear generator are not ported yet and
-are refused with the ROADMAP item that will port them.
+``gen`` renders the Fast, Rectilinear and InterpolatingRectilinear
+generators, draws the annotation overlays, and writes the metadata artifact
+(``--output-meta``). Scene objects are not ported yet and are refused with
+the ROADMAP item that will port them.
 """
 
 from __future__ import annotations
@@ -58,7 +58,7 @@ def _add_gen_parser(subparsers):
     p.add_argument("-c", "--config", dest="config")
     p.add_argument("--generator", dest="generator",
                    choices=["Fast", "Rectilinear", "InterpolatingRectilinear"],
-                   help="Override the generator (Fast and Rectilinear are ported)")
+                   help="Override the generator")
     p.add_argument("--device", dest="device", default="cuda",
                    help="torch device to render on (default: cuda)")
     p.set_defaults(func=run_gen)
@@ -67,10 +67,6 @@ def _add_gen_parser(subparsers):
 def check_supported(config) -> None:
     """Raise NotImplementedError for any part of a config this package does
     not render yet, naming the ROADMAP item that ports it."""
-    if config.output.generator == "InterpolatingRectilinear":
-        raise NotImplementedError(
-            "generator InterpolatingRectilinear is not ported yet (ROADMAP A11)"
-        )
     if config.scene.objects:
         raise NotImplementedError("scene objects are not ported yet (ROADMAP A9)")
 
@@ -91,6 +87,7 @@ def resolve_device(name: str):
 def run_gen(args) -> int:
     from .config import Config, merge_cli, parse_config
     from .generators.fast import render_fast
+    from .generators.interpolating import render_interpolating
     from .generators.rectilinear import render_rectilinear
     from .meta.serialize import save_metadata
     from .render.annotate import annotate_image
@@ -120,6 +117,8 @@ def run_gen(args) -> int:
 
     if generator == "Rectilinear":
         result = render_rectilinear(params, terrain, device, progress=progress)
+    elif generator == "InterpolatingRectilinear":  # one launch sequence
+        result = render_interpolating(params, terrain, device, progress=progress)
     else:  # Fast is one launch sequence: its only line is the last
         result = render_fast(params, terrain, device)
         progress(100)

@@ -3,7 +3,8 @@
 The JAX package's objects cannot be imported here (that would import jax),
 so the caller hands over ``np.asarray`` of each field and these converters
 rebuild this package's counterparts on a torch device. Parity tests feed
-both packages the same refraction table and terrain mosaic this way.
+both packages the same refraction table, terrain mosaic and hit grid this
+way.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ import math
 import numpy as np
 import torch
 
+from .generators.base import HitBuffer
 from .physics.ray import RefractionTable
 from .terrain.store import TerrainPack
 
@@ -48,4 +50,19 @@ def pack_from_arrays(tiles, rows_m1, cols_m1, lat_min: int, lon_min: int,
         n_cols=int(n_cols),
         grad_bound=float(grad_bound),
         seam_jump=float(seam_jump),
+    )
+
+
+def hits_from_arrays(valid, key, dlat, dlon, distance, elevation, path_length,
+                     normal, kind, rgba, device="cpu") -> HitBuffer:
+    """A ``HitBuffer`` from the JAX hit buffer's fields, in its field order
+    ([H, W, K] planes; normal [..., 3]; rgba [..., 4])."""
+    def f32(x):
+        return torch.tensor(np.asarray(x, np.float32), device=device)
+
+    return HitBuffer(
+        valid=torch.tensor(np.asarray(valid, bool), device=device),
+        key=f32(key), dlat=f32(dlat), dlon=f32(dlon), distance=f32(distance),
+        elevation=f32(elevation), path_length=f32(path_length), normal=f32(normal),
+        kind=torch.tensor(np.asarray(kind, np.int32), device=device), rgba=f32(rgba),
     )

@@ -34,12 +34,14 @@ before the result line:
               nodes, its p within rtol 1e-6 / atol 1e-3 m of that fill's
               path length (the largest difference printed in ulp); what
               the card's PyTorch computes for ``x / w``, w a Python float;
-4. goldens  — the three golden Fast scenes and the three golden Rectilinear
-              scenes, plus the golden scene tilted onto the Rectilinear
-              culled path (1 degree, opaque) and its pixelwise path (-1
-              degree, translucent; its march goes through K2), rendered on
-              the card and with the plain path on the CPU, within the
-              verify tolerance;
+4. goldens  — the three golden Fast scenes, the three golden Interpolating
+              scenes (their grids through K1, and K2 where the rays are
+              refracted, counted) and the three
+              golden Rectilinear scenes, plus the golden scene tilted onto
+              the Rectilinear culled path (1 degree, opaque) and its
+              pixelwise path (-1 degree, translucent; its march goes
+              through K2), rendered on the card and with the plain path on
+              the CPU, within the verify tolerance;
 5. headline — 1920x1080, fov 40, 200 km in 50 m steps, refracted, spherical,
               over 45 synthetic 1201-post tiles: the render goes through both
               kernels (launch counts; K2 once), matches the plain path on the
@@ -76,12 +78,33 @@ before the result line:
               --save-image`` on the card; the translucent headline (K = 4)
               as npz; the 8192x2048 / fov 120 / 150 km artifact written and
               read, timed, with the peak device memory; ``output-ray-paths``
-              on the card (through K2, counted) against the CPU.
+              on the card (through K2, counted) against the CPU;
+9. interpolating — the InterpolatingRectilinear generator on the headline
+              scene: (a) the render through K2 and K1 (one launch each,
+              counted) against ``plain=True`` on the card (images within the
+              verify tolerance, validity equal on >= 99 % of slots); the
+              grid cells of the card's float32 camera against the CPU's
+              (<= 0.01 % of pixels differ); the median frame wall of 10
+              renders after a warm-up, device busy time and idle share from
+              a torch.profiler trace of one render, peak device memory,
+              CUDA-event stage times; each kernel at the grid's shapes
+              beside its plain version and bound, K1's segments equal to the
+              plain ones and K2 (787 rays) held to its phase-3 contract
+              (nodes and h within 2e-2 m of the plain march, h torch.equal
+              to the Hermite fill of its own nodes, p within rtol 1e-6 /
+              atol 1e-3 m); sky/terrain agreement and
+              the median first-hit distance gap against the Rectilinear
+              tilt-0 render; (b) the translucent headline (alpha 0.65: 16
+              entries a pixel, 8 slots), one timed render and its peak
+              memory; (c) due south, across the ±180° seam: the grid's
+              azimuth span under 3 x fov, one render.
 
 The verify tolerance (the JAX package's bench.py verify): at most 1 % of
 pixels differ by more than 2 counts and at most 5 % differ at all.
 
-Output: the kernels line ``{"kernels": [...]}`` and, last, the result line
+Output: the kernels line ``{"kernels": [...]}`` (``launches`` summed over
+the counted main-path renders, Fast and Interpolating, with the split in
+``launches_by_path``) and, last, the result line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
@@ -466,6 +489,7 @@ def phase_goldens(dev):
 
     from atm_raytracer_tpu_torch.config import Config
     from atm_raytracer_tpu_torch.generators.fast import render_fast
+    from atm_raytracer_tpu_torch.generators.interpolating import render_interpolating
     from atm_raytracer_tpu_torch.generators.rectilinear import render_rectilinear
     from atm_raytracer_tpu_torch.terrain.store import Terrain, Tile
 
@@ -479,6 +503,23 @@ def phase_goldens(dev):
         check(ok, f"golden fast_{scene}: any={fa:.4f} big={fb:.4f} out of tolerance")
         say(f"[goldens] fast_{scene}: cuda vs cpu plain any={fa:.4f} "
             f"big={fb:.4f} max={mx}")
+    for scene in ("plain", "translucent", "flat_straight"):
+        cfg = golden_config(scene)
+        cfg["output"]["generator"] = "InterpolatingRectilinear"
+        params = Config.from_dict(cfg).into_params(terrain)
+        reset_launches()
+        gpu = render_interpolating(params, terrain, dev)
+        torch.cuda.synchronize()
+        launches = kernel_launches()
+        # straight rays need no march: K2 serves the refracted scenes
+        check(launches["combine.cu"] > 0 and (launches["march.cu"] > 0) != params.straight_rays,
+              f"golden interpolatingrectilinear_{scene}: launches {launches}")
+        cpu = render_interpolating(params, terrain, "cpu")
+        ok, fa, fb, mx = image_tolerance(gpu.image, cpu.image)
+        check(ok, f"golden interpolatingrectilinear_{scene}: any={fa:.4f} big={fb:.4f} "
+              "out of tolerance")
+        say(f"[goldens] interpolatingrectilinear_{scene}: cuda vs cpu plain any={fa:.4f} "
+            f"big={fb:.4f} max={mx} (launches {launches})")
     for name, cfg in rect_golden_configs():
         params = Config.from_dict(cfg).into_params(terrain)
         reset_launches()
@@ -616,6 +657,26 @@ def bound(n_bytes: float, n_ops: float):
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
+def k1_bound(h_n: int, w_n: int, n_seg: int, tests: int):
+    """K1's bound at K = 1: each ray and terrain sample read once, the
+    segments and the death limits written or read once; the sign tests run
+    (3 operations each) and the envelopes' min and max."""
+    n_bytes = 4 * ((h_n + w_n) * (n_seg + 1) + h_n * w_n + h_n)
+    n_ops = 3 * tests + 2 * (h_n + w_n) * (n_seg + 1)
+    return (*bound(n_bytes, n_ops), n_bytes, n_ops)
+
+
+def k2_bound(n_rays: int, n: int, coarse: int, table):
+    """K2's bound for ``n_rays`` rays of ``n`` steps: the altitudes and
+    slopes in, the fit rows and the Hermite basis, the [B, N+1] h and p
+    out; the operations of ``k2_ops``."""
+    n_coarse = -(-n // coarse)
+    n_bytes = 4 * (2 * n_rays + 10 * len(table.poly) + 4 * (coarse + 1)
+                   + 2 * n_rays * (n + 1))
+    n_ops = k2_ops(n_rays, n_coarse, n + 1)
+    return (*bound(n_bytes, n_ops), n_bytes, n_ops)
+
+
 def k2_ops(n_rays: int, n_coarse: int, n_samples: int) -> int:
     """Operations of csrc/march.cu with the Chebyshev l(h) on the sphere,
     counted from the source (each +, -, *, /, sqrt, min, max, compare,
@@ -667,6 +728,45 @@ def k2_clocks(dev, alt, v0, dx, n_coarse, table, radius, fine=None):
             float(cta[0, 1] - cta[0, 0]), float(cta[:, 0].max() - cta[:, 0].min()))
 
 
+def k2_rows_check(table, elev_deg, alt0, shape, step, n_terr, tag):
+    """K2's contract on the main path's call (``march_rows``) at its own
+    shapes: the launch's nodes within K2_ATOL of ``march_nodes_plain``, its
+    fine h ``torch.equal`` to the PyTorch Hermite fill of its own nodes, its
+    p within rtol 1e-6 / atol 1e-3 m of ``_finish_march``'s, and its h
+    within K2_ATOL of the plain ``march_rows``. Returns (march_rows' h, the
+    march inputs, max |dh| and |dp| vs plain, max node |dh|, p ulp)."""
+    import torch
+
+    from atm_raytracer_tpu_torch.generators import fast
+    from atm_raytracer_tpu_torch.physics import ray as R
+
+    radius = shape.radius
+    n = n_terr - 1
+    coarse = R.march_coarse(step)
+    n_coarse = -(-n // coarse)
+    dx = R._f32(step * coarse)
+    alt = torch.full_like(elev_deg, alt0)
+    v0 = R.initial_slope(alt, torch.deg2rad(elev_deg), shape)
+    fine = (step, coarse, n)
+    h, p = fast.march_rows(table, elev_deg, alt0, shape=shape, straight=False, step=step,
+                           n_terr=n_terr)
+    hp, pp = fast.march_rows(table, elev_deg, alt0, shape=shape, straight=False, step=step,
+                             n_terr=n_terr, plain=True)
+    _, _, nh, nv = R.march_cuda(alt, v0, dx, n_coarse, table, radius, fine=fine)
+    nh_p, _ = R.march_nodes_plain(alt, v0, dx, n_coarse, table, radius)
+    h_t, p_t = R._finish_march(R.hermite_fill(nh, nv, dx, coarse, n), step, radius)
+    torch.cuda.synchronize()
+    node_err = float((nh - nh_p).abs().max())
+    check(node_err <= K2_ATOL, f"K2 {tag}: nodes {node_err} m from plain")
+    check(torch.equal(h, h_t), f"K2 {tag}: h differs from the Hermite fill of its nodes")
+    p_ulp = ulp_diff(p, p_t)
+    check(torch.allclose(p, p_t, rtol=1e-6, atol=1e-3), f"K2 {tag}: p off by {p_ulp} ulp")
+    err = float((h - hp).abs().max())
+    check(err <= K2_ATOL, f"K2 {tag}: h {err} m from the plain path")
+    p_err = float((p - pp).abs().max())
+    return h, (alt, v0, dx, n_coarse, coarse, fine), err, p_err, node_err, p_ulp
+
+
 def k2_headline(dev, table, elev_deg, alt0, shape, step, n_terr):
     """K2 at the Fast headline: the main path's call (``march_rows``) by CUDA
     events, the kernel alone by the profiler, the plain version, the cycles
@@ -682,29 +782,14 @@ def k2_headline(dev, table, elev_deg, alt0, shape, step, n_terr):
 
     radius = shape.radius
     n = n_terr - 1
-    coarse = R.march_coarse(step)
-    n_coarse = -(-n // coarse)
-    dx = R._f32(step * coarse)
     b = elev_deg.shape[0]
-    alt = torch.full_like(elev_deg, alt0)
-    v0 = R.initial_slope(alt, torch.deg2rad(elev_deg), shape)
-    fine = (step, coarse, n)
 
     def rows(plain=False):
         return fast.march_rows(table, elev_deg, alt0, shape=shape, straight=False,
                                step=step, n_terr=n_terr, plain=plain)
 
-    h, p = rows()
-    hp, pp = rows(plain=True)
-    _, _, nh, nv = R.march_cuda(alt, v0, dx, n_coarse, table, radius, fine=fine)
-    h_t, p_t = R._finish_march(R.hermite_fill(nh, nv, dx, coarse, n), step, radius)
-    torch.cuda.synchronize()
-    check(torch.equal(h, h_t), "K2 headline: h differs from the Hermite fill of its nodes")
-    p_ulp = ulp_diff(p, p_t)
-    check(torch.allclose(p, p_t, rtol=1e-6, atol=1e-3), f"K2 headline: p off by {p_ulp} ulp")
-    err = float((h - hp).abs().max())
-    check(err <= K2_ATOL, f"K2 headline: h {err} m from the plain path")
-    p_err = float((p - pp).abs().max())
+    _, (alt, v0, dx, n_coarse, coarse, fine), err, p_err, node_err, p_ulp = k2_rows_check(
+        table, elev_deg, alt0, shape, step, n_terr, "headline")
 
     ms = cuda_ms(rows, 20)
     plain_ms = cuda_ms(lambda: rows(plain=True), 2)
@@ -735,13 +820,12 @@ def k2_headline(dev, table, elev_deg, alt0, shape, step, n_terr):
         sweep[f"B={n_rays} auto R={R.default_rays_per_cta(n_rays, dev)}"] = cuda_ms(lambda: R.march_rays(
             a, e, step, n_s, shape, table, False, coarse=c), 5 if n_rays > 10_000 else 20)
 
-    n_bytes = 4 * (2 * b + 10 * len(table.poly) + 4 * (coarse + 1) + 2 * b * (n + 1))
-    n_ops = k2_ops(b, n_coarse, n + 1)
-    bound_ms, bound_by = bound(n_bytes, n_ops)
+    bound_ms, bound_by, n_bytes, n_ops = k2_bound(b, n, coarse, table)
     say(f"[headline] K2 (march_rows: one launch) {ms:.4f} ms by CUDA events, kernel alone "
         f"{device_ms:.4f} ms (profiler, mean of 20); plain {plain_ms:.3f} ms; {b} rays x "
-        f"{n_coarse} steps x {n + 1} samples; max |dh| vs plain {err:.3g} m, max |dp| "
-        f"{p_err:.3g} m; the march's other device records a call (ms): {others}")
+        f"{n_coarse} steps x {n + 1} samples; max |dh| vs plain {err:.3g} m (nodes "
+        f"{node_err:.3g} m), max |dp| {p_err:.3g} m; the march's other device records a "
+        f"call (ms): {others}")
     say(f"[headline] K2 p vs the PyTorch path length of its own h: {p_ulp:.1f} ulp at most")
     say(f"[headline] K2 cycles a step (clock64, CTA 0): fused {cyc_fused:.1f}, nodes only "
         f"{cyc_chain:.1f} (launches {clocked_ms:.4f} / {chain_ms:.4f} ms by CUDA events; "
@@ -851,10 +935,8 @@ def phase_headline(dev, params, terrain, renders=20):
         f"({100.0 * work['live'] / work['streamed_uncull']:.2f} %); tests in live "
         f"chunks {work['tests']} ({work['t_need'] / max(work['tests'], 1):.1f}x fewer); "
         f"lane slots {work['lane_slots']} (without the cull {work['lane_slots_uncull']})")
-    h_n, w_n = ray_h.shape[0], terr.shape[0]
-    k1_bytes = 4 * ((h_n + w_n) * (n_seg + 1) + h_n * w_n + h_n)
-    k1_ops = 3 * work["tests"] + 2 * (h_n + w_n) * (n_seg + 1)  # tests; envelope min, max
-    k1_bound_ms, k1_bound_by = bound(k1_bytes, k1_ops)
+    k1_bound_ms, k1_bound_by, k1_bytes, k1_ops = k1_bound(
+        ray_h.shape[0], terr.shape[0], n_seg, work["tests"])
 
     k2 = k2_headline(dev, table, elev, alt0, shape, step, n_terr)
 
@@ -1361,6 +1443,226 @@ def phase_metadata(dev, terrain, size=(1920, 1080), big=(8192, 2048)):
     say(f"[metadata] phase wall {time.perf_counter() - t_phase:.1f} s")
 
 
+def phase_interpolating(dev, terrain, size=(1920, 1080), max_distance=200_000.0,
+                        renders=10):
+    """9. the InterpolatingRectilinear generator on the headline scene: the
+    snapped grid through K2 and K1, the per-pixel interpolation after it.
+    Returns (launches of the counted render, each kernel's numbers at the
+    grid's shapes)."""
+    import numpy as np
+    import torch
+
+    from atm_raytracer_tpu_torch.generators import fast
+    from atm_raytracer_tpu_torch.generators import interpolating as interp
+    from atm_raytracer_tpu_torch.generators.rectilinear import render_rectilinear
+    from atm_raytracer_tpu_torch.ops import combine
+    from atm_raytracer_tpu_torch.ops.composite import composite
+    from atm_raytracer_tpu_torch.physics.ray import march_coarse
+
+    params = headline_config(*size, max_distance=max_distance).into_params(terrain)
+    out, frame, pos = params.output, params.view.frame, params.view.position
+    cam = (out.width, out.height, float(frame.fov), float(frame.tilt),
+           float(frame.direction))
+    (min_es, min_ds, i_min, j_min, grid_e, grid_a, _, _) = interp._camera_grids(*cam)
+    n_terr = int(math.ceil(frame.max_distance / params.simulation_step))
+    step = float(params.simulation_step)
+
+    # (a) the main path, counted; this first render is also the warm-up
+    reset_launches()
+    t0 = time.perf_counter()
+    result = interp.render_interpolating(params, terrain, dev)
+    torch.cuda.synchronize()
+    first = time.perf_counter() - t0
+    launches = kernel_launches()
+    say(f"[interpolating] {out.width}x{out.height}: snapped grid {grid_e.size} x "
+        f"{grid_a.size}; first render {first * 1e3:.3f} ms; launches {launches}")
+    check(all(n == 1 for n in launches.values()),
+          f"interpolating headline: not one launch of each kernel: {launches}")
+    hits = result.hits
+    check(result.image.shape == (out.height, out.width, 3), f"image {result.image.shape}")
+    check(hits.valid.shape == (out.height, out.width, 4), f"hits {hits.valid.shape}")
+    v = hits.valid
+    check(bool(torch.isfinite(hits.key[v]).all()) and bool((hits.key[v] < n_terr).all()),
+          "interpolating: a valid hit with a non-finite key or a key past the march")
+    frac_hit = float(v[..., 0].double().mean())
+    check(0.05 < frac_hit < 0.95, f"interpolating: implausible hit fraction {frac_hit}")
+
+    plain = interp.render_interpolating(params, terrain, dev, plain=True)
+    ok, fa, fb, mx = image_tolerance(result.image, plain.image)
+    same = float((plain.hits.valid == v).double().mean())
+    check(ok and same >= 0.99, f"interpolating kernels vs plain: any={fa} big={fb}, "
+          f"valid equal on {same} of the slots")
+    say(f"[interpolating] kernels vs plain (card): any={fa:.5f} big={fb:.5f} max={mx}; "
+        f"valid equal on {100.0 * same:.4f} % of slots; hit fraction {frac_hit:.4f}")
+
+    # the grid cells on the card against the CPU's; the divisors are float32
+    # tensors on the device (a Python float divides by its reciprocal there)
+    args = (cam, float(min_es), float(min_ds), i_min, j_min)
+    gi, gj, rem_e, rem_d = interp.grid_coords(*args, dev)
+    gi_c, gj_c, _, _ = interp.grid_coords(*args, "cpu")
+    flips = int(((gi.cpu() != gi_c) | (gj.cpu() != gj_c)).sum())
+    n_px = out.width * out.height
+    elev, _ = interp.camera.rectilinear_ray_params_device(*cam, dev)
+    by_recip = int((torch.floor(elev / float(min_es)) != torch.floor(
+        elev / torch.tensor(min_es, dtype=torch.float32, device=dev))).sum())
+    check(flips <= 1e-4 * n_px, f"interpolating: {flips} grid cells differ card vs CPU")
+    check(int(gi.min()) >= 0 and int(gi.max()) + 1 < grid_e.size and int(gj.min()) >= 0
+          and int(gj.max()) + 1 < grid_a.size, "interpolating: a cell outside the grid")
+    say(f"[interpolating] grid cells card vs CPU: {flips} of {n_px} pixels differ "
+        f"({100.0 * flips / n_px:.5f} %); elevation floors moved by dividing by the "
+        f"Python float instead: {by_recip}")
+
+    walls = []
+    for _ in range(renders):
+        t0 = time.perf_counter()
+        interp.render_interpolating(params, terrain, dev)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    q1, med, q3 = statistics.quantiles(walls, n=4)
+    say(f"[interpolating] frame wall over {renders} renders after the warm-up: median "
+        f"{med * 1e3:.3f} ms (min {min(walls) * 1e3:.3f}, q1 {q1 * 1e3:.3f}, q3 "
+        f"{q3 * 1e3:.3f}, max {max(walls) * 1e3:.3f})")
+    busy_ms, n_rec, by_name = trace_busy_ms(
+        lambda: interp.render_interpolating(params, terrain, dev), "interp_headline")
+    say(f"[interpolating] device busy {busy_ms:.3f} ms of one profiled render "
+        f"({n_rec} device records); idle share of the {med * 1e3:.3f} ms median frame "
+        f"wall: {1.0 - busy_ms / (med * 1e3):.4f}")
+    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
+        say(f"[interpolating]   {ms:9.3f} ms  {name[:90]}")
+    torch.cuda.reset_peak_memory_stats(dev)
+    interp.render_interpolating(params, terrain, dev)
+    say(f"[interpolating] peak device memory of one render: "
+        f"{torch.cuda.max_memory_allocated(dev) / 2**20:.1f} MiB")
+
+    # stage times: each stage alone, CUDA-event means
+    alt0 = float(pos.abs_altitude(terrain))
+    pack = terrain.pack(*fast.terrain_bbox(params), dev)
+    table = fast.build_refraction_table(params, alt0, dev)
+    ge = torch.from_numpy(grid_e.astype(np.float32)).to(dev)
+    ga = torch.from_numpy(grid_a.astype(np.float32)).to(dev)
+    kw = dict(model=params.model, shape=params.model.to_shape(), straight=False, step=step,
+              n_terr=n_terr, max_hits=1, lat0=LAT0, lon0=LON0, terrain_alpha=1.0)
+    march_kw = dict(shape=kw["shape"], straight=False, step=step, n_terr=n_terr)
+    # K2 held to its phase-3 contract at the grid's 787 rays (99 CTAs of 8,
+    # the last one ragged)
+    ray_h, _, k2_err, k2_p_err, k2_node_err, k2_p_ulp = k2_rows_check(
+        table, ge, alt0, kw["shape"], step, n_terr, "interpolating grid")
+    say(f"[interpolating] K2 at {ge.shape[0]} rays vs plain: h max |dh| {k2_err:.3g} m, "
+        f"nodes max |dh| {k2_node_err:.3g} m (limit {K2_ATOL}); h == Hermite fill of its "
+        f"nodes; p max |dp| {k2_p_err:.3g} m vs plain, {k2_p_ulp:.1f} ulp vs the path "
+        f"length of its own h")
+    terr, _ = fast.terrain_columns(pack, params.model, ga, LAT0, LON0, step, n_terr)
+    grid = fast.separable_hits(pack, table, ge, ga, alt0, **kw)
+    ihits = interp._interpolate_pixels(grid, gi, gj, rem_e, rem_d, step, 4,
+                                       has_objects=False)
+    coloring, fog = params.coloring, params.view.fog_distance
+
+    def comp():
+        return composite(coloring, fog, ihits.valid, ihits.rgba[..., 3], ihits.distance,
+                         ihits.elevation, ihits.path_length, ihits.normal, ihits.kind,
+                         ihits.rgba[..., :3])
+
+    image = comp()
+    t = {
+        "grid indices": cuda_ms(lambda: interp.grid_coords(*args, dev), 10),
+        "grid march (K2)": cuda_ms(lambda: fast.march_rows(table, ge, alt0, **march_kw), 10),
+        "grid terrain columns": cuda_ms(lambda: fast.terrain_columns(
+            pack, params.model, ga, LAT0, LON0, step, n_terr), 10),
+    }
+    grid_ms = cuda_ms(lambda: fast.separable_hits(pack, table, ge, ga, alt0, **kw), 10)
+    t["grid combine (K1) and gathers (derived)"] = (
+        grid_ms - t["grid march (K2)"] - t["grid terrain columns"])
+    t["interpolation"] = cuda_ms(lambda: interp._interpolate_pixels(
+        grid, gi, gj, rem_e, rem_d, step, 4, has_objects=False), 10)
+    t["composite"] = cuda_ms(comp, 10)
+    t["image to host"] = cuda_ms(lambda: image.cpu(), 10)
+    total = sum(t.values())
+    for name, ms in t.items():
+        say(f"[interpolating] stage {name}: {ms:.3f} ms ({100.0 * ms / total:.1f} % of "
+            f"the stages' {total:.3f} ms)")
+
+    # each kernel at the grid's shapes, beside its plain version and bound
+    n_seg = n_terr - 1
+    segs_k = combine.terrain_crossing_segments(ray_h, terr, n_seg, 1)
+    segs_p = combine.terrain_crossing_segments_plain(ray_h, terr, n_seg, 1)
+    check(torch.equal(segs_k, segs_p), "K1 vs plain on the interpolating grid differ")
+    env_p = combine.crossing_envelopes_plain(ray_h, terr, n_seg)
+    work = k1_work(segs_p, combine.ray_death_limit(ray_h, n_seg), env_p, n_seg)
+    k1_b, k1_by, k1_bytes, k1_ops = k1_bound(ray_h.shape[0], terr.shape[0], n_seg,
+                                             work["tests"])
+    k1_ms = cuda_ms(lambda: combine.terrain_crossing_segments(ray_h, terr, n_seg, 1), 20)
+    k1_plain = cuda_ms(lambda: combine.terrain_crossing_segments_plain(
+        ray_h, terr, n_seg, 1), 2)
+    k2_b, k2_by, k2_bytes, k2_ops_n = k2_bound(ge.shape[0], n_seg, march_coarse(step),
+                                               table)
+    k2_ms = t["grid march (K2)"]
+    k2_plain = cuda_ms(lambda: fast.march_rows(table, ge, alt0, plain=True, **march_kw), 1)
+    say(f"[interpolating] K1 at [{ray_h.shape[0]}, {terr.shape[0]}] x {n_seg}: {k1_ms:.4f} ms "
+        f"vs plain {k1_plain:.3f} ms; tests in live chunks {work['tests']} of T_need "
+        f"{work['t_need']}; bound {k1_b:.4f} ms by {k1_by} ({k1_bytes} B, {k1_ops} "
+        f"operations): {100.0 * k1_b / k1_ms:.1f} % of the bound")
+    say(f"[interpolating] K2 at {ge.shape[0]} rays x {n_seg} steps: {k2_ms:.4f} ms vs "
+        f"plain {k2_plain:.3f} ms; bound {k2_b:.4f} ms by {k2_by} ({k2_bytes} B, "
+        f"{k2_ops_n} operations): {100.0 * k2_b / k2_ms:.1f} % of the bound")
+
+    # against the exact pinhole: the reference's own oracle
+    rect = render_rectilinear(params, terrain, dev)
+    agree = float((v.any(-1) == rect.hits.valid.any(-1)).double().mean())
+    both = v[..., 0] & rect.hits.valid[..., 0]
+    gap = float((hits.distance[..., 0] - rect.hits.distance[..., 0]).abs()[both].median())
+    check(agree > 0.9, f"interpolating vs rectilinear: sky/terrain agree on {agree}")
+    say(f"[interpolating] vs the Rectilinear tilt-0 render: sky/terrain agree on "
+        f"{100.0 * agree:.3f} % of pixels; median first-hit distance gap {gap:.3f} m")
+    del result, plain, rect, grid, ihits
+
+    # (b) the translucent headline: E = 16 entries, 8 output slots
+    config = headline_config(*size, max_distance=max_distance)
+    config.scene.terrain_alpha = 0.65
+    params_t = config.into_params(terrain)
+    t0 = time.perf_counter()
+    warm = interp.render_interpolating(params_t, terrain, dev)
+    torch.cuda.synchronize()
+    first = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    trans = interp.render_interpolating(params_t, terrain, dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check(trans.hits.valid.shape[-1] == 8 and torch.equal(trans.hits.valid, warm.hits.valid),
+          "translucent interpolating: 8 slots expected, and two renders alike")
+    say(f"[interpolating] translucent (alpha 0.65, grid K = 4, 8 slots): wall "
+        f"{wall * 1e3:.3f} ms after a {first * 1e3:.3f} ms first render; peak device "
+        f"memory {torch.cuda.max_memory_allocated(dev) / 2**20:.1f} MiB; slots holding "
+        f"a hit {[int(x) for x in trans.hits.valid.sum((0, 1)).tolist()]}")
+    del warm, trans
+
+    # (c) due south: the view straddles the ±180° seam
+    config = headline_config(*size, max_distance=max_distance)
+    config.view.frame.direction = 180.0
+    params_s = config.into_params(terrain)
+    grid_as = interp._camera_grids(out.width, out.height, float(frame.fov),
+                                   float(frame.tilt), 180.0)[5]
+    span = float(grid_as.max() - grid_as.min())
+    check(span < 3.0 * frame.fov, f"due south: the grid spans {span} degrees of azimuth")
+    t0 = time.perf_counter()
+    south = interp.render_interpolating(params_s, terrain, dev)
+    torch.cuda.synchronize()
+    frac_s = float(south.hits.valid[..., 0].double().mean())
+    check(0.05 < frac_s < 0.95, f"due south: implausible hit fraction {frac_s}")
+    say(f"[interpolating] due south: grid {grid_as.size} columns spanning {span:.4f} "
+        f"degrees (< 3 x fov); render {(time.perf_counter() - t0) * 1e3:.3f} ms, hit "
+        f"fraction {frac_s:.4f}")
+    grid_numbers = {
+        "combine.cu": {"shape": f"[{ray_h.shape[0]}, {terr.shape[0]}] x {n_seg}",
+                       "ms": k1_ms, "plain_ms": k1_plain, "bound_ms": k1_b,
+                       "bound_by": k1_by, "tests": work["tests"]},
+        "march.cu": {"shape": f"{ge.shape[0]} rays x {n_seg}", "ms": k2_ms,
+                     "plain_ms": k2_plain, "bound_ms": k2_b, "bound_by": k2_by,
+                     "max_abs_err": k2_err},
+    }
+    return launches, grid_numbers
+
+
 def main(argv) -> int:
     try:
         import torch
@@ -1411,6 +1713,13 @@ def main(argv) -> int:
         phase_rect_headline(dev, params, terrain)
         phase_rect_culled(dev, terrain)
         phase_metadata(dev, terrain)
+        interp_launches, at_grid = phase_interpolating(dev, terrain)
+        for k in kernels:  # the launches of both counted main-path renders
+            src = Path(k["source"]).name
+            k["launches_by_path"] = {"fast": k["launches"],
+                                     "interpolating": interp_launches[src]}
+            k["launches"] += interp_launches[src]
+            k["at_interpolating_grid"] = at_grid[src]
     except SmokeFailure as e:
         say(f"FAIL: {e}")
         return 1

@@ -16,6 +16,7 @@ torch = pytest.importorskip("torch")
 
 from atm_raytracer_tpu_torch import _kernels  # noqa: E402
 from atm_raytracer_tpu_torch.config import Config  # noqa: E402
+from atm_raytracer_tpu_torch.generators import interpolating as I  # noqa: E402
 from atm_raytracer_tpu_torch.generators.fast import render_fast  # noqa: E402
 from atm_raytracer_tpu_torch.generators.rectilinear import render_rectilinear  # noqa: E402
 from atm_raytracer_tpu_torch.ops import combine  # noqa: E402
@@ -336,3 +337,62 @@ def test_ray_paths_march_through_the_kernel(cuda_device, tmp_path):
     xs_c, h_c = fan_heights(args, torch.device("cpu"))
     np.testing.assert_array_equal(xs, xs_c)
     assert float(np.abs(h - h_c).max()) <= 2e-2  # m, as the Pallas march
+
+
+def _interp_golden(scene):
+    """A golden Interpolating scene of tests/test_golden.py over its terrain
+    (the analytic hills at 181 posts a degree)."""
+    terrain = Terrain()
+    terrain.add_tile(Tile(49, 21, _hills(181)))
+    cfg = {
+        "view": {"position": {"latitude": 49.5, "longitude": 21.5,
+                              "altitude": {"Relative": 30.0}},
+                 "frame": {"direction": 45.0, "fov": 25.0, "max_distance": 25000.0},
+                 "coloring": {"Shading": {"water_level": -100.0}}},
+        "simulation_step": 100.0,
+        "output": {"width": 64, "height": 48, "generator": "InterpolatingRectilinear"},
+    }
+    if scene == "translucent":
+        cfg["scene"] = {"terrain_alpha": 0.65}
+        cfg["view"]["fog_distance"] = 15000.0
+    elif scene == "flat_straight":
+        cfg["earth_shape"] = "FlatDistorted"
+        cfg["straight_rays"] = True
+        cfg["view"]["coloring"] = {"Simple": {"water_level": -100.0}}
+    return terrain, Config.from_dict(cfg).into_params(terrain)
+
+
+@pytest.mark.parametrize("scene", ["plain", "translucent", "flat_straight"])
+def test_interpolating_golden_on_card_matches_cpu(scene, cuda_device):
+    """One render launches K1 (the grid's columns) once and, where the rays
+    are refracted, K2 (its rows) once, and sits within the verify tolerance
+    of the CPU plain path."""
+    terrain, params = _interp_golden(scene)
+    k1, k2 = _kernels.COMBINE.launches, _kernels.MARCH.launches
+    gpu = I.render_interpolating(params, terrain, cuda_device)
+    assert _kernels.COMBINE.launches == k1 + 1
+    assert _kernels.MARCH.launches == k2 + (0 if params.straight_rays else 1)
+    assert gpu.hits.key.device.type == "cuda"
+    cpu = I.render_interpolating(params, terrain, "cpu")
+    ok, frac_any, frac_big = verify_tolerance(gpu.image, cpu.image)
+    assert ok, (frac_any, frac_big)
+    assert float((gpu.hits.valid.cpu() != cpu.hits.valid).double().mean()) <= 0.01
+
+
+def test_interpolating_kernels_match_plain_on_card(cuda_device):
+    """The translucent grid (K = 4, 16 entries a pixel) through the kernels
+    against ``plain=True`` on the card; the card's grid cells equal the
+    CPU's at this size."""
+    terrain, params = _rect_scene(alpha=0.65)
+    gpu = I.render_interpolating(params, terrain, cuda_device)
+    plain = I.render_interpolating(params, terrain, cuda_device, plain=True)
+    ok, frac_any, frac_big = verify_tolerance(gpu.image, plain.image)
+    assert ok, (frac_any, frac_big)
+    assert gpu.hits.valid.shape == (64, 96, 8)
+    assert float((gpu.hits.valid != plain.hits.valid).double().mean()) <= 0.01
+    out, frame = params.output, params.view.frame
+    cam = (out.width, out.height, frame.fov, frame.tilt, frame.direction)
+    min_es, min_ds, i_min, j_min = I._camera_grids(*cam)[:4]
+    args = (cam, float(min_es), float(min_ds), i_min, j_min)
+    for a, b in zip(I.grid_coords(*args, cuda_device)[:2], I.grid_coords(*args, "cpu")[:2]):
+        assert torch.equal(a.cpu(), b)

@@ -102,7 +102,7 @@ def test_port_modules_import_no_jax():
         "import atm_raytracer_tpu_torch as p\n"
         "names = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
         "for n in names: importlib.import_module(n)\n"
-        "assert len(names) >= 34, names\n"
+        "assert len(names) >= 35, names\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')]\n"
         "assert not bad, bad\n"
         "print(len(names))\n"
@@ -125,15 +125,16 @@ def test_port_modules_import_no_jax():
     {"output": {"generator": "InterpolatingRectilinear"}},
 ], ids=["objects", "metadata", "ticks", "eye_level", "generator"])
 def test_unported_features_raise(extra, terrain_dir, tmp_path, monkeypatch):
-    """The features the first slices refused: objects and the Interpolating
-    generator still raise naming their ROADMAP item; the metadata artifact
-    and the overlays are ported, and ``gen`` writes and draws them."""
+    """The features the first slices refused: objects still raise naming
+    their ROADMAP item; the metadata artifact, the overlays and the
+    Interpolating generator are ported, and ``gen`` writes, draws and
+    renders them."""
     cfg = _config("plain", terrain_dir)
     for key, val in extra.items():
         cfg[key].update(val)
     config = TConfig.from_dict(cfg)
-    if "objects" in extra.get("scene", {}) or "generator" in extra["output"]:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    if "objects" in extra.get("scene", {}):
+        with pytest.raises(NotImplementedError, match="ROADMAP A9"):
             cli.check_supported(config)
         return
     import yaml
@@ -148,7 +149,12 @@ def test_unported_features_raise(extra, terrain_dir, tmp_path, monkeypatch):
     assert cli.main(["gen", "-c", "cfg.yaml", "--device", "cpu"]) == 0
     img = np.asarray(Image.open(tmp_path / "out.png").convert("RGB"))
     golden = _golden("plain")
-    if "file_metadata" in extra["output"]:
+    if "generator" in extra["output"]:
+        golden = np.asarray(Image.open(
+            G.GOLDEN_DIR / "interpolatingrectilinear_plain.png").convert("RGB"))
+        ok, frac_any, frac_big = verify_tolerance(img, golden)
+        assert ok, (frac_any, frac_big)
+    elif "file_metadata" in extra["output"]:
         meta_config, meta = load_metadata(tmp_path / "meta.npz")
         assert meta.hits.valid.shape == (48, 64, 1) and bool(meta.hits.valid.any())
         assert meta_config.output.file_metadata == "meta.npz"
