@@ -11,9 +11,8 @@ and is never chosen for the user: without a GPU the command fails loudly;
 ``--device cpu`` runs the plain PyTorch versions of the kernels.
 
 ``gen`` renders the Fast, Rectilinear and InterpolatingRectilinear
-generators, draws the annotation overlays, and writes the metadata artifact
-(``--output-meta``). Scene objects are not ported yet and are refused with
-the ROADMAP item that will port them.
+generators, scene objects included, draws the annotation overlays, and
+writes the metadata artifact (``--output-meta``).
 """
 
 from __future__ import annotations
@@ -64,13 +63,6 @@ def _add_gen_parser(subparsers):
     p.set_defaults(func=run_gen)
 
 
-def check_supported(config) -> None:
-    """Raise NotImplementedError for any part of a config this package does
-    not render yet, naming the ROADMAP item that ports it."""
-    if config.scene.objects:
-        raise NotImplementedError("scene objects are not ported yet (ROADMAP A9)")
-
-
 def resolve_device(name: str):
     """The torch device to render on; CUDA must really be there."""
     import torch
@@ -96,7 +88,6 @@ def run_gen(args) -> int:
 
     config = parse_config(args.config) if args.config else Config()
     config = merge_cli(config, args)
-    check_supported(config)
     device = resolve_device(args.device)
 
     start = time.monotonic()
@@ -131,7 +122,7 @@ def run_gen(args) -> int:
     if params.output.file_metadata:
         phase("Outputting metadata...")
         save_metadata(params.output.file_metadata, config, result,
-                      fmt=args.meta_format)
+                      fmt=args.meta_format, terrain=terrain)
     phase("Done.")
     return 0
 

@@ -6,9 +6,9 @@ including its per-field defaults; the CLI-over-YAML merge mirrors
 read_config (params.rs:694-777). ``Config.to_dict`` writes the tree back
 (the metadata artifact stores it), in the JAX package's spelling.
 
-Scene objects parse and validate as data, but this package does not render
-them yet: ``into_params`` keeps them unresolved (no terrain altitude, no
-texture) and the renderer refuses a scene that has any.
+``into_params`` resolves each scene object (``ResolvedObject``): its
+altitude against the terrain, and a Billboard's texture loaded as float32
+RGBA in [0, 1].
 """
 
 from __future__ import annotations
@@ -158,6 +158,31 @@ class ConfObject:
             "shape": self.shape.to_config(),
             "color": self.color.to_config(),
         }
+
+
+@dataclasses.dataclass
+class ResolvedObject:
+    """Object with terrain-resolved altitude and loaded texture
+    (SerializableObject, object/mod.rs:186-215)."""
+
+    kind: str  # "Frustum" | "Billboard"
+    lat: float
+    lon: float
+    elev: float
+    color: Color
+    r1: float = 0.0
+    r2: float = 0.0
+    height: float = 0.0
+    width: float = 0.0
+    texture: Optional[np.ndarray] = None  # [th, tw, 4] float32 0..1
+    texture_path: str = ""
+
+
+def _load_texture(path: str) -> np.ndarray:
+    from PIL import Image as PILImage
+
+    img = PILImage.open(path).convert("RGBA")
+    return np.asarray(img, np.float32) / 255.0
 
 
 @dataclasses.dataclass
@@ -434,11 +459,27 @@ class Config:
         }
 
     def into_params(self, terrain) -> "Params":
-        """Lower to runtime Params (params.rs:512-528). Objects stay as
-        parsed; see the module docstring."""
+        """Lower to runtime Params (params.rs:512-528): each object at its
+        absolute altitude, a Billboard with its texture."""
+        objects = []
+        for o in self.scene.objects:
+            objects.append(ResolvedObject(
+                kind=o.shape.kind,
+                lat=o.position.latitude,
+                lon=o.position.longitude,
+                elev=o.position.abs_altitude(terrain),
+                color=o.color,
+                r1=o.shape.r1,
+                r2=o.shape.r2,
+                height=o.shape.height,
+                width=o.shape.width,
+                texture=(_load_texture(o.shape.texture_path)
+                         if o.shape.kind == "Billboard" else None),
+                texture_path=o.shape.texture_path,
+            ))
         return Params(
             scene_terrain_folder=self.scene.terrain_folder,
-            objects=list(self.scene.objects),
+            objects=objects,
             terrain_alpha=self.scene.terrain_alpha,
             view=self.view,
             coloring=self.view.coloring.into_coloring(
@@ -459,7 +500,7 @@ class Params:
     """Lowered runtime parameters (params.rs:496-505)."""
 
     scene_terrain_folder: str
-    objects: List[ConfObject]
+    objects: List[ResolvedObject]
     terrain_alpha: float
     view: ConfView
     coloring: ColoringParams

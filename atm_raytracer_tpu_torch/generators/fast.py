@@ -10,15 +10,19 @@ one terrain scan per column suffice (fast.rs:27-44), then a W×H combine
   2. geodesic + terrain per column   → terr [W, N], normals [W, N, 3]
   3. crossing combine                → segments [H, W, K]              (K1)
   4. field gathers at the segments   → HitBuffer
-  5. coloring + compositing          → u8 image
+  5. scene objects, merged into each one's column window (``ops.objects``)
+  6. coloring + compositing          → u8 image
 
 Every stage runs on the device of the tensors it is given; the host packs
-terrain tiles and builds the refraction table.
+terrain tiles, builds the refraction table and plans the objects' column
+windows.
 """
 
 from __future__ import annotations
 
 import math
+import sys
+import weakref
 from typing import Optional, Tuple
 
 import numpy as np
@@ -29,6 +33,14 @@ from ..models import camera
 from ..models.earth import EarthModel
 from ..ops import combine
 from ..ops.composite import composite
+from ..ops.objects import (
+    ObjectSet,
+    apply_objects_planes,
+    hits_to_planes,
+    max_window_overlap,
+    object_col_windows,
+    planes_to_hits,
+)
 from ..physics.ray import EarthShape, RefractionTable, march_coarse, march_rays
 from ..terrain.sample import sample_terrain_data
 from ..terrain.store import Terrain, TerrainPack
@@ -51,6 +63,46 @@ def terrain_bbox(params: Params) -> Tuple[Tuple[float, float], Tuple[float, floa
 
 
 _table_cache: dict = {}
+
+# extra object slots past the terrain's when object windows stack on one
+# column (the JAX package's default, generators/fast.py:418)
+OBJ_HIT_CAP = 6
+
+# ObjectSet + column windows per Params object: repeat renders of one
+# lowered Params skip the host geodesic scan and the upload. Keyed by id()
+# but guarded by a weakref identity check (CPython reuses freed addresses),
+# and a weakref finalizer evicts dead entries. Inner keys: the device, and
+# the azimuth grid + march length (the Fast camera and the Interpolating
+# snapped grid differ).
+_objects_cache: dict = {}
+
+
+def build_objects_cached(params, az_deg, n_terr: int, device):
+    """(ObjectSet on ``device``, column windows) for ``params`` and the
+    azimuth grid ``az_deg``; (None, None) without objects."""
+    if not params.objects:
+        return None, None
+    pid = id(params)
+    entry = _objects_cache.get(pid)
+    if entry is None or entry["ref"]() is not params:
+        entry = {
+            "ref": weakref.ref(params, lambda r, k=pid: _objects_cache.pop(k, None)),
+            "sets": {},
+            "wins": {},
+        }
+        _objects_cache[pid] = entry
+    dev = str(torch.device(device))
+    if dev not in entry["sets"]:
+        entry["sets"][dev] = ObjectSet.build(params, device)
+    objects = entry["sets"][dev]
+    az = np.asarray(az_deg)
+    key = (az.shape[0], float(az[0]), float(az[-1]), n_terr)
+    if key not in entry["wins"]:
+        pos = params.view.position
+        entry["wins"][key] = object_col_windows(
+            objects, params.model, float(pos.latitude), float(pos.longitude), az,
+            float(params.simulation_step), n_terr)
+    return objects, entry["wins"][key]
 
 
 def build_refraction_table(params: Params, alt0: float, device) -> RefractionTable:
@@ -90,15 +142,21 @@ def march_rows(table: Optional[RefractionTable], elev_deg: torch.Tensor, alt0,
     )
 
 
+def column_geodesic(model: EarthModel, az_deg: torch.Tensor, lat0: float,
+                    lon0: float, step: float, n_terr: int):
+    """(dlat, dlon) [W, n_terr] degrees along each column's geodesic at
+    x = k*step."""
+    dists = (torch.arange(n_terr, dtype=torch.float32, device=az_deg.device)
+             * float(np.float32(step)))
+    return model.geodesic_delta(lat0, lon0, az_deg.to(torch.float32)[:, None],
+                                dists[None, :])
+
+
 def terrain_columns(pack: TerrainPack, model: EarthModel, az_deg: torch.Tensor,
                     lat0: float, lon0: float, step: float, n_terr: int):
     """Stage 2, the terrain cache (utils.rs:176-199): elevation [W, n_terr]
     and unit normal [W, n_terr, 3] along each column's geodesic."""
-    dists = (torch.arange(n_terr, dtype=torch.float32, device=az_deg.device)
-             * float(np.float32(step)))
-    dlat, dlon = model.geodesic_delta(
-        lat0, lon0, az_deg.to(torch.float32)[:, None], dists[None, :]
-    )
+    dlat, dlon = column_geodesic(model, az_deg, lat0, lon0, step, n_terr)
     return sample_terrain_data(pack, model, dlat, dlon, lat0, lon0)
 
 
@@ -107,8 +165,18 @@ def separable_hits(pack: TerrainPack, table: Optional[RefractionTable],
                    model: EarthModel, shape: EarthShape, straight: bool,
                    step: float, n_terr: int, max_hits: int, lat0: float,
                    lon0: float, terrain_alpha: float,
-                   plain: bool = False) -> HitBuffer:
+                   objects: Optional[ObjectSet] = None, obj_windows=None,
+                   obj_hit_cap: int = OBJ_HIT_CAP, plain: bool = False) -> HitBuffer:
     """Hits on the separable (elevation-row × azimuth-column) grid.
+
+    Shared by the Fast generator (camera rows and columns) and the
+    InterpolatingRectilinear generator (its snapped grid). ``objects``
+    (with ``obj_windows``, each object's (col_lo, n_cols)) merge into the
+    terrain hits, which widen to ``max_hits + min(2·overlap, max(cap, 2))``
+    slots: a ray can only hit objects whose window holds its column, so the
+    depth follows the deepest window overlap. Past ``obj_hit_cap`` extra
+    slots the deepest hits are dropped, with a warning on every call (the
+    reference keeps every trace point, utils.rs:241-279).
 
     ``plain`` runs the march and the combine as their plain PyTorch
     versions on whatever device the tensors are on (the kernels' oracle on
@@ -117,8 +185,8 @@ def separable_hits(pack: TerrainPack, table: Optional[RefractionTable],
     ray_h, path_len = march_rows(table, elev_deg, alt0, shape=shape,
                                  straight=straight, step=step, n_terr=n_terr,
                                  plain=plain)
-    terr_elev, terr_normal = terrain_columns(pack, model, az_deg, lat0, lon0,
-                                             step, n_terr)
+    dlat, dlon = column_geodesic(model, az_deg, lat0, lon0, step, n_terr)
+    terr_elev, terr_normal = sample_terrain_data(pack, model, dlat, dlon, lat0, lon0)
 
     # 3. crossing segments [H, W, K]; the fractional hit position is a
     # per-pixel quantity reconstructed below
@@ -156,7 +224,7 @@ def separable_hits(pack: TerrainPack, table: Optional[RefractionTable],
     rgba = torch.zeros((h_n, w_n, max_hits, 4), dtype=torch.float32,
                        device=keys.device)
     rgba[..., 3] = float(terrain_alpha)
-    return HitBuffer(
+    hits = HitBuffer(
         valid=valid,
         key=keys,
         dlat=hit_dlat,
@@ -168,6 +236,24 @@ def separable_hits(pack: TerrainPack, table: Optional[RefractionTable],
         kind=torch.zeros((h_n, w_n, max_hits), dtype=torch.int32, device=keys.device),
         rgba=rgba,
     )
+    if objects is None:
+        return hits
+
+    # 5. scene objects
+    overlap = max_window_overlap(obj_windows, objects.n_objects)
+    if 2 * overlap > max(obj_hit_cap, 2):
+        print(
+            f"WARNING: object metadata depth truncated: {overlap} object windows "
+            f"overlap one column (needs {2 * overlap} slots) but obj_hit_cap="
+            f"{obj_hit_cap}; hits beyond the cap are dropped from metadata "
+            "(compositing is visually saturated by then)",
+            file=sys.stderr,
+        )
+    k_out = max_hits + min(2 * overlap, max(obj_hit_cap, 2))
+    planes = apply_objects_planes(
+        hits_to_planes(hits, k_out), objects, model, lat0, step, ray_h, path_len,
+        dlat, dlon, obj_windows, k_out)
+    return planes_to_hits(*planes)
 
 
 def fast_core(pack: TerrainPack, table: Optional[RefractionTable],
@@ -175,12 +261,14 @@ def fast_core(pack: TerrainPack, table: Optional[RefractionTable],
               model: EarthModel, shape: EarthShape, straight: bool, step: float,
               n_terr: int, max_hits: int, lat0: float, lon0: float, coloring,
               fog_distance: Optional[float], terrain_alpha: float,
-              plain: bool = False):
+              objects: Optional[ObjectSet] = None, obj_windows=None,
+              obj_hit_cap: int = OBJ_HIT_CAP, plain: bool = False):
     """The whole Fast pipeline on one device: (image [H, W, 3] u8, hits)."""
     hits = separable_hits(
         pack, table, elev_deg, az_deg, alt0, model=model, shape=shape,
         straight=straight, step=step, n_terr=n_terr, max_hits=max_hits,
-        lat0=lat0, lon0=lon0, terrain_alpha=terrain_alpha, plain=plain,
+        lat0=lat0, lon0=lon0, terrain_alpha=terrain_alpha, objects=objects,
+        obj_windows=obj_windows, obj_hit_cap=obj_hit_cap, plain=plain,
     )
     image = composite(
         coloring, fog_distance, hits.valid, hits.rgba[..., 3], hits.distance,
@@ -191,14 +279,11 @@ def fast_core(pack: TerrainPack, table: Optional[RefractionTable],
 
 
 def render_fast(params: Params, terrain: Terrain, device,
-                max_hits: Optional[int] = None, plain: bool = False) -> RenderResult:
+                max_hits: Optional[int] = None, plain: bool = False,
+                obj_hit_cap: int = OBJ_HIT_CAP) -> RenderResult:
     """Full Fast-generator render from lowered Params (fast.rs:22-98) on
-    ``device``. The image comes back to the host; the hits stay on device."""
-    if params.objects:
-        raise NotImplementedError(
-            "scene objects are not ported yet (ROADMAP A9); remove "
-            "scene.objects or render with atm_raytracer_tpu"
-        )
+    ``device``. The image comes back to the host; the hits stay on device.
+    ``obj_hit_cap``: see ``separable_hits``."""
     device = torch.device(device)
     out = params.output
     frame = params.view.frame
@@ -214,6 +299,7 @@ def render_fast(params: Params, terrain: Terrain, device,
     n_terr = int(math.ceil(frame.max_distance / params.simulation_step))
     if max_hits is None:
         max_hits = 1 if params.terrain_alpha >= 1.0 else 4
+    objects, obj_windows = build_objects_cached(params, az_deg, n_terr, device)
 
     image, hits = fast_core(
         pack, table,
@@ -231,6 +317,9 @@ def render_fast(params: Params, terrain: Terrain, device,
         coloring=params.coloring,
         fog_distance=params.view.fog_distance,
         terrain_alpha=float(params.terrain_alpha),
+        objects=objects,
+        obj_windows=obj_windows,
+        obj_hit_cap=int(obj_hit_cap),
         plain=plain,
     )
     return RenderResult(

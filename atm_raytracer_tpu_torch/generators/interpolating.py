@@ -21,8 +21,9 @@ Documented tolerance decisions vs the reference (as in the JAX package):
 * per-pixel output slots are capped at 2×K_grid (the reference's Vec is
   unbounded).
 
-Scene objects are not ported yet (ROADMAP A9); ``_interpolate_pixels``
-already carries the object channels (``has_objects=True``).
+Scene objects merge into the snapped grid's hits (``fast.separable_hits``
+with the objects' windows planned on the grid's azimuths), and the
+interpolation carries their kind and RGBA (``has_objects=True``).
 """
 
 from __future__ import annotations
@@ -39,7 +40,12 @@ from ..models import camera
 from ..ops.composite import composite
 from ..terrain.store import Terrain
 from .base import HitBuffer, RenderResult
-from .fast import build_refraction_table, separable_hits, terrain_bbox
+from .fast import (
+    build_objects_cached,
+    build_refraction_table,
+    separable_hits,
+    terrain_bbox,
+)
 
 SCALE = 1.5  # interpolating_rectilinear.rs:454
 SEQUENCE = ((0, 0), (0, 1), (1, 0), (1, 1))  # :183
@@ -341,23 +347,26 @@ def grid_coords(cam: tuple, min_es: float, min_ds: float, i_min: int, j_min: int
 def interpolating_core(pack, table, grid_elev_deg, grid_az_deg, alt0, *, cam,
                        min_es, min_ds, i_min, j_min, model, shape, straight, step,
                        n_terr, max_hits, lat0, lon0, coloring, fog_distance,
-                       terrain_alpha, plain: bool = False):
+                       terrain_alpha, objects=None, obj_windows=None,
+                       plain: bool = False):
     """The whole Interpolating frame on the device of ``grid_az_deg``:
-    (image [H, W, 3] u8, hits [H, W, 2·max_hits]). ``plain`` runs the grid's
-    march and combine as their plain PyTorch versions."""
+    (image [H, W, 3] u8, hits [H, W, 2·max_hits]). ``objects`` merge into
+    the grid's hits (``obj_windows`` on the grid's columns). ``plain`` runs
+    the grid's march and combine as their plain PyTorch versions."""
     gi, gj, rem_e, rem_d = grid_coords(cam, min_es, min_ds, i_min, j_min,
                                        grid_az_deg.device)
     # an opaque object-free scene puts at most one trace point in any grid
     # cell, so one grid slot serves; k_out keeps 2·max_hits so the 4 corners'
     # groups still fit (invalid entries never join groups)
-    grid_hits = 1 if terrain_alpha >= 1.0 else max_hits
+    grid_hits = 1 if (objects is None and terrain_alpha >= 1.0) else max_hits
     grid = separable_hits(
         pack, table, grid_elev_deg, grid_az_deg, alt0, model=model, shape=shape,
         straight=straight, step=step, n_terr=n_terr, max_hits=grid_hits,
-        lat0=lat0, lon0=lon0, terrain_alpha=terrain_alpha, plain=plain,
+        lat0=lat0, lon0=lon0, terrain_alpha=terrain_alpha, objects=objects,
+        obj_windows=obj_windows, plain=plain,
     )
     hits = _interpolate_pixels(grid, gi, gj, rem_e, rem_d, step, 2 * max_hits,
-                               has_objects=False)
+                               has_objects=objects is not None)
     image = composite(
         coloring, fog_distance, hits.valid, hits.rgba[..., 3], hits.distance,
         hits.elevation, hits.path_length, hits.normal, hits.kind, hits.rgba[..., :3],
@@ -414,13 +423,8 @@ def render_interpolating(params: Params, terrain: Terrain, device,
     device unless ``plain``. The image comes back to the host; the hits stay
     on the device; the angle grids are the host f64 bilinear ones [H, W].
     ``progress`` (if given) receives a single final 100: the frame is one
-    launch sequence.
+    launch sequence. Scene objects are planned on the grid's azimuths.
     """
-    if params.objects:
-        raise NotImplementedError(
-            "scene objects are not ported yet (ROADMAP A9); remove "
-            "scene.objects or render with atm_raytracer_tpu"
-        )
     device = torch.device(device)
     out = params.output
     frame = params.view.frame
@@ -436,6 +440,7 @@ def render_interpolating(params: Params, terrain: Terrain, device,
     n_terr = int(math.ceil(frame.max_distance / params.simulation_step))
     if max_hits is None:
         max_hits = 2 if params.terrain_alpha >= 1.0 else 4
+    objects, obj_windows = build_objects_cached(params, grid_az_deg, n_terr, device)
 
     image, hits = interpolating_core(
         pack, table,
@@ -458,6 +463,8 @@ def render_interpolating(params: Params, terrain: Terrain, device,
         coloring=params.coloring,
         fog_distance=params.view.fog_distance,
         terrain_alpha=float(params.terrain_alpha),
+        objects=objects,
+        obj_windows=obj_windows,
         plain=plain,
     )
     image_host = image.cpu().numpy()

@@ -14,12 +14,16 @@ along its own geodesic (rectilinear.rs:78-186). Three regimes, all exact:
   pixel axes, so nothing is shared; a conservative terrain envelope culls
   the per-pixel sampling to a few candidate blocks, which re-integrate from
   captured ODE states and are tested exactly.
-* everything else (tilted translucent frames, or ``cull=False``):
+* everything else (tilted translucent or object frames, or ``cull=False``):
   ``pixelwise_hits``, the dense per-pixel program, 64 image rows at a time.
 
-Scene objects are not ported yet (ROADMAP A9). Every stage is PyTorch ops
-on the device of its inputs; the scans are Python loops over coarse windows
-(no kernel yet: ROADMAP B7).
+Scene objects: at tilt 0, ``shared_column_core`` marches row chunks of rays
+in full (the march kernel on the card), finds their crossings against the
+shared column terrain (``combine.aligned_crossing_segments``) and merges
+``ops.objects.object_hits_pixelwise``; a tilted object frame takes the dense
+path, which merges the same object hits. Every stage is PyTorch ops on the
+device of its inputs; the object-free tilt-0 and culled scans are Python
+loops over coarse windows (no kernel yet: ROADMAP B7).
 """
 
 from __future__ import annotations
@@ -36,6 +40,7 @@ from ..models import camera
 from ..models.earth import EarthModel
 from ..ops import combine
 from ..ops.composite import composite
+from ..ops.objects import ObjectSet, merge_hits, object_hits_pixelwise
 from ..physics.ray import (
     DEATH_ALTITUDE,
     EarthShape,
@@ -60,6 +65,9 @@ PIXEL_ROWS = 64  # image rows per chunk of the dense pixelwise path
 SEG_CHUNK = 512  # march segments per terrain-sampling chunk of that path
 # elements of one [pixels, M_CAND, block + 1] chunk of the culled exact test
 EXACT_TEST_ELEMS = 1 << 27
+# elements of one row chunk's [R·W, N] march on the tilt-0 object path
+# (~1 GB of float32 altitudes)
+RECT_CHUNK_ELEMS = 250_000_000
 
 
 def _endpoint_pair_terrain(pack: TerrainPack, model: EarthModel, dl1, dn1, dl2,
@@ -333,6 +341,93 @@ def column_hits(stacked: torch.Tensor, key: torch.Tensor, plh: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# tilt == 0 with scene objects: column-shared terrain, row chunks marched in
+# full (the object tests consume each chunk's dense ray grid)
+# ---------------------------------------------------------------------------
+
+
+def auto_chunk_rows(width: int, height: int, n_terr: int) -> int:
+    """Image rows a chunk of the tilt-0 object path: RECT_CHUNK_ELEMS over
+    the [W, N] march of one row."""
+    return int(min(height, max(1, RECT_CHUNK_ELEMS // max(1, width * n_terr))))
+
+
+def shared_column_core(pack: TerrainPack, table: Optional[RefractionTable],
+                       objects: ObjectSet, elev_hw: torch.Tensor, az_deg: torch.Tensor,
+                       alt0, *, model: EarthModel, shape: EarthShape, straight: bool,
+                       step: float, n_terr: int, max_hits: int, lat0: float,
+                       lon0: float, coloring, fog_distance: Optional[float],
+                       terrain_alpha: float, chunk_rows: int, emit=None,
+                       plain: bool = False):
+    """The tilt-0 Rectilinear frame with scene objects, on the device of
+    ``az_deg`` [W]: (image [H, W, 3] u8, hits [H, W, K]); ``elev_hw``
+    [H, W] the pixels' elevations in radians (the host grid, as float32).
+
+    The terrain scan is shared per column (utils.rs:176-199). Per chunk of
+    ``chunk_rows`` image rows: march every ray (``march_rays``: the march
+    kernel on the card unless ``plain``), find each ray's crossings against
+    its column's terrain (``aligned_crossing_segments``), rebuild the hit
+    fields at them, merge the object hits of the chunk's rays, composite.
+    ``emit`` receives the share of the chunks done.
+    """
+    n_seg = n_terr - 1
+    height, width = elev_hw.shape
+    az = az_deg.to(torch.float32)
+    f_step = _f32(step)
+    terr_elev, terr_normal = terrain_columns(pack, model, az, lat0, lon0, step, n_terr)
+    stacked = torch.cat([terr_elev[..., None], terr_normal], dim=-1)  # [W, N, 4]
+    starts = range(0, height, chunk_rows)
+    images, parts = [], []
+    for i, r0 in enumerate(starts):
+        elev = elev_hw[r0:r0 + chunk_rows]
+        r_n = elev.shape[0]
+        rw = r_n * width
+        ray_h, path_len = march_rays(alt0, elev.reshape(-1), step, n_seg, shape, table,
+                                     straight, coarse=march_coarse(step),
+                                     plain=plain)  # [R·W, n_terr]
+        segs = combine.aligned_crossing_segments(
+            ray_h.reshape(r_n, width, n_terr), terr_elev, n_seg, max_hits)  # [R, W, K]
+        valid = segs < n_seg
+        ks = torch.where(valid, segs, 0)
+        # the fields at the crossings (utils.rs:108-133), as in the Fast
+        # generator's stage 4
+        c_lo, c_hi = combine.gather_column_pairs(stacked, ks)  # [R, W, K, 4]
+        ks_rays = ks.reshape(rw, max_hits)
+        h_lo, h_hi = (x.reshape(r_n, width, max_hits)
+                      for x in combine.gather_ray_pairs(ray_h, ks_rays))
+        p_lo, p_hi = (x.reshape(r_n, width, max_hits)
+                      for x in combine.gather_ray_pairs(path_len, ks_rays))
+        d1 = h_lo - c_lo[..., 0]
+        d2 = h_hi - c_hi[..., 0]
+        denom = d1 - d2
+        prop = d1 / torch.where(denom == 0.0, 1.0, denom)  # utils.rs:232
+        keys = torch.where(valid, ks.to(torch.float32) + prop, combine.NO_HIT)
+        safe_keys = torch.where(valid, keys, 0.0)
+        hit = c_lo * (1.0 - prop[..., None]) + c_hi * prop[..., None]
+        hit_dlat, hit_dlon = model.geodesic_delta(lat0, lon0, az[None, :, None],
+                                                  safe_keys * f_step)
+
+        def rays(x):  # [R, W, K] → [R·W, K]
+            return x.reshape(rw, max_hits)
+
+        hits = _terrain_hits(
+            rays(valid), rays(keys), rays(hit_dlat), rays(hit_dlon),
+            rays(safe_keys * f_step), rays(hit[..., 0]),
+            rays(p_lo * (1.0 - prop) + p_hi * prop),
+            hit[..., 1:4].reshape(rw, max_hits, 3), terrain_alpha)
+        az_rays = az[None, :].expand(r_n, width).reshape(-1)
+        obj_hits = object_hits_pixelwise(objects, model, lat0, lon0, step, n_terr,
+                                         ray_h, path_len, az_rays)
+        hits = merge_hits(hits, obj_hits, max_hits + obj_hits.key.shape[-1])
+        images.append(_composite_hits(coloring, fog_distance, hits))
+        parts.append(hits)
+        if emit is not None:
+            emit((i + 1) / len(starts))
+    image = torch.cat(images, dim=0).reshape(height, width, 3)
+    return image, _frame_hits(parts, height, width)
+
+
+# ---------------------------------------------------------------------------
 # tilt != 0, opaque terrain: envelope-culled exact path
 # ---------------------------------------------------------------------------
 
@@ -548,11 +643,13 @@ def pixelwise_hits(pack: TerrainPack, table: Optional[RefractionTable],
                    model: EarthModel, shape: EarthShape, straight: bool,
                    step: float, n_terr: int, max_hits: int, lat0: float,
                    lon0: float, terrain_alpha: float,
+                   objects: Optional[ObjectSet] = None,
                    plain: bool = False) -> HitBuffer:
     """Hits [P, K] for P independent rays (elevation rad [P], azimuth deg
     [P]): the full march, then terrain sampled along each ray's own
-    geodesic SEG_CHUNK segments at a time. ``plain`` marches with the plain
-    node loop on any device instead of the march kernel."""
+    geodesic SEG_CHUNK segments at a time; ``objects``' hits merge in
+    (K = max_hits + 2 per object). ``plain`` marches with the plain node
+    loop on any device instead of the march kernel."""
     p_n = elev_rad.shape[0]
     n_seg = n_terr - 1
     dev = elev_rad.device
@@ -581,18 +678,24 @@ def pixelwise_hits(pack: TerrainPack, table: Optional[RefractionTable],
             keys = combine.merge_sorted_k(keys, combine.k_smallest(cand, max_hits),
                                           max_hits)
     plh = combine.gather_ray_field(path_len, torch.where(torch.isfinite(keys), keys, 0.0))
-    return ray_hits(pack, model, dir_col, keys, plh, lat0=lat0, lon0=lon0, step=step,
+    hits = ray_hits(pack, model, dir_col, keys, plh, lat0=lat0, lon0=lon0, step=step,
                     terrain_alpha=terrain_alpha)
+    if objects is None:
+        return hits
+    obj_hits = object_hits_pixelwise(objects, model, lat0, lon0, step, n_terr, ray_h,
+                                     path_len, dir_deg)
+    return merge_hits(hits, obj_hits, max_hits + obj_hits.key.shape[-1])
 
 
 def rectilinear_core(pack, table, elev_rad, dir_deg, alt0, *, model, shape,
                      straight, step, n_terr, max_hits, lat0, lon0, coloring,
-                     fog_distance, terrain_alpha, plain: bool = False):
+                     fog_distance, terrain_alpha, objects=None, plain: bool = False):
     """``pixelwise_hits`` + compositing: (image [P, 3] u8, hits [P, K])."""
     hits = pixelwise_hits(
         pack, table, elev_rad, dir_deg, alt0, model=model, shape=shape,
         straight=straight, step=step, n_terr=n_terr, max_hits=max_hits,
-        lat0=lat0, lon0=lon0, terrain_alpha=terrain_alpha, plain=plain,
+        lat0=lat0, lon0=lon0, terrain_alpha=terrain_alpha, objects=objects,
+        plain=plain,
     )
     return _composite_hits(coloring, fog_distance, hits), hits
 
@@ -616,20 +719,17 @@ def render_rectilinear(params: Params, terrain: Terrain, device,
                        plain: bool = False, progress=None) -> RenderResult:
     """Full Rectilinear render (rectilinear.rs:24-60) on ``device``.
 
-    tilt 0 takes the fused shared-column path; a tilted opaque frame
-    (K = 1) the envelope-culled path; anything else, or ``cull=False``, the
-    dense pixelwise path, whose march goes through the march kernel on a
-    CUDA device unless ``plain``. The image comes back to the host; the hits
-    stay on the device. The angle grids of the result are the host f64 ones.
-    ``progress`` (if given) receives monotone whole-percent values from the
-    host loops (windows of the tilt-0 scan, culled rounds, dense chunks),
-    ending at 100.
+    tilt 0 takes the fused shared-column path, or with scene objects the
+    row-chunked shared-column path (``auto_chunk_rows`` rows a chunk); a
+    tilted opaque object-free frame (K = 1) the
+    envelope-culled path; anything else, or ``cull=False``, the dense
+    pixelwise path. The march of the last two goes through the march kernel
+    on a CUDA device unless ``plain``. The image comes back to the host;
+    the hits stay on the device. The angle grids of the result are the host
+    f64 ones. ``progress`` (if given) receives monotone whole-percent values
+    from the host loops (windows of the tilt-0 scan, row chunks, culled
+    rounds, dense chunks), ending at 100.
     """
-    if params.objects:
-        raise NotImplementedError(
-            "scene objects are not ported yet (ROADMAP A9); remove "
-            "scene.objects or render with atm_raytracer_tpu"
-        )
     device = torch.device(device)
     out = params.output
     frame = params.view.frame
@@ -644,6 +744,7 @@ def render_rectilinear(params: Params, terrain: Terrain, device,
     n_terr = int(math.ceil(frame.max_distance / params.simulation_step))
     if max_hits is None:
         max_hits = 1 if params.terrain_alpha >= 1.0 else 4
+    objects = ObjectSet.build(params, device)
     kw = dict(
         model=params.model,
         shape=params.model.to_shape(),
@@ -659,11 +760,20 @@ def render_rectilinear(params: Params, terrain: Terrain, device,
     rounds = None
     emit = percent_reporter(progress)
     if frame.tilt == 0.0:
-        az = camera.rectilinear_column_azimuths(w, frame.fov, frame.direction)
-        image, hits = fused_shared_core(
-            pack, table, torch.from_numpy(az.astype(np.float32)).to(device), alt0,
-            cam=(w, h, float(frame.fov)), max_hits=int(max_hits), emit=emit, **kw)
-    elif max_hits == 1 and cull:
+        az = torch.from_numpy(camera.rectilinear_column_azimuths(
+            w, frame.fov, frame.direction).astype(np.float32)).to(device)
+        if objects is None:
+            image, hits = fused_shared_core(
+                pack, table, az, alt0, cam=(w, h, float(frame.fov)),
+                max_hits=int(max_hits), emit=emit, **kw)
+        else:
+            image, hits = shared_column_core(
+                pack, table, objects,
+                torch.from_numpy(elev_rad.astype(np.float32)).to(device), az, alt0,
+                max_hits=int(max_hits),
+                chunk_rows=auto_chunk_rows(w, h, n_terr), emit=emit,
+                plain=plain, **kw)
+    elif max_hits == 1 and cull and objects is None:
         image, hits, rounds = fused_culled_core(
             pack, table, alt0,
             cam=(w, h, float(frame.fov), float(frame.tilt), float(frame.direction)),
@@ -680,7 +790,7 @@ def render_rectilinear(params: Params, terrain: Terrain, device,
         for i, c0 in enumerate(starts):
             parts.append(rectilinear_core(
                 pack, table, elev_flat[c0:c0 + chunk], dir_flat[c0:c0 + chunk], alt0,
-                max_hits=int(max_hits), plain=plain, **kw))
+                max_hits=int(max_hits), objects=objects, plain=plain, **kw))
             emit((i + 1) / len(starts))
         image = torch.cat([p[0] for p in parts], dim=0).reshape(h, w, 3)
         hits = _frame_hits([p[1] for p in parts], h, w)

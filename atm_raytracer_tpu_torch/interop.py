@@ -3,8 +3,8 @@
 The JAX package's objects cannot be imported here (that would import jax),
 so the caller hands over ``np.asarray`` of each field and these converters
 rebuild this package's counterparts on a torch device. Parity tests feed
-both packages the same refraction table, terrain mosaic and hit grid this
-way.
+both packages the same refraction table, terrain mosaic, hit grid and scene
+objects this way.
 """
 
 from __future__ import annotations
@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from .generators.base import HitBuffer
+from .ops.objects import ARRAY_FIELDS, ObjectSet
 from .physics.ray import RefractionTable
 from .terrain.store import TerrainPack
 
@@ -66,3 +67,14 @@ def hits_from_arrays(valid, key, dlat, dlon, distance, elevation, path_length,
         elevation=f32(elevation), path_length=f32(path_length), normal=f32(normal),
         kind=torch.tensor(np.asarray(kind, np.int32), device=device), rgba=f32(rgba),
     )
+
+
+def objects_from_arrays(*arrays, seg_window: int, host_meta, device="cpu") -> ObjectSet:
+    """An ``ObjectSet`` from the JAX ObjectSet's 14 arrays, in its field
+    order (kind, dlat, dlon, elev, r1, r2, height, width, rgba, basis,
+    tex_id, textures, tex_hw, cull_r2), and its static ``seg_window`` and
+    ``host_meta``."""
+    if len(arrays) != len(ARRAY_FIELDS):
+        raise ValueError(f"expected {len(ARRAY_FIELDS)} arrays, got {len(arrays)}")
+    return ObjectSet.from_arrays(dict(zip(ARRAY_FIELDS, arrays)), seg_window=seg_window,
+                                 host_meta=host_meta, device=device)

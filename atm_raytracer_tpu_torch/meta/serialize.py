@@ -66,15 +66,18 @@ def _pack_artifact(hits: HitBuffer):
 
 
 def save_metadata(path, config: Config, result: RenderResult,
-                  fmt: str = "native") -> None:
+                  fmt: str = "native", terrain=None) -> None:
     """Write the metadata artifact to exactly ``path``.
 
     ``fmt="native"``: the npz format above. ``fmt="reference"``: the
     reference binary's gzip(bincode(AllData)) layout; its atmosphere segment
     is a best-effort encoding (see :func:`.bincode.encode_environment`).
+    ``terrain`` is needed only for ``reference`` scenes with
+    Relative-altitude objects: the reference serializes each object at its
+    lowered absolute elevation (object/mod.rs:165-184).
     """
     if fmt == "reference":
-        blob = _encode_reference(config, result)
+        blob = _encode_reference(config, result, terrain)
         with open(path, "wb") as fh:
             fh.write(blob)
         return
@@ -85,16 +88,35 @@ def save_metadata(path, config: Config, result: RenderResult,
         _savez(fh, config, result)
 
 
-def reference_params_dict(config: Config) -> dict:
+def reference_params_dict(config: Config, terrain=None) -> dict:
     """Lower a Config to the dict tree :func:`.bincode.encode_alldata`
-    writes: the reference's post-lowering ``Params`` (params.rs:496-528)
-    with the coloring's world light vector. Scene objects are not ported
-    yet (ROADMAP A9), so the tree has none."""
+    writes: the reference's post-lowering ``Params`` (params.rs:496-528),
+    objects at their absolute elevations (a Relative one resolved on
+    ``terrain``), the coloring with its world light vector."""
     from ..physics.atmosphere import atmosphere_def_to_dict
     from .bincode import encode_environment
 
-    if config.scene.objects:
-        raise NotImplementedError("scene objects are not ported yet (ROADMAP A9)")
+    objects = []
+    for o in config.scene.objects:
+        objects.append({
+            "position": {
+                "lat": o.position.latitude,
+                "lon": o.position.longitude,
+                "elev": o.position.abs_altitude(terrain)
+                if o.position.altitude.kind == "Relative"
+                else o.position.altitude.value,
+            },
+            "shape": (
+                {"Frustum": {"r1": o.shape.r1, "r2": o.shape.r2,
+                             "height": o.shape.height}}
+                if o.shape.kind == "Frustum"
+                else {"Billboard": {"width": o.shape.width,
+                                    "height": o.shape.height,
+                                    "texture_path": o.shape.texture_path}}
+            ),
+            "color": {"r": o.color.r, "g": o.color.g, "b": o.color.b,
+                      "a": o.color.a},
+        })
     frame, position = config.view.frame, config.view.position
     lowered = config.view.coloring.into_coloring(frame, position, config.earth_shape)
     if lowered.kind == "Simple":
@@ -110,7 +132,7 @@ def reference_params_dict(config: Config) -> dict:
     return {
         "scene": {
             "terrain_folder": config.scene.terrain_folder,
-            "objects": [],
+            "objects": objects,
             "terrain_alpha": config.scene.terrain_alpha,
         },
         "view": {
@@ -137,10 +159,10 @@ def reference_params_dict(config: Config) -> dict:
     }
 
 
-def _encode_reference(config: Config, result: RenderResult) -> bytes:
+def _encode_reference(config: Config, result: RenderResult, terrain) -> bytes:
     from .bincode import encode_alldata
 
-    params = reference_params_dict(config)
+    params = reference_params_dict(config, terrain)
     elev = np.asarray(result.elevation_deg, np.float64)
     az = np.asarray(result.azimuth_deg, np.float64)
     h, w, _ = result.hits.valid.shape

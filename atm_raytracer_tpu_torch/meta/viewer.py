@@ -29,7 +29,7 @@ from .serialize import load_metadata
 
 
 def _render_from_metadata(config: Config, result: RenderResult,
-                          device="cpu") -> np.ndarray:
+                          device) -> np.ndarray:
     """The artifact's image [H, W, 3] u8, composited on ``device``."""
     coloring = config.view.coloring.into_coloring(
         config.view.frame, config.view.position, config.earth_shape
@@ -201,7 +201,7 @@ def build_viewer(config, result, title="", backend=None):
     return fig, ViewerApp(fig, ax_img, ax_info, config, result)
 
 
-def run_view(path, device="cpu", pixel=None, save_image: Optional[str] = None) -> int:
+def run_view(path, device, pixel=None, save_image: Optional[str] = None) -> int:
     """The ``view`` subcommand: load, re-composite on ``device``, then print
     a pixel, save the image, or open the window."""
     config, result = load_metadata(path)

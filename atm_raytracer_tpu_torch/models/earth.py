@@ -263,6 +263,48 @@ class EarthModel:
         nrad = a / torch.sqrt(1.0 - e2 * s2)
         return torch.rad2deg(d / mrad), torch.rad2deg(d / (nrad * torch.cos(lat_r)))
 
+    def enu_rel(self, dlat_p, dlon_p, elev_p, dlat_o, dlon_o, elev_o, lat0: float):
+        """as_cartesian(P) − as_cartesian(O) in O's (east, north, up), [..., 3].
+
+        Lat/lon arguments are observer-relative degrees, float32 tensors on
+        one device that broadcast together; ``lat0`` is the observer's
+        absolute latitude. Exact up to O(d³/R²) for separations d:
+        mm-accurate inside culling radii.
+
+        Spherical family: the exact global difference rotated into O's ENU
+        basis. Flat family: the AE-plane difference (mod.rs:82-91) in O's
+        (east, north, up) = (tangential, −radial, z). Ellipsoid: the
+        spherical formula on the local sphere of radius (2a+b)/3.
+        """
+        m = self._canonical()
+        if m.is_flat_family:
+            # north = −(r_p cosΔλ − r_o), cancellation-free:
+            #       = −dr + (r_o + dr)·2sin²(Δλ/2)
+            r_o = (90.0 - (lat0 + dlat_o)) * DEGREE_DISTANCE
+            dr = -(dlat_p - dlat_o) * DEGREE_DISTANCE
+            dlon_r = torch.deg2rad(dlon_p - dlon_o)
+            r_p = r_o + dr
+            east = r_p * torch.sin(dlon_r)
+            north = -dr + r_p * 2.0 * torch.sin(dlon_r * 0.5) ** 2
+            up = elev_p - elev_o
+            return torch.stack(torch.broadcast_tensors(east, north, up), dim=-1)
+        radius = (2.0 * m.a + m.b) / 3.0 if m.kind == "Ellipsoid" else m.radius
+        lo = torch.deg2rad(lat0 + dlat_o)
+        sin_o, cos_o = torch.sin(lo), torch.cos(lo)
+        dlat_r = torch.deg2rad(dlat_p - dlat_o)
+        dlon_r = torch.deg2rad(dlon_p - dlon_o)
+        cos_p = torch.cos(torch.deg2rad(lat0 + dlat_p))
+        r_p = radius + elev_p
+        # unit radial of P in O's ENU, small-quantity forms
+        two_s2_lon = 2.0 * torch.sin(dlon_r * 0.5) ** 2  # = 1 − cos Δλ
+        u_e = cos_p * torch.sin(dlon_r)
+        u_n = torch.sin(dlat_r) + cos_p * sin_o * two_s2_lon
+        u_u_m1 = -2.0 * torch.sin(dlat_r * 0.5) ** 2 - cos_p * cos_o * two_s2_lon
+        east = r_p * u_e
+        north = r_p * u_n
+        up = (elev_p - elev_o) + r_p * u_u_m1
+        return torch.stack(torch.broadcast_tensors(east, north, up), dim=-1)
+
 
 def _sphere_delta_device(radius, lat0, az, dist):
     """Great-circle rotation in cancellation-free delta form, f32.

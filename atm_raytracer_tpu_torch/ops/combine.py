@@ -258,6 +258,59 @@ def gather_ray_field(field: torch.Tensor, keys: torch.Tensor) -> torch.Tensor:
     return lo * (1.0 - prop) + hi * prop
 
 
+def gather_column_field(field: torch.Tensor, keys: torch.Tensor) -> torch.Tensor:
+    """Lerp a per-column field [W, N_t(, D)] at float keys [..., W] (k + prop)."""
+    k = torch.floor(keys)
+    prop = keys - k
+    lo, hi = _gather_pairs(field, 1, k.to(torch.int64))
+    if field.ndim == 3:
+        prop = prop[..., None]
+    return lo * (1.0 - prop) + hi * prop
+
+
+ALIGNED_CHUNK = 512  # segments a step of aligned_crossing_segments
+
+
+def aligned_crossing_segments(ray_h: torch.Tensor, terr_elev: torch.Tensor,
+                              n_seg: int, max_hits: int = 1) -> torch.Tensor:
+    """Crossing segments when ray rows are ALIGNED with terrain columns.
+
+    The Rectilinear generator at tilt 0 has a ray per pixel but an azimuth
+    per column (rectilinear.rs:78-100 at pitch 0), so pixel (r, w) tests
+    its own ray against column w's terrain: elementwise in w, not the
+    [H, W] outer product of ``terrain_crossing_segments``.
+
+    ray_h: [R, W, N+1] altitudes; terr_elev: [W, N_t]. Returns int32
+    [R, W, max_hits] ascending, NO_HIT_SEG = no crossing. Runs
+    ALIGNED_CHUNK segments at a time; past the march the rays pad with
+    −1e9 m and the alive mask with False, the terrain with 0.
+    """
+    chunk = ALIGNED_CHUNK
+    r_n, w_n, n_samp = ray_h.shape
+    dev = ray_h.device
+    alive = ray_alive_mask(ray_h.reshape(r_n * w_n, n_samp)).reshape(r_n, w_n, n_samp - 1)
+    n_chunks = -(-n_seg // chunk)
+    pad = n_chunks * chunk + 1 - n_samp
+    if pad > 0:
+        ray_h = torch.nn.functional.pad(ray_h, (0, pad), value=-1e9)
+        alive = torch.nn.functional.pad(alive, (0, pad), value=False)
+    tpad = n_chunks * chunk + 1 - terr_elev.shape[1]
+    if tpad > 0:
+        terr_elev = torch.nn.functional.pad(terr_elev, (0, tpad), value=0.0)
+    keys = torch.full((r_n, w_n, max_hits), NO_HIT_SEG, dtype=torch.int32, device=dev)
+    for k0 in range(0, n_chunks * chunk, chunk):
+        seg_idx = torch.arange(k0, k0 + chunk, dtype=torch.int32, device=dev)
+        d1 = ray_h[..., k0:k0 + chunk] - terr_elev[None, :, k0:k0 + chunk]
+        d2 = ray_h[..., k0 + 1:k0 + chunk + 1] - terr_elev[None, :, k0 + 1:k0 + chunk + 1]
+        crossing = (d1 * d2 < 0.0) & alive[..., k0:k0 + chunk] & (seg_idx < n_seg)
+        cand = torch.where(crossing, seg_idx, NO_HIT_SEG)
+        if max_hits == 1:
+            keys = torch.minimum(keys, cand.amin(dim=-1, keepdim=True))
+        else:
+            keys = merge_sorted_k(keys, k_smallest(cand, max_hits), max_hits)
+    return keys
+
+
 def terrain_crossing_keys(ray_h, terr_elev, n_seg: int, max_hits: int = 1):
     """Float crossing keys k + prop ([H, W, K], inf = no hit)."""
     segs = terrain_crossing_segments(ray_h, terr_elev, n_seg, max_hits)

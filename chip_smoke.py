@@ -40,8 +40,10 @@ before the result line:
               golden Rectilinear scenes, plus the golden scene tilted onto
               the Rectilinear culled path (1 degree, opaque) and its
               pixelwise path (-1 degree, translucent; its march goes
-              through K2), rendered on the card and with the plain path on
-              the CPU, within the verify tolerance;
+              through K2), and the objects golden with each generator (K1
+              and K2 once each for Fast and Interpolating, K2 for the
+              Rectilinear row chunks, counted), rendered on the card and
+              with the plain path on the CPU, within the verify tolerance;
 5. headline — 1920x1080, fov 40, 200 km in 50 m steps, refracted, spherical,
               over 45 synthetic 1201-post tiles: the render goes through both
               kernels (launch counts; K2 once), matches the plain path on the
@@ -97,14 +99,30 @@ before the result line:
               tilt-0 render; (b) the translucent headline (alpha 0.65: 16
               entries a pixel, 8 slots), one timed render and its peak
               memory; (c) due south, across the ±180° seam: the grid's
-              azimuth span under 3 x fov, one render.
+              azimuth span under 3 x fov, one render;
+10. objects — the headline scene with 8 objects (four Cylinders, a
+              translucent Cylinder, a Cone, two textured Billboards with a
+              transparent band) on terrain points the object-free Fast
+              headline hits, 3-120 km out, a Cylinder and a Billboard 0.6
+              degrees apart: (a) Fast through K1 and K2 (one launch each,
+              counted) against ``plain=True`` on the card, every object seen,
+              the median frame wall of 10 renders, stage times, peak memory,
+              device busy time and idle share; the object pass alone on the
+              card against the CPU on the same inputs (validity flips, key
+              and field differences); (b) InterpolatingRectilinear the same,
+              median of 5; (c) Rectilinear at tilt 0 through the row-chunked
+              shared-column path (K2 a chunk, counted): timed renders, peak
+              memory, stage times of one chunk, object pixels against the
+              Fast render; (d) at 192x108, each generator card against CPU
+              (validity flips) and the golden object scene tilted 1 degree
+              (the dense path, through K2) card against CPU.
 
 The verify tolerance (the JAX package's bench.py verify): at most 1 % of
 pixels differ by more than 2 counts and at most 5 % differ at all.
 
 Output: the kernels line ``{"kernels": [...]}`` (``launches`` summed over
-the counted main-path renders, Fast and Interpolating, with the split in
-``launches_by_path``) and, last, the result line
+the counted main-path renders — Fast, Interpolating and the three object
+frames — with the split in ``launches_by_path``) and, last, the result line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
@@ -455,7 +473,34 @@ def golden_config(scene: str) -> dict:
         cfg["earth_shape"] = "FlatDistorted"
         cfg["straight_rays"] = True
         cfg["view"]["coloring"] = {"Simple": {"water_level": -100.0}}
+    elif scene == "objects":
+        cfg["view"]["frame"].update(direction=0.0, fov=30.0, max_distance=8000.0)
+        cfg["simulation_step"] = 50.0
+        cfg["scene"]["objects"] = [
+            golden_object(700.0, -4.0, {"Cylinder": {"radius": 25.0, "height": 200.0}},
+                          {"r": 0.1, "g": 0.2, "b": 0.9, "a": 0.6}),
+            golden_object(1200.0, 3.0, {"Cylinder": {"radius": 30.0, "height": 150.0}},
+                          {"r": 0.9, "g": 0.1, "b": 0.1}),
+            golden_object(2000.0, -1.0, {"Cone": {"radius": 40.0, "height": 120.0}},
+                          {"r": 0.1, "g": 0.8, "b": 0.2}),
+        ]
     return cfg
+
+
+def golden_object(dist_m, az_deg, shape, color):
+    """An object of the objects golden scene, ``dist_m`` out at ``az_deg``."""
+    m_per_deg = 111_194.9  # spherical meters per degree of latitude
+    az = math.radians(az_deg)
+    return {
+        "position": {
+            "latitude": LAT0 + dist_m * math.cos(az) / m_per_deg,
+            "longitude": LON0 + dist_m * math.sin(az) / m_per_deg
+            / math.cos(math.radians(LAT0)),
+            "altitude": {"Relative": 0.0},
+        },
+        "color": color,
+        "shape": shape,
+    }
 
 
 def rect_golden_configs():
@@ -533,6 +578,32 @@ def phase_goldens(dev):
             check(launches["march.cu"] > 0, f"{name}: the march did not go through K2")
         say(f"[goldens] {name}: cuda vs cpu plain any={fa:.4f} big={fb:.4f} "
             f"max={mx} (culled rounds {gpu.culled_rounds}, launches {launches})")
+    renders = {"Fast": render_fast, "Rectilinear": render_rectilinear,
+               "InterpolatingRectilinear": render_interpolating}
+    for generator, render in renders.items():
+        cfg = golden_config("objects")
+        cfg["output"]["generator"] = generator
+        params = Config.from_dict(cfg).into_params(terrain)
+        reset_launches()
+        gpu = render(params, terrain, dev)
+        torch.cuda.synchronize()
+        launches = kernel_launches()
+        if generator == "Rectilinear":
+            check(launches["march.cu"] > 0, f"{generator} objects: no K2 launch")
+        else:
+            check(launches == {"combine.cu": 1, "march.cu": 1},
+                  f"{generator} objects: launches {launches}")
+        cpu = render(params, terrain, "cpu")
+        ok, fa, fb, mx = image_tolerance(gpu.image, cpu.image)
+        check(ok, f"golden {generator.lower()}_objects: any={fa:.4f} big={fb:.4f} "
+              "out of tolerance")
+        flips = int((gpu.hits.valid.cpu() != cpu.hits.valid).sum())
+        n_obj = int((gpu.hits.valid & (gpu.hits.kind == 1)).sum())
+        check(n_obj > 0, f"golden {generator.lower()}_objects: no object hit on the card")
+        say(f"[goldens] {generator.lower()}_objects: cuda vs cpu plain any={fa:.4f} "
+            f"big={fb:.4f} max={mx}; valid slots flipped {flips} of "
+            f"{gpu.hits.valid.numel()}; object hits {n_obj} (cpu "
+            f"{int((cpu.hits.valid & (cpu.hits.kind == 1)).sum())}); launches {launches}")
 
 
 def headline_terrain(params):
@@ -1663,6 +1734,373 @@ def phase_interpolating(dev, terrain, size=(1920, 1080), max_distance=200_000.0,
     return launches, grid_numbers
 
 
+# The 8 objects of the object headline: (a band of columns as shares of the
+# width, a distance as a share of the farthest first hit in the frame,
+# shape, color). Each stands on the terrain point of its band that the
+# object-free Fast headline hits nearest that distance. The synthetic hills
+# hide everything past ~47 km (and past ~14 km outside the left seventh of
+# the frame), so the objects stand 3-45 km out. The bands keep the column
+# windows apart, but for the second and the third object: a Cylinder and a
+# Billboard under 0.9 degrees apart, whose windows overlap.
+HEADLINE_OBJECTS = (
+    ((0.55, 0.58), 0.064, {"Cylinder": {"radius": 50.0, "height": 150.0}},
+     {"r": 0.9, "g": 0.1, "b": 0.1}),
+    ((0.207, 0.213), 0.17, {"Cylinder": {"radius": 80.0, "height": 250.0}},
+     {"r": 0.1, "g": 0.2, "b": 0.9}),
+    ((0.222, 0.228), 0.255, "Billboard", {"r": 1.0, "g": 1.0, "b": 1.0}),
+    ((0.08, 0.12), 0.53, {"Cylinder": {"radius": 120.0, "height": 300.0}},
+     {"r": 0.9, "g": 0.8, "b": 0.1}),
+    ((0.33, 0.36), 0.21, {"Cylinder": {"radius": 100.0, "height": 300.0}},
+     {"r": 0.1, "g": 0.8, "b": 0.8, "a": 0.5}),
+    ((0.8, 0.84), 0.29, {"Cone": {"radius": 150.0, "height": 300.0}},
+     {"r": 0.1, "g": 0.8, "b": 0.2}),
+    ((0.95, 0.98), 0.28, "Billboard", {"r": 1.0, "g": 1.0, "b": 1.0}),
+    ((0.0, 0.05), 0.96, {"Cylinder": {"radius": 200.0, "height": 400.0}},
+     {"r": 0.8, "g": 0.1, "b": 0.8}),
+)
+
+
+def write_texture(path) -> None:
+    """A 64x64 RGBA checker with a fully transparent band (rows 24-39):
+    texels of alpha 0 never count as hits (utils.rs:258-259)."""
+    import numpy as np
+    from PIL import Image
+
+    yy, xx = np.mgrid[0:64, 0:64]
+    check_ = ((xx // 8 + yy // 8) % 2).astype(bool)
+    rgba = np.zeros((64, 64, 4), np.uint8)
+    rgba[..., 0] = np.where(check_, 230, 30)
+    rgba[..., 1] = 120
+    rgba[..., 2] = np.where(check_, 30, 230)
+    rgba[..., 3] = 255
+    rgba[24:40, :, 3] = 0
+    Image.fromarray(rgba, "RGBA").save(path)
+
+
+def object_headline(terrain, dev, size, max_distance, texture):
+    """The object headline's Config, and per object its column, hit
+    distance (m) and culling radius (m): HEADLINE_OBJECTS on the terrain
+    points the object-free Fast headline hits."""
+    import numpy as np
+
+    from atm_raytracer_tpu_torch.config import ConfObject
+    from atm_raytracer_tpu_torch.generators.fast import render_fast
+
+    config = headline_config(*size, max_distance=max_distance)
+    step = config.simulation_step
+    free = render_fast(config.into_params(terrain), terrain, dev).hits
+    valid = free.valid[..., 0].cpu().numpy()
+    dist, dlat, dlon = (getattr(free, f)[..., 0].cpu().numpy()
+                        for f in ("distance", "dlat", "dlon"))
+    d_far = float(dist[valid].max())
+    objs, cols_, dists, culls = [], [], [], []
+    for (c0, c1), d_share, shape, color in HEADLINE_OBJECTS:
+        cols = slice(int(c0 * size[0]), max(int(c1 * size[0]), int(c0 * size[0]) + 1))
+        gap = np.where(valid[:, cols], np.abs(dist[:, cols] - d_share * d_far), np.inf)
+        check(np.isfinite(gap).any(), f"object headline: no terrain hit in columns {cols}")
+        r, c = np.unravel_index(int(np.argmin(gap)), gap.shape)
+        col = cols.start + int(c)
+        if shape == "Billboard":
+            shape = {"Billboard": {"width": 150.0, "height": 250.0,
+                                   "texture_path": str(texture)}}
+            radius = 150.0
+        else:
+            radius = next(iter(shape.values()))["radius"]
+        objs.append(ConfObject.from_config({
+            "position": {"latitude": LAT0 + float(dlat[r, col]),
+                         "longitude": LON0 + float(dlon[r, col]),
+                         "altitude": {"Relative": 0.0}},
+            "shape": shape, "color": color}))
+        cols_.append(col)
+        dists.append(float(dist[r, col]))
+        culls.append(math.sqrt(2.0) * (radius + step))
+    config.scene.objects = objs
+    return config, cols_, dists, culls
+
+
+def objects_seen(hits, wins, dists, culls, step):
+    """Per object, the valid object slots in its column window whose
+    distance lies within its culling radius (plus two steps) of its own."""
+    v = hits.valid & (hits.kind == 1)
+    seen = []
+    for (lo, wn), di, ci in zip(wins, dists, culls):
+        d = hits.distance[:, lo:lo + wn][v[:, lo:lo + wn]]
+        seen.append(int(((d - di).abs() <= ci + 2.0 * step).sum()))
+    return seen
+
+
+def timed_walls(render, renders):
+    """(median, all) frame walls in s of ``renders`` renders, each ending in
+    a synchronize."""
+    import torch
+
+    walls = []
+    for _ in range(renders):
+        t0 = time.perf_counter()
+        render()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    return statistics.median(walls), walls
+
+
+def phase_objects(dev, terrain, size=(1920, 1080), max_distance=200_000.0,
+                  fast_renders=10, interp_renders=5, rect_renders=2,
+                  small=(192, 108)):
+    """10. scene objects on the headline scene. Returns the launches of the
+    three counted object renders, by path."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from atm_raytracer_tpu_torch.generators import fast
+    from atm_raytracer_tpu_torch.generators import interpolating as interp
+    from atm_raytracer_tpu_torch.generators import rectilinear as rect
+    from atm_raytracer_tpu_torch.ops import objects as O
+    from atm_raytracer_tpu_torch.physics.ray import march_coarse, march_rays
+
+    t_phase = time.perf_counter()
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        texture = Path(tmp) / "billboard.png"
+        write_texture(texture)
+        config, cols, dists, culls = object_headline(terrain, dev, size, max_distance,
+                                                     texture)
+        params = config.into_params(terrain)
+        small_params = dataclasses.replace(config, output=dataclasses.replace(
+            config.output, width=small[0], height=small[1])).into_params(terrain)
+    out, frame = params.output, params.view.frame
+    step = float(params.simulation_step)
+    n_terr = int(math.ceil(frame.max_distance / step))
+    say(f"[objects] {out.width}x{out.height}: 8 objects at (column, km) "
+        + ", ".join(f"({c}, {d / 1e3:.2f})" for c, d in zip(cols, dists)))
+
+    # (a) Fast: the main path, counted; this first render is the warm-up
+    reset_launches()
+    t0 = time.perf_counter()
+    res = fast.render_fast(params, terrain, dev)
+    torch.cuda.synchronize()
+    first = time.perf_counter() - t0
+    launches["objects_fast"] = kernel_launches()
+    check(launches["objects_fast"] == {"combine.cu": 1, "march.cu": 1},
+          f"objects fast: launches {launches['objects_fast']}")
+    az = fast.camera.fast_ray_azimuths(out.width, out.height, frame.fov, frame.direction)
+    objects, wins = fast.build_objects_cached(params, az, n_terr, dev)
+    overlap = O.max_window_overlap(wins, objects.n_objects)
+    seen = objects_seen(res.hits, wins, dists, culls, step)
+    check(all(n > 0 for n in seen), f"objects fast: an object is not seen: {seen}")
+    say(f"[objects] fast: first render {first * 1e3:.3f} ms; launches "
+        f"{launches['objects_fast']}; K = {res.hits.valid.shape[-1]} (window overlap "
+        f"{overlap}, seg_window {objects.seg_window}); windows {list(wins)}; object "
+        f"pixels seen per object {seen}")
+    plain = fast.render_fast(params, terrain, dev, plain=True)
+    ok, fa, fb, mx = image_tolerance(res.image, plain.image)
+    same = float((plain.hits.valid == res.hits.valid).double().mean())
+    check(ok and same >= 0.999, f"objects fast kernels vs plain: any={fa} big={fb}, "
+          f"valid equal on {same} of the slots")
+    say(f"[objects] fast kernels vs plain (card): any={fa:.5f} big={fb:.5f} max={mx}; "
+        f"valid equal on {100.0 * same:.4f} % of slots")
+    del plain
+    med, walls = timed_walls(lambda: fast.render_fast(params, terrain, dev), fast_renders)
+    say(f"[objects] fast frame wall over {fast_renders} renders after the warm-up: median "
+        f"{med * 1e3:.3f} ms (min {min(walls) * 1e3:.3f}, max {max(walls) * 1e3:.3f})")
+    busy_ms, n_rec, by_name = trace_busy_ms(
+        lambda: fast.render_fast(params, terrain, dev), "objects_fast")
+    say(f"[objects] fast device busy {busy_ms:.3f} ms of one profiled render ({n_rec} "
+        f"device records); idle share of the median wall: {1.0 - busy_ms / (med * 1e3):.4f}")
+    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]:
+        say(f"[objects]   {ms:9.3f} ms  {name[:90]}")
+    torch.cuda.reset_peak_memory_stats(dev)
+    fast.render_fast(params, terrain, dev)
+    say(f"[objects] fast peak device memory of one render: "
+        f"{torch.cuda.max_memory_allocated(dev) / 2**20:.1f} MiB")
+
+    # stage times: each alone, CUDA-event means
+    args, kw = headline_inputs(params, terrain, dev)
+    kw["fog_distance"] = params.view.fog_distance
+    hit_kw = {k: v for k, v in kw.items() if k not in ("coloring", "fog_distance")}
+    obj_kw = dict(objects=objects, obj_windows=wins)
+    pack, table, elev, az_t, alt0 = args
+    ray_h, path_len = fast.march_rows(table, elev, alt0, shape=kw["shape"], straight=False,
+                                      step=step, n_terr=n_terr)
+    dlat, dlon = fast.column_geodesic(params.model, az_t, LAT0, LON0, step, n_terr)
+    terr_hits = fast.separable_hits(*args, **hit_kw)
+    k_out = 1 + min(2 * overlap, max(fast.OBJ_HIT_CAP, 2))
+    planes = O.hits_to_planes(terr_hits, k_out)
+    obj_args = (objects, params.model, LAT0, step, ray_h, path_len, dlat, dlon, wins,
+                k_out)
+    t = {"terrain hits (K2, columns, K1, gathers)": cuda_ms(
+        lambda: fast.separable_hits(*args, **hit_kw), 5)}
+    all_ms = cuda_ms(lambda: fast.separable_hits(*args, **hit_kw, **obj_kw), 5)
+    t["object pass: 8 objects (apply_objects_planes)"] = cuda_ms(
+        lambda: O.apply_objects_planes(planes, *obj_args), 5)
+    t["object pass: planes in and out (derived)"] = (
+        all_ms - t["terrain hits (K2, columns, K1, gathers)"]
+        - t["object pass: 8 objects (apply_objects_planes)"])
+    image, _ = fast.fast_core(*args, **kw, **obj_kw)
+    t["composite (derived)"] = cuda_ms(lambda: fast.fast_core(*args, **kw, **obj_kw), 5) - all_ms
+    t["image to host"] = cuda_ms(lambda: image.cpu(), 5)
+    total = sum(t.values())
+    for name, ms in t.items():
+        say(f"[objects] fast stage {name}: {ms:.3f} ms ({100.0 * ms / total:.1f} % of the "
+            f"stages' {total:.3f} ms)")
+    for oi in range(objects.n_objects):
+        lo, wn = wins[oi]
+        ms = cuda_ms(lambda: O._object_window_planes(
+            objects, oi, params.model, LAT0, step, ray_h, path_len, dlat[lo:lo + wn],
+            dlon[lo:lo + wn], 2, O.ray_death_index(ray_h)), 3)
+        say(f"[objects]   object {oi} (kind {objects.kinds_static[oi]}, {wn} columns): "
+            f"{ms:.3f} ms")
+
+    # the object pass on the card against the CPU, on the same inputs
+    cpu_objects = O.ObjectSet.build(params, "cpu")
+    t0 = time.perf_counter()
+    key_c, vals_c = O.apply_objects_planes(
+        tuple(x.cpu() for x in planes), cpu_objects, params.model, LAT0, step,
+        ray_h.cpu(), path_len.cpu(), dlat.cpu(), dlon.cpu(), wins, k_out)
+    cpu_s = time.perf_counter() - t0
+    key_g, vals_g = (x.cpu() for x in O.apply_objects_planes(planes, *obj_args))
+    vg, vc = torch.isfinite(key_g), torch.isfinite(key_c)
+    flips = int((vg != vc).sum())
+    both = vg & vc
+    dk = float((key_g - key_c).abs()[both].max())
+    dv = float((vals_g - vals_c).abs()[:, both].max())
+    check(flips <= 1e-4 * vg.numel(), f"objects: {flips} validity flips card vs CPU")
+    say(f"[objects] object pass card vs CPU on the same inputs: validity flips {flips} of "
+        f"{vg.numel()} slots ({int(vg.sum())} valid); max |dkey| {dk:.3g} step, max "
+        f"|dfield| {dv:.3g}; the CPU took {cpu_s:.2f} s")
+    del planes, key_c, vals_c, key_g, vals_g, terr_hits
+
+    # (b) InterpolatingRectilinear, counted
+    reset_launches()
+    res_i = interp.render_interpolating(params, terrain, dev)
+    torch.cuda.synchronize()
+    launches["objects_interpolating"] = kernel_launches()
+    check(launches["objects_interpolating"] == {"combine.cu": 1, "march.cu": 1},
+          f"objects interpolating: launches {launches['objects_interpolating']}")
+    # the pinhole generators' columns have their own azimuths
+    az_col = rect.camera.rectilinear_column_azimuths(out.width, frame.fov, frame.direction)
+    pin_wins = O.object_col_windows(objects, params.model, LAT0, LON0, az_col, step, n_terr)
+    seen_i = objects_seen(res_i.hits, pin_wins, dists, culls, step)
+    check(all(n > 0 for n in seen_i), f"objects interpolating: not every object seen: {seen_i}")
+    plain = interp.render_interpolating(params, terrain, dev, plain=True)
+    ok, fa, fb, mx = image_tolerance(res_i.image, plain.image)
+    same = float((plain.hits.valid == res_i.hits.valid).double().mean())
+    check(ok and same >= 0.999, f"objects interpolating kernels vs plain: any={fa} "
+          f"big={fb}, valid equal on {same}")
+    say(f"[objects] interpolating: launches {launches['objects_interpolating']}; object "
+        f"pixels seen per object {seen_i}; kernels vs plain (card): any={fa:.5f} "
+        f"big={fb:.5f} max={mx}, valid equal on {100.0 * same:.4f} % of slots")
+    del plain
+    med_i, walls = timed_walls(lambda: interp.render_interpolating(params, terrain, dev),
+                               interp_renders)
+    say(f"[objects] interpolating frame wall over {interp_renders} renders: median "
+        f"{med_i * 1e3:.3f} ms (all {', '.join(f'{w * 1e3:.3f}' for w in walls)})")
+    busy_ms, n_rec, _ = trace_busy_ms(
+        lambda: interp.render_interpolating(params, terrain, dev), "objects_interp")
+    say(f"[objects] interpolating device busy {busy_ms:.3f} ms ({n_rec} records); idle "
+        f"share {1.0 - busy_ms / (med_i * 1e3):.4f}")
+    torch.cuda.reset_peak_memory_stats(dev)
+    interp.render_interpolating(params, terrain, dev)
+    say(f"[objects] interpolating peak device memory: "
+        f"{torch.cuda.max_memory_allocated(dev) / 2**20:.1f} MiB")
+    del res_i
+
+    # (c) Rectilinear at tilt 0: the row-chunked shared-column path, counted
+    rows = rect.auto_chunk_rows(out.width, out.height, n_terr)
+    n_chunks = -(-out.height // rows)
+    reset_launches()
+    t0 = time.perf_counter()
+    res_r = rect.render_rectilinear(params, terrain, dev)
+    torch.cuda.synchronize()
+    first = time.perf_counter() - t0
+    launches["objects_rectilinear"] = kernel_launches()
+    check(launches["objects_rectilinear"]["march.cu"] == n_chunks,
+          f"objects rectilinear: launches {launches['objects_rectilinear']}, {n_chunks} chunks")
+    seen_r = objects_seen(res_r.hits, pin_wins, dists, culls, step)
+    check(all(n > 0 for n in seen_r), f"objects rectilinear: not every object seen: {seen_r}")
+    obj_f = (res.hits.valid & (res.hits.kind == 1)).any(-1)
+    obj_r = (res_r.hits.valid & (res_r.hits.kind == 1)).any(-1)
+    agree = float((obj_f == obj_r).double().mean())
+    jacc = float((obj_f & obj_r).sum()) / max(1, int((obj_f | obj_r).sum()))
+    say(f"[objects] rectilinear tilt 0: {n_chunks} chunks of {rows} rows; first render "
+        f"{first * 1e3:.3f} ms; launches {launches['objects_rectilinear']}; K = "
+        f"{res_r.hits.valid.shape[-1]}; object pixels seen per object {seen_r}; object "
+        f"pixels vs the Fast render: agree on {100.0 * agree:.3f} % of pixels, "
+        f"intersection over union {jacc:.4f}")
+    del res_r
+    med_r, walls = timed_walls(lambda: rect.render_rectilinear(params, terrain, dev),
+                               rect_renders - 1)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    rect.render_rectilinear(params, terrain, dev)
+    torch.cuda.synchronize()
+    walls.append(time.perf_counter() - t0)
+    say(f"[objects] rectilinear frame walls after the warm-up: "
+        f"{', '.join(f'{w * 1e3:.3f}' for w in walls)} ms; peak device memory "
+        f"{torch.cuda.max_memory_allocated(dev) / 2**20:.1f} MiB")
+    # one chunk's stages, CUDA-event means of 2
+    elev_hw = torch.from_numpy(rect.camera.rectilinear_ray_params(
+        out.width, out.height, frame.fov, 0.0, frame.direction)[0][:rows]
+        .astype(np.float32)).to(dev)
+    az_col = torch.from_numpy(az_col.astype(np.float32)).to(dev)
+    r_objects = O.ObjectSet.build(params, dev)
+    shape = params.model.to_shape()
+    ray_c, plen_c = march_rays(alt0, elev_hw.reshape(-1), step, n_terr - 1, shape, table,
+                               False, coarse=march_coarse(step))
+    terr_c, _ = fast.terrain_columns(pack, params.model, az_col, LAT0, LON0, step, n_terr)
+    az_rays = az_col[None, :].expand(rows, out.width).reshape(-1)
+    rkw = {k: v for k, v in kw.items() if k not in ("max_hits",)}
+    chunk_ms = cuda_ms(lambda: rect.shared_column_core(
+        pack, table, r_objects, elev_hw, az_col, alt0, max_hits=1, chunk_rows=rows,
+        **rkw), 2)
+    t = {
+        "march (K2)": cuda_ms(lambda: march_rays(
+            alt0, elev_hw.reshape(-1), step, n_terr - 1, shape, table, False,
+            coarse=march_coarse(step)), 2),
+        "aligned_crossing_segments": cuda_ms(lambda: rect.combine.aligned_crossing_segments(
+            ray_c.reshape(rows, out.width, n_terr), terr_c, n_terr - 1, 1), 2),
+        "object_hits_pixelwise (8 objects)": cuda_ms(lambda: O.object_hits_pixelwise(
+            r_objects, params.model, LAT0, LON0, step, n_terr, ray_c, plen_c, az_rays), 2),
+    }
+    t["terrain columns, fields, merge_hits, composite (derived)"] = chunk_ms - sum(t.values())
+    for name, ms in t.items():
+        say(f"[objects] rectilinear chunk stage {name}: {ms:.3f} ms ({100.0 * ms / chunk_ms:.1f}"
+            f" % of the chunk's {chunk_ms:.3f} ms; x {n_chunks} chunks a frame)")
+    del ray_c, plen_c
+
+    # (d) small frames, card against CPU: validity flips; the tilted golden
+    # object scene takes the dense path, whose march goes through K2
+    from atm_raytracer_tpu_torch.config import Config
+
+    tilted = golden_config("objects")
+    tilted["view"]["frame"]["tilt"] = 1.0
+    tilted["output"].update(width=small[0], height=small[1], generator="Rectilinear")
+    cases = [(f"object headline {small[0]}x{small[1]} {g}", small_params, r)
+             for g, r in (("Fast", fast.render_fast), ("Rectilinear", rect.render_rectilinear),
+                          ("InterpolatingRectilinear", interp.render_interpolating))]
+    cases.append((f"golden objects tilted 1 degree {small[0]}x{small[1]} (dense)",
+                  Config.from_dict(tilted).into_params(terrain), rect.render_rectilinear))
+    for name, p_, render in cases:
+        reset_launches()
+        gpu = render(p_, terrain, dev)
+        torch.cuda.synchronize()
+        k = kernel_launches()
+        cpu = render(p_, terrain, "cpu")
+        ok, fa, fb, mx = image_tolerance(gpu.image, cpu.image)
+        flips = int((gpu.hits.valid.cpu() != cpu.hits.valid).sum())
+        n_obj = int((gpu.hits.valid & (gpu.hits.kind == 1)).sum())
+        check(ok, f"{name}: card vs CPU any={fa} big={fb}")
+        check(k["march.cu"] > 0 and n_obj > 0, f"{name}: launches {k}, object hits {n_obj}")
+        if "dense" in name:
+            check(gpu.culled_rounds is None, f"{name}: took the culled path")
+        say(f"[objects] {name}: card vs CPU any={fa:.5f} big={fb:.5f} max={mx}; valid "
+            f"slots flipped {flips} of {gpu.hits.valid.numel()}; object hits {n_obj} (CPU "
+            f"{int((cpu.hits.valid & (cpu.hits.kind == 1)).sum())}); launches {k}")
+    say(f"[objects] phase wall {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main(argv) -> int:
     try:
         import torch
@@ -1714,11 +2152,13 @@ def main(argv) -> int:
         phase_rect_culled(dev, terrain)
         phase_metadata(dev, terrain)
         interp_launches, at_grid = phase_interpolating(dev, terrain)
-        for k in kernels:  # the launches of both counted main-path renders
+        obj_launches = phase_objects(dev, terrain)
+        for k in kernels:  # the launches of every counted main-path render
             src = Path(k["source"]).name
             k["launches_by_path"] = {"fast": k["launches"],
-                                     "interpolating": interp_launches[src]}
-            k["launches"] += interp_launches[src]
+                                     "interpolating": interp_launches[src],
+                                     **{path: n[src] for path, n in obj_launches.items()}}
+            k["launches"] = sum(k["launches_by_path"].values())
             k["at_interpolating_grid"] = at_grid[src]
     except SmokeFailure as e:
         say(f"FAIL: {e}")

@@ -23,7 +23,13 @@ from atm_raytracer_tpu_torch.ops import combine  # noqa: E402
 from atm_raytracer_tpu_torch.physics import ray as R  # noqa: E402
 from atm_raytracer_tpu_torch.physics.atmosphere import Atmosphere, us_76  # noqa: E402
 from atm_raytracer_tpu_torch.terrain.store import Terrain, Tile  # noqa: E402
-from torch_parity import cuda_device, cull_fan, split_fit, verify_tolerance  # noqa: E402,F401
+from torch_parity import (  # noqa: E402,F401
+    cuda_device,
+    cull_fan,
+    objects_golden_config,
+    split_fit,
+    verify_tolerance,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -396,3 +402,61 @@ def test_interpolating_kernels_match_plain_on_card(cuda_device):
     args = (cam, float(min_es), float(min_ds), i_min, j_min)
     for a, b in zip(I.grid_coords(*args, cuda_device)[:2], I.grid_coords(*args, "cpu")[:2]):
         assert torch.equal(a.cpu(), b)
+
+
+def _objects_golden(generator, tilt=0.0):
+    terrain = Terrain()
+    terrain.add_tile(Tile(49, 21, _hills(181)))
+    cfg = objects_golden_config(generator, tilt)
+    return terrain, Config.from_dict(cfg).into_params(terrain)
+
+
+def _object_hits(res):
+    return int((res.hits.valid & (res.hits.kind == 1)).sum())
+
+
+@pytest.mark.parametrize("generator", ["Fast", "Rectilinear", "InterpolatingRectilinear"])
+def test_objects_golden_on_card_matches_cpu(generator, cuda_device):
+    """The objects golden scene on the card against the CPU plain path: K1
+    and K2 launched once by Fast and Interpolating, K2 by the Rectilinear
+    row chunks; images within the verify tolerance, object hits alike."""
+    terrain, params = _objects_golden(generator)
+    render = {"Fast": render_fast, "Rectilinear": render_rectilinear,
+              "InterpolatingRectilinear": I.render_interpolating}[generator]
+    k1, k2 = _kernels.COMBINE.launches, _kernels.MARCH.launches
+    gpu = render(params, terrain, cuda_device)
+    if generator == "Rectilinear":
+        assert _kernels.MARCH.launches > k2
+    else:
+        assert (_kernels.COMBINE.launches, _kernels.MARCH.launches) == (k1 + 1, k2 + 1)
+    cpu = render(params, terrain, "cpu")
+    ok, frac_any, frac_big = verify_tolerance(gpu.image, cpu.image)
+    assert ok, (frac_any, frac_big)
+    assert float((gpu.hits.valid.cpu() != cpu.hits.valid).double().mean()) <= 0.01
+    assert _object_hits(gpu) > 100 and abs(_object_hits(gpu) - _object_hits(cpu)) <= 10
+
+
+def test_fast_object_pass_kernels_match_plain_on_card(cuda_device):
+    """The Fast object frame through K1 and K2 against ``plain=True`` on the
+    card: images within the tolerance, validity equal on >= 99.9 % of the
+    slots, the same object hits."""
+    terrain, params = _objects_golden("Fast")
+    gpu = render_fast(params, terrain, cuda_device)
+    plain = render_fast(params, terrain, cuda_device, plain=True)
+    ok, frac_any, frac_big = verify_tolerance(gpu.image, plain.image)
+    assert ok, (frac_any, frac_big)
+    assert float((gpu.hits.valid == plain.hits.valid).double().mean()) >= 0.999
+    assert abs(_object_hits(gpu) - _object_hits(plain)) <= 5
+
+
+def test_tilted_object_frame_marches_through_the_kernel(cuda_device):
+    """Tilted, an object frame takes the dense path (never the culled one),
+    whose march goes through K2, and matches the CPU."""
+    terrain, params = _objects_golden("Rectilinear", tilt=1.0)
+    before = _kernels.MARCH.launches
+    gpu = render_rectilinear(params, terrain, cuda_device)
+    assert _kernels.MARCH.launches > before and gpu.culled_rounds is None
+    cpu = render_rectilinear(params, terrain, "cpu")
+    ok, frac_any, frac_big = verify_tolerance(gpu.image, cpu.image)
+    assert ok, (frac_any, frac_big)
+    assert _object_hits(gpu) > 100

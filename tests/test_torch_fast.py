@@ -6,6 +6,7 @@ the port's plain path and must sit within the on-chip verify tolerance
 (bench.py:548-551) of both the JAX render and the committed golden PNG.
 """
 
+import copy
 import os
 import subprocess
 import sys
@@ -39,7 +40,7 @@ def terrain_dir(tmp_path_factory):
 
 
 def _config(scene, terrain_dir):
-    cfg = G._base_config(**G.SCENES[scene])
+    cfg = G._base_config(**copy.deepcopy(G.SCENES[scene]))
     cfg["scene"]["terrain_folder"] = str(terrain_dir)
     return cfg
 
@@ -113,43 +114,36 @@ def test_port_modules_import_no_jax():
 
 
 @pytest.mark.parametrize("extra", [
-    {"scene": {"objects": [{
-        "position": {"latitude": 49.51, "longitude": 21.51,
-                     "altitude": {"Relative": 0.0}},
-        "shape": {"Cylinder": {"radius": 25.0, "height": 200.0}},
-        "color": {"r": 0.1, "g": 0.2, "b": 0.9},
-    }]}},
+    G.SCENES["objects"],
     {"output": {"file_metadata": "meta.npz"}},
     {"output": {"ticks": [{"Single": {"azimuth": 40.0, "size": 5, "labelled": True}}]}},
     {"output": {"show_eye_level": True}},
     {"output": {"generator": "InterpolatingRectilinear"}},
 ], ids=["objects", "metadata", "ticks", "eye_level", "generator"])
 def test_unported_features_raise(extra, terrain_dir, tmp_path, monkeypatch):
-    """The features the first slices refused: objects still raise naming
-    their ROADMAP item; the metadata artifact, the overlays and the
-    Interpolating generator are ported, and ``gen`` writes, draws and
-    renders them."""
-    cfg = _config("plain", terrain_dir)
-    for key, val in extra.items():
-        cfg[key].update(val)
-    config = TConfig.from_dict(cfg)
-    if "objects" in extra.get("scene", {}):
-        with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-            cli.check_supported(config)
-        return
+    """The features the first slices refused are ported, and ``gen``
+    renders, writes and draws them: scene objects (the objects golden),
+    the metadata artifact, the overlays and the Interpolating generator."""
     import yaml
     from PIL import Image
 
     from atm_raytracer_tpu_torch.meta.serialize import load_metadata
 
-    cli.check_supported(config)
+    objects = "objects" in extra.get("scene", {})
+    cfg = _config("objects" if objects else "plain", terrain_dir)
+    if not objects:
+        for key, val in extra.items():
+            cfg[key].update(val)
     cfg["output"]["file"] = "out.png"
     (tmp_path / "cfg.yaml").write_text(yaml.safe_dump(cfg))
     monkeypatch.chdir(tmp_path)
     assert cli.main(["gen", "-c", "cfg.yaml", "--device", "cpu"]) == 0
     img = np.asarray(Image.open(tmp_path / "out.png").convert("RGB"))
     golden = _golden("plain")
-    if "generator" in extra["output"]:
+    if objects:
+        ok, frac_any, frac_big = verify_tolerance(img, _golden("objects"))
+        assert ok, (frac_any, frac_big)
+    elif "generator" in extra["output"]:
         golden = np.asarray(Image.open(
             G.GOLDEN_DIR / "interpolatingrectilinear_plain.png").convert("RGB"))
         ok, frac_any, frac_big = verify_tolerance(img, golden)
@@ -170,11 +164,19 @@ def test_unported_features_raise(extra, terrain_dir, tmp_path, monkeypatch):
 
 
 def test_render_fast_refuses_objects(terrain_dir):
-    cfg = _config("plain", terrain_dir)
-    cfg["scene"]["objects"] = G.SCENES["objects"]["scene"]["objects"]
+    """Scene objects render: object hits (kind 1) on valid slots of the
+    terrain's one plus the window overlap's slots, with zero payload on
+    every invalid slot."""
+    cfg = _config("objects", terrain_dir)
     tt = TTerrain.from_folder(terrain_dir)
-    with pytest.raises(NotImplementedError, match="A9"):
-        T.render_fast(TConfig.from_dict(cfg).into_params(tt), tt, "cpu")
+    res = T.render_fast(TConfig.from_dict(cfg).into_params(tt), tt, "cpu")
+    v, kind = res.hits.valid, res.hits.kind
+    assert v.shape == (48, 64, 7)
+    obj = v & (kind == 1)
+    assert int(obj.sum()) > 100
+    assert bool((res.hits.rgba[..., 3][obj] > 0).all())
+    for f in ("dlat", "dlon", "distance", "elevation", "path_length", "normal", "rgba"):
+        assert not getattr(res.hits, f)[~v].any(), f
 
 
 def test_cli_refuses_cuda_without_a_card(monkeypatch, capsys):

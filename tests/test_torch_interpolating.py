@@ -21,6 +21,7 @@ Run with ``-s`` to see the measured figures (ulps, floor flips, pixels
 moved) that the assertions bound.
 """
 
+import copy
 import math
 
 import numpy as np
@@ -303,7 +304,7 @@ def golden_dir(tmp_path_factory):
 
 
 def _golden_config(scene, golden_dir):
-    cfg = G._base_config(**G.SCENES[scene])
+    cfg = G._base_config(**copy.deepcopy(G.SCENES[scene]))
     cfg["scene"]["terrain_folder"] = str(golden_dir)
     cfg["output"]["generator"] = "InterpolatingRectilinear"
     return cfg
@@ -457,11 +458,19 @@ def test_due_south_seam_grid_is_narrow(small_scene):
 
 
 def test_render_interpolating_refuses_objects(golden_dir):
-    cfg = _golden_config("plain", golden_dir)
-    cfg["scene"]["objects"] = G.SCENES["objects"]["scene"]["objects"]
+    """Scene objects render: the snapped grid carries them (max_hits grid
+    slots, windows planned on the grid's azimuths) and the interpolation
+    returns object hits (kind 1) on valid slots of its 2·max_hits."""
+    cfg = _golden_config("objects", golden_dir)
     tt = TTerrain.from_folder(golden_dir)
-    with pytest.raises(NotImplementedError, match="A9"):
-        T.render_interpolating(TConfig.from_dict(cfg).into_params(tt), tt, "cpu")
+    res = T.render_interpolating(TConfig.from_dict(cfg).into_params(tt), tt, "cpu")
+    v, kind = res.hits.valid, res.hits.kind
+    assert v.shape == (48, 64, 4)
+    obj = v & (kind == 1)
+    assert int(obj.sum()) > 100
+    assert bool((res.hits.rgba[..., 3][obj] > 0).all())
+    ok, frac_any, frac_big = verify_tolerance(res.image, _golden_png("objects"))
+    assert ok, (frac_any, frac_big)
 
 
 # -- the CLI: gen --output-meta, then view ------------------------------------------------

@@ -5,6 +5,7 @@ re-composite, pixel info, the viewer's events, and ``gen --output-meta`` /
 ``view`` end to end on the CPU.
 """
 
+import copy
 import gzip
 import os
 import subprocess
@@ -50,7 +51,7 @@ def terrain_dir(tmp_path_factory):
 
 
 def _config(scene, terrain_dir, **output):
-    cfg = G._base_config(**G.SCENES[scene])
+    cfg = G._base_config(**copy.deepcopy(G.SCENES[scene]))
     cfg["scene"]["terrain_folder"] = str(terrain_dir)
     cfg["output"].update(output)
     return cfg
@@ -142,8 +143,9 @@ def test_config_to_dict_matches_jax(case, terrain_dir):
 
 @pytest.mark.parametrize("coloring", ["Simple", "Shading"])
 def test_reference_params_dict_matches_jax(coloring, terrain_dir):
-    """The tree the ``.dat`` writer encodes; a scene with objects is refused
-    naming A9 until objects are ported."""
+    """The tree the ``.dat`` writer encodes, equal to JAX's; scene objects
+    at their absolute elevations, an Absolute and a Relative one (resolved
+    on the terrain)."""
     cfg = _config("plain", terrain_dir)
     cfg["view"]["coloring"] = {coloring: {"water_level": 2.0}}
     want = JS.reference_params_dict(JConfig.from_dict(cfg))
@@ -154,13 +156,16 @@ def test_reference_params_dict_matches_jax(coloring, terrain_dir):
         {"position": {"latitude": 49.6, "longitude": 21.6, "altitude": {"Absolute": 400.0}},
          "shape": {"Frustum": {"r1": 30.0, "r2": 10.0, "height": 120.0}},
          "color": {"r": 0.9, "g": 0.2, "b": 0.1}},
-        {"position": {"latitude": 49.7, "longitude": 21.4, "altitude": {"Absolute": 350.0}},
+        {"position": {"latitude": 49.7, "longitude": 21.4, "altitude": {"Relative": 35.0}},
          "shape": {"Billboard": {"width": 40.0, "height": 20.0,
                                  "texture_path": "sign.png"}},
          "color": {"r": 0.1, "g": 0.2, "b": 0.9, "a": 0.5}},
     ]
-    with pytest.raises(NotImplementedError, match="A9"):
-        TS.reference_params_dict(TConfig.from_dict(cfg))
+    want = JS.reference_params_dict(JConfig.from_dict(cfg), JTerrain.from_folder(terrain_dir))
+    got = TS.reference_params_dict(TConfig.from_dict(cfg), TTerrain.from_folder(terrain_dir))
+    assert got == want
+    elevs = [o["position"]["elev"] for o in got["scene"]["objects"]]
+    assert elevs[0] == 400.0 and elevs[1] > 35.0
 
 
 # -- the reference bincode codec ----------------------------------------------
@@ -526,3 +531,12 @@ def test_cli_view_refuses_cuda_without_a_card(monkeypatch, capsys, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert cli.main(["view", str(tmp_path / "absent.npz"), "--device", "cuda"]) == 1
     assert "is_available() is false" in capsys.readouterr().err
+
+
+def test_run_view_needs_a_device(tmp_path):
+    """``run_view`` and the re-composite take the device from the caller,
+    as ``render_fast`` does: no silent CPU default."""
+    with pytest.raises(TypeError):
+        TV.run_view(tmp_path / "missing.npz")
+    with pytest.raises(TypeError):
+        TV._render_from_metadata(TConfig(), None)

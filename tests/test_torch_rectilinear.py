@@ -11,6 +11,8 @@ bitwise, the culled path finds the dense path's hits, and the multi-hit
 slots agree with the single-hit render.
 """
 
+import copy
+import math
 import os
 import subprocess
 import sys
@@ -282,7 +284,7 @@ def terrains(golden_dir):
 
 
 def _golden_config(scene, golden_dir, tilt=0.0):
-    cfg = G._base_config(**G.SCENES[scene])
+    cfg = G._base_config(**copy.deepcopy(G.SCENES[scene]))
     cfg["scene"]["terrain_folder"] = str(golden_dir)
     cfg["output"]["generator"] = "Rectilinear"
     cfg["view"]["frame"]["tilt"] = tilt
@@ -520,9 +522,32 @@ def test_rectilinear_progress_is_monotone_to_100(path, golden_dir, terrains):
     assert len(got) > 1
 
 
-def test_render_rectilinear_refuses_objects(golden_dir, terrains):
+def test_render_rectilinear_refuses_objects(golden_dir, terrains, monkeypatch):
+    """Scene objects render on both object paths: tilt 0 (row chunks over
+    the shared column terrain; with the chunk budget cut to two rows the
+    chunks' seams are crossed) and tilted (the dense path, never the culled
+    one). Each returns object hits (kind 1) on valid slots, K = 1 + 2 per
+    object, and the chunked frame equals the one-chunk frame."""
+    from atm_raytracer_tpu_torch.generators import rectilinear as TRect
+
     _, tt = terrains
-    cfg = _golden_config("plain", golden_dir)
-    cfg["scene"]["objects"] = G.SCENES["objects"]["scene"]["objects"]
-    with pytest.raises(NotImplementedError, match="A9"):
-        t_render(TConfig.from_dict(cfg).into_params(tt), tt, "cpu")
+    cfg = _golden_config("objects", golden_dir)
+    params = TConfig.from_dict(cfg).into_params(tt)
+    one = t_render(params, tt, "cpu")
+    n_terr = int(math.ceil(params.view.frame.max_distance / params.simulation_step))
+    monkeypatch.setattr(TRect, "RECT_CHUNK_ELEMS", 2 * params.output.width * n_terr)
+    assert TRect.auto_chunk_rows(params.output.width, params.output.height, n_terr) == 2
+    chunked = t_render(params, tt, "cpu")
+    monkeypatch.undo()
+    np.testing.assert_array_equal(chunked.image, one.image)
+    assert torch.equal(chunked.hits.key, one.hits.key)
+    tilted = t_render(TConfig.from_dict(_golden_config("objects", golden_dir, tilt=1.0))
+                      .into_params(tt), tt, "cpu")
+    assert tilted.culled_rounds is None
+    for res in (one, tilted):
+        v, kind = res.hits.valid, res.hits.kind
+        assert v.shape[-1] == 1 + 2 * len(params.objects)
+        obj = v & (kind == 1)
+        assert int(obj.sum()) > 100
+        assert bool((res.hits.rgba[..., 3][obj] > 0).all())
+        assert bool((kind[v] <= 1).all())

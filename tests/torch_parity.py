@@ -4,8 +4,49 @@ Inputs are made with numpy from a seed and handed to both packages; state
 crosses from the JAX package through ``atm_raytracer_tpu_torch.interop``.
 """
 
+import math
+
 import numpy as np
 import pytest
+
+M_PER_DEG = 111_194.9  # tests/fixtures.py: spherical meters per degree
+
+
+def objects_golden_config(generator="Fast", tilt=0.0):
+    """The objects golden scene of tests/test_golden.py as a config dict,
+    without JAX (the card tests import no JAX): three objects 0.7-2 km
+    north of 49.5/21.5 over the terrain folder ".". ``tilt`` tilts it."""
+    def obj(dist_m, az_deg, shape, color):
+        az = math.radians(az_deg)
+        return {
+            "position": {
+                "latitude": 49.5 + dist_m * float(np.cos(az)) / M_PER_DEG,
+                "longitude": 21.5 + dist_m * float(np.sin(az)) / M_PER_DEG
+                / float(np.cos(np.radians(49.5))),
+                "altitude": {"Relative": 0.0},
+            },
+            "color": color,
+            "shape": shape,
+        }
+
+    return {
+        "scene": {"terrain_folder": ".", "objects": [
+            obj(700.0, -4.0, {"Cylinder": {"radius": 25.0, "height": 200.0}},
+                {"r": 0.1, "g": 0.2, "b": 0.9, "a": 0.6}),
+            obj(1200.0, 3.0, {"Cylinder": {"radius": 30.0, "height": 150.0}},
+                {"r": 0.9, "g": 0.1, "b": 0.1}),
+            obj(2000.0, -1.0, {"Cone": {"radius": 40.0, "height": 120.0}},
+                {"r": 0.1, "g": 0.8, "b": 0.2}),
+        ]},
+        "view": {
+            "position": {"latitude": 49.5, "longitude": 21.5, "altitude": {"Relative": 30.0}},
+            "frame": {"direction": 0.0, "fov": 30.0, "max_distance": 8000.0, "tilt": tilt},
+            "coloring": {"Shading": {"water_level": -100.0}},
+        },
+        "straight_rays": False,
+        "simulation_step": 50.0,
+        "output": {"width": 64, "height": 48, "file": "out.png", "generator": generator},
+    }
 
 
 def verify_tolerance(a, b):
