@@ -97,9 +97,16 @@ class CudaKernel:
             self._fn = fn
         return self._fn
 
-    def call(self, *args) -> None:
-        """Launch on the current stream; raise on a refused launch."""
-        err = self.function()(*args)
+    def call(self, device, *args) -> None:
+        """Launch on ``device``'s current stream (passed after ``args``)
+        with ``device`` made the current device: a launch onto a stream of
+        another device than the current one fails, and PyTorch's own ops
+        leave the current device as they found it. Raise on a refused
+        launch."""
+        import torch
+
+        with torch.cuda.device(device):
+            err = self.function()(*args, torch.cuda.current_stream(device).cuda_stream)
         if err != 0:
             raise RuntimeError(
                 f"{self.entry} launch failed: cudaError {err} "
@@ -112,24 +119,18 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 
-# K1: chunk envelopes + first-crossing segments (ops/combine.py); one launch
-# counted per call
+# K1: chunk envelopes + first-crossing segments (ops/combine.py), F frames in
+# one call; one launch counted per call
 COMBINE = CudaKernel(
     "combine.cu", "crossing_segments",
-    [_P, _I, _P, _I, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
+    [_P, _I, _P, _I, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
 )
 # K2: the fused march — RK4 nodes, Hermite fill, chord path lengths and their
-# prefix sum, or the nodes alone (physics/ray.py)
+# prefix sum, or the nodes alone (physics/ray.py); a table a frame by stride
 MARCH = CudaKernel(
     "march.cu", "march_rays",
-    [_P, _P, _I, _F, _I, _I, _I, _P, _I, _P, _I, _F, _F, _F, _F, _I, _F, _F, _P,
-     _P, _P, _P, _P, _P, _I, _P],
+    [_P, _P, _I, _F, _I, _I, _I, _P, _I, _P, _I, _I, _I, _F, _F, _F, _F, _I, _F, _F,
+     _P, _P, _P, _P, _P, _P, _I, _P],
 )
 
 KERNELS = (COMBINE, MARCH)
-
-
-def stream_ptr(device) -> int:
-    import torch
-
-    return torch.cuda.current_stream(device).cuda_stream

@@ -12,7 +12,9 @@ and is never chosen for the user: without a GPU the command fails loudly;
 
 ``gen`` renders the Fast, Rectilinear and InterpolatingRectilinear
 generators, scene objects included, draws the annotation overlays, and
-writes the metadata artifact (``--output-meta``).
+writes the metadata artifact (``--output-meta``). ``gen --shard`` splits the
+frame over every visible device of ``--device``'s type
+(``parallel.mesh``); with fewer than two it renders on the one device.
 """
 
 from __future__ import annotations
@@ -60,6 +62,10 @@ def _add_gen_parser(subparsers):
                    help="Override the generator")
     p.add_argument("--device", dest="device", default="cuda",
                    help="torch device to render on (default: cuda)")
+    p.add_argument("--shard", action="store_true",
+                   help="Split the frame over every visible device of --device's "
+                        "type (an extension over the reference CLI, which is "
+                        "single-node rayon)")
     p.set_defaults(func=run_gen)
 
 
@@ -77,11 +83,19 @@ def resolve_device(name: str):
 
 
 def run_gen(args) -> int:
+    import torch
+
     from .config import Config, merge_cli, parse_config
     from .generators.fast import render_fast
     from .generators.interpolating import render_interpolating
     from .generators.rectilinear import render_rectilinear
     from .meta.serialize import save_metadata
+    from .parallel.mesh import (
+        make_mesh,
+        render_fast_sharded,
+        render_interpolating_sharded,
+        render_rectilinear_sharded,
+    )
     from .render.annotate import annotate_image
     from .render.image import save_png
     from .terrain.store import Terrain
@@ -106,7 +120,21 @@ def run_gen(args) -> int:
         # per-percent progress counter, fast.rs:78-87 / rectilinear.rs:40-49
         phase(f"{pct}%...")
 
-    if generator == "Rectilinear":
+    mesh = None
+    if getattr(args, "shard", False):
+        # every visible device of the type; the CPU counts as one
+        n_dev = torch.cuda.device_count() if device.type == "cuda" else 1
+        if n_dev < 2:
+            phase(f"--shard: only {n_dev} device visible; rendering single-chip")
+        else:
+            phase(f"Sharding over {n_dev} devices")
+            mesh = make_mesh([torch.device(device.type, i) for i in range(n_dev)])
+    if mesh is not None:
+        split = {"Rectilinear": render_rectilinear_sharded,
+                 "InterpolatingRectilinear": render_interpolating_sharded}
+        result = split.get(generator, render_fast_sharded)(params, terrain, mesh)
+        progress(100)
+    elif generator == "Rectilinear":
         result = render_rectilinear(params, terrain, device, progress=progress)
     elif generator == "InterpolatingRectilinear":  # one launch sequence
         result = render_interpolating(params, terrain, device, progress=progress)

@@ -10,13 +10,19 @@
 // computed by the wrapper: samples are never clobbered, because a clobbered
 // sample fabricates crossings against deep terrain.
 //
+// A sweep's F frames go in one call: ray [F, H, N+1], terr [F, W, N_t],
+// limit [F, H] and out [F, H, W, K], frame-contiguous; frame f's rays meet
+// only frame f's columns. Tiles never span two frames (blockIdx.z is the
+// frame of a crossing block; an envelope entry is indexed frame-major), so
+// the scratch below is per frame and F = 1 is the one-frame call.
+//
 // Two kernels, launched in turn on one stream:
 //  1. chunk_envelopes_kernel, one warp per (tile, chunk): the min and max of
 //     a block tile's TH ray rows (or TW terrain rows) over the samples
 //     k0 .. k0+CH of a chunk, inclusive: the CH+1 samples the chunk's tests
 //     read (chunks overlap by one sample, as the staged chunk below does),
-//     cut at n_seg. Out: ray_lo / ray_hi [ceil(H/TH), n_chunks] and
-//     terr_lo / terr_hi [ceil(W/TW), n_chunks].
+//     cut at n_seg. Out: ray_lo / ray_hi [F, ceil(H/TH), n_chunks] and
+//     terr_lo / terr_hi [F, ceil(W/TW), n_chunks].
 //  2. crossing_segments_kernel, one thread per pixel, a block of TH rays x
 //     TW columns: it walks the chunks in ascending order, skips (without
 //     staging) every chunk whose ray and terrain envelopes do not overlap,
@@ -62,20 +68,23 @@ constexpr int ENV_WARPS = 8;         // (tile, chunk) entries per envelope block
 __global__ void __launch_bounds__(ENV_WARPS * 32)
 chunk_envelopes_kernel(const float* __restrict__ ray, int ray_stride, int H,
                        const float* __restrict__ terr, int terr_stride, int W,
-                       int n_seg, int n_chunks,
+                       int F, int n_seg, int n_chunks,
                        float* __restrict__ ray_lo, float* __restrict__ ray_hi,
                        float* __restrict__ terr_lo, float* __restrict__ terr_hi) {
   const int lane = threadIdx.x & 31;
-  const long long e = (long long)blockIdx.x * ENV_WARPS + (threadIdx.x >> 5);
+  const long long g = (long long)blockIdx.x * ENV_WARPS + (threadIdx.x >> 5);
+  // entries a frame: its ray tiles' chunks, then its terrain tiles'
   const long long n_ray = (long long)((H + TH - 1) / TH) * n_chunks;
   const long long n_terr = (long long)((W + TW - 1) / TW) * n_chunks;
-  if (e >= n_ray + n_terr) return;  // whole warps only
+  if (g >= (n_ray + n_terr) * F) return;  // whole warps only
+  const long long fr = g / (n_ray + n_terr);
+  const long long e = g - fr * (n_ray + n_terr);
   const bool is_ray = e < n_ray;
   const long long f = is_ray ? e : e - n_ray;
   const int tile = (int)(f / n_chunks);
   const int k0 = (int)(f - (long long)tile * n_chunks) * CH;
   const int k1 = min(k0 + CH, n_seg);  // last sample, inclusive
-  const float* src = is_ray ? ray : terr;
+  const float* src = is_ray ? ray + fr * H * ray_stride : terr + fr * W * terr_stride;
   const int stride = is_ray ? ray_stride : terr_stride;
   const int rows = is_ray ? TH : TW;
   const int r0 = tile * rows;
@@ -97,8 +106,9 @@ chunk_envelopes_kernel(const float* __restrict__ ray, int ray_stride, int H,
     hi = fmaxf(hi, __shfl_xor_sync(0xffffffffu, hi, off));
   }
   if (lane == 0) {
-    (is_ray ? ray_lo : terr_lo)[f] = lo;
-    (is_ray ? ray_hi : terr_hi)[f] = hi;
+    const long long o = fr * (is_ray ? n_ray : n_terr) + f;
+    (is_ray ? ray_lo : terr_lo)[o] = lo;
+    (is_ray ? ray_hi : terr_hi)[o] = hi;
   }
 }
 
@@ -122,12 +132,17 @@ crossing_segments_kernel(const float* __restrict__ ray, int ray_stride,
   const int h0 = blockIdx.y * TH;
   const int w = w0 + tx;
   const int h = h0 + ty;
+  const long long fr = blockIdx.z;  // the frame
+  ray += fr * H * ray_stride;
+  terr += fr * W * terr_stride;
+  limit += fr * H;
+  out += fr * H * W * K;
   const bool inside = (h < H) && (w < W);
   // segments k < lim are tested; ragged-edge threads test none
   const int lim = inside ? min(limit[h], n_seg) : 0;
   // this block's envelopes, one float per chunk
-  const long long re = (long long)blockIdx.y * n_chunks;
-  const long long te = (long long)blockIdx.x * n_chunks;
+  const long long re = (fr * gridDim.y + blockIdx.y) * n_chunks;
+  const long long te = (fr * gridDim.x + blockIdx.x) * n_chunks;
 
   int keys[K];
 #pragma unroll
@@ -185,12 +200,12 @@ crossing_segments_kernel(const float* __restrict__ ray, int ray_stride,
 
 template <int K>
 void launch(const float* ray, int ray_stride, const float* terr,
-            int terr_stride, const int* limit, int H, int W, int n_seg,
+            int terr_stride, const int* limit, int F, int H, int W, int n_seg,
             int n_chunks, const float* ray_lo, const float* ray_hi,
             const float* terr_lo, const float* terr_hi, int* out,
             cudaStream_t stream) {
   dim3 block(TW, TH);
-  dim3 grid((W + TW - 1) / TW, (H + TH - 1) / TH);
+  dim3 grid((W + TW - 1) / TW, (H + TH - 1) / TH, F);
   crossing_segments_kernel<K><<<grid, block, 0, stream>>>(
       ray, ray_stride, terr, terr_stride, limit, H, W, n_seg, n_chunks,
       ray_lo, ray_hi, terr_lo, terr_hi, out);
@@ -198,15 +213,19 @@ void launch(const float* ray, int ray_stride, const float* terr,
 
 }  // namespace
 
-// ray_lo, ray_hi: [ceil(H/TH), ceil(n_seg/CH)] float32 scratch; terr_lo,
-// terr_hi: [ceil(W/TW), ceil(n_seg/CH)]. Both kernels go on `stream`.
+// F frames (1 for one frame) of ray [H, N+1] rows ray_stride floats apart,
+// terr [W, N_t] rows terr_stride apart and limit [H], frame after frame;
+// out [F, H, W, K]. ray_lo, ray_hi: [F, ceil(H/TH), ceil(n_seg/CH)] float32
+// scratch; terr_lo, terr_hi: [F, ceil(W/TW), ceil(n_seg/CH)]. Both kernels
+// go on `stream`.
 extern "C" int crossing_segments(const void* ray, int ray_stride,
                                  const void* terr, int terr_stride,
-                                 const void* limit, int H, int W, int n_seg,
-                                 int K, void* ray_lo, void* ray_hi,
+                                 const void* limit, int F, int H, int W,
+                                 int n_seg, int K, void* ray_lo, void* ray_hi,
                                  void* terr_lo, void* terr_hi, void* out,
                                  void* stream) {
-  if (K < 1 || K > 4) return static_cast<int>(cudaErrorInvalidValue);
+  if (K < 1 || K > 4 || F < 1 || F > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
   const float* r = static_cast<const float*>(ray);
   const float* t = static_cast<const float*>(terr);
   const int* l = static_cast<const int*>(limit);
@@ -219,18 +238,18 @@ extern "C" int crossing_segments(const void* ray, int ray_stride,
   const int n_chunks = (n_seg + CH - 1) / CH;
   if (n_chunks > 0) {
     const long long entries =
-        (long long)((H + TH - 1) / TH + (W + TW - 1) / TW) * n_chunks;
+        (long long)((H + TH - 1) / TH + (W + TW - 1) / TW) * n_chunks * F;
     const unsigned blocks = (unsigned)((entries + ENV_WARPS - 1) / ENV_WARPS);
     chunk_envelopes_kernel<<<blocks, ENV_WARPS * 32, 0, s>>>(
-        r, ray_stride, H, t, terr_stride, W, n_seg, n_chunks, rlo, rhi, tlo, thi);
+        r, ray_stride, H, t, terr_stride, W, F, n_seg, n_chunks, rlo, rhi, tlo, thi);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   switch (K) {
-    case 1: launch<1>(r, ray_stride, t, terr_stride, l, H, W, n_seg, n_chunks, rlo, rhi, tlo, thi, o, s); break;
-    case 2: launch<2>(r, ray_stride, t, terr_stride, l, H, W, n_seg, n_chunks, rlo, rhi, tlo, thi, o, s); break;
-    case 3: launch<3>(r, ray_stride, t, terr_stride, l, H, W, n_seg, n_chunks, rlo, rhi, tlo, thi, o, s); break;
-    case 4: launch<4>(r, ray_stride, t, terr_stride, l, H, W, n_seg, n_chunks, rlo, rhi, tlo, thi, o, s); break;
+    case 1: launch<1>(r, ray_stride, t, terr_stride, l, F, H, W, n_seg, n_chunks, rlo, rhi, tlo, thi, o, s); break;
+    case 2: launch<2>(r, ray_stride, t, terr_stride, l, F, H, W, n_seg, n_chunks, rlo, rhi, tlo, thi, o, s); break;
+    case 3: launch<3>(r, ray_stride, t, terr_stride, l, F, H, W, n_seg, n_chunks, rlo, rhi, tlo, thi, o, s); break;
+    case 4: launch<4>(r, ray_stride, t, terr_stride, l, F, H, W, n_seg, n_chunks, rlo, rhi, tlo, thi, o, s); break;
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -15,11 +15,14 @@ one terrain scan per column suffice (fast.rs:27-44), then a W×H combine
 
 Every stage runs on the device of the tensors it is given; the host packs
 terrain tiles, builds the refraction table and plans the objects' column
-windows.
+windows. ``separable_hits`` and ``fast_core`` also take a sweep's F frames
+on a leading axis (``parallel.mesh.render_sweep_sharded``): one march of
+the F·H rays, one [F·W, N] terrain scan and one combine over [F, H, W, K].
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 import sys
 import weakref
@@ -41,6 +44,7 @@ from ..ops.objects import (
     object_col_windows,
     planes_to_hits,
 )
+from ..physics.atmosphere import Atmosphere
 from ..physics.ray import EarthShape, RefractionTable, march_coarse, march_rays
 from ..terrain.sample import sample_terrain_data
 from ..terrain.store import Terrain, TerrainPack
@@ -105,24 +109,27 @@ def build_objects_cached(params, az_deg, n_terr: int, device):
     return objects, entry["wins"][key]
 
 
-def build_refraction_table(params: Params, alt0: float, device) -> RefractionTable:
-    """The l(h) table sized to every altitude the march can visit.
+def build_refraction_table(params: Params, alt0: float, device,
+                           atmosphere_def=None) -> RefractionTable:
+    """The l(h) table sized to every altitude the march can visit, for
+    ``params``' atmosphere or another ``atmosphere_def`` (a sweep frame's).
 
     Memoized per (atmosphere content, wavelength, range, device), at most
     16 tables: repeat renders of one configuration skip the host f64
-    profile evaluation and the upload.
+    profile evaluation (and the ~10 ms ``Atmosphere`` set-up) and the upload.
     """
     max_elev_deg = abs(params.view.frame.tilt) + params.view.frame.fov  # slack
     top = alt0 + math.tan(math.radians(min(max_elev_deg, 89.0))) * (
         params.view.frame.max_distance
     )
     h_hi = float(min(max(20_000.0, top * 1.1 + 1000.0), 90_000.0))
-    key = (params.atmosphere_def, float(params.wavelength), h_hi, str(device))
+    definition = params.atmosphere_def if atmosphere_def is None else atmosphere_def
+    key = (definition, float(params.wavelength), h_hi, str(device))
     cached = _table_cache.get(key)
     if cached is None:
         cached = RefractionTable.build(
-            params.atmosphere, params.wavelength, h_lo=-2000.0, h_hi=h_hi,
-            dh=1.0, device=device,
+            params.atmosphere if atmosphere_def is None else Atmosphere(atmosphere_def),
+            params.wavelength, h_lo=-2000.0, h_hi=h_hi, dh=1.0, device=device,
         )
         while len(_table_cache) > 16:  # evict the oldest
             _table_cache.pop(next(iter(_table_cache)))
@@ -132,13 +139,16 @@ def build_refraction_table(params: Params, alt0: float, device) -> RefractionTab
 
 def march_rows(table: Optional[RefractionTable], elev_deg: torch.Tensor, alt0,
                *, shape: EarthShape, straight: bool, step: float, n_terr: int,
-               plain: bool = False):
+               plain: bool = False, rays_per_frame: Optional[int] = None):
     """Stage 1, the path cache (gen_path_cache, utils.rs:136-174): ray
     altitudes and path lengths [H, n_terr] at x = k*step; coarse RK4 with
-    Hermite dense output (``march_coarse`` steps per node)."""
+    Hermite dense output (``march_coarse`` steps per node). ``alt0`` is a
+    scalar or one altitude a row; a stacked ``table`` gives each run of
+    ``rays_per_frame`` rows its own l(h)."""
     return march_rays(
         alt0, torch.deg2rad(elev_deg.to(torch.float32)), step, n_terr - 1,
         shape, table, straight, coarse=march_coarse(step), plain=plain,
+        rays_per_frame=rays_per_frame,
     )
 
 
@@ -166,29 +176,52 @@ def separable_hits(pack: TerrainPack, table: Optional[RefractionTable],
                    step: float, n_terr: int, max_hits: int, lat0: float,
                    lon0: float, terrain_alpha: float,
                    objects: Optional[ObjectSet] = None, obj_windows=None,
-                   obj_hit_cap: int = OBJ_HIT_CAP, plain: bool = False) -> HitBuffer:
+                   obj_hit_cap: int = OBJ_HIT_CAP, plain: bool = False,
+                   obj_overlap: Optional[int] = None) -> HitBuffer:
     """Hits on the separable (elevation-row × azimuth-column) grid.
 
     Shared by the Fast generator (camera rows and columns) and the
     InterpolatingRectilinear generator (its snapped grid). ``objects``
-    (with ``obj_windows``, each object's (col_lo, n_cols)) merge into the
-    terrain hits, which widen to ``max_hits + min(2·overlap, max(cap, 2))``
-    slots: a ray can only hit objects whose window holds its column, so the
-    depth follows the deepest window overlap. Past ``obj_hit_cap`` extra
-    slots the deepest hits are dropped, with a warning on every call (the
-    reference keeps every trace point, utils.rs:241-279).
+    (with ``obj_windows``, each object's (col_lo, n_cols); None for the full
+    width) merge into the terrain hits, which widen to ``max_hits +
+    min(2·overlap, max(cap, 2))`` slots: a ray can only hit objects whose
+    window holds its column, so the depth follows the deepest window overlap
+    (``obj_overlap`` overrides it: a column shard passes its whole frame's).
+    Past ``obj_hit_cap`` extra slots the deepest hits are dropped, with a
+    warning on every call (the reference keeps every trace point,
+    utils.rs:241-279).
+
+    A sweep's F frames ride a leading axis: ``az_deg`` [F, W], ``elev_deg``
+    [F, H] or the [H] rows all frames share, ``alt0`` [F] (a tensor) and a
+    table shared by the frames or stacked one a frame. The march is one call
+    over the F·H rays, the terrain one [F·W, N] scan, the combine one call
+    over [F, H, W, K]; the hits come back [F, H, W, K]. One frame
+    (``az_deg`` [W], a scalar ``alt0``) is the case F = 1, its hits [H, W, K].
 
     ``plain`` runs the march and the combine as their plain PyTorch
     versions on whatever device the tensors are on (the kernels' oracle on
     the card); otherwise CUDA tensors go through the kernels.
     """
-    ray_h, path_len = march_rows(table, elev_deg, alt0, shape=shape,
-                                 straight=straight, step=step, n_terr=n_terr,
-                                 plain=plain)
-    dlat, dlon = column_geodesic(model, az_deg, lat0, lon0, step, n_terr)
+    one_frame = az_deg.ndim == 1
+    if one_frame:
+        az_deg = az_deg[None]
+        alt0 = (alt0.reshape(1) if isinstance(alt0, torch.Tensor) else  # filled on the
+                torch.full((1,), float(alt0), dtype=torch.float32,   # device: no copy
+                           device=az_deg.device))                    # from host memory
+    # flatten the frames' rays and columns, then split them again
+    f_n, w_n = az_deg.shape
+    h_n = elev_deg.shape[-1]
+    alt_rows = alt0.to(torch.float32)[:, None].expand(f_n, h_n).reshape(-1)
+    ray_h, path_len = march_rows(
+        table, elev_deg.expand(f_n, h_n).reshape(-1), alt_rows, shape=shape,
+        straight=straight, step=step, n_terr=n_terr, plain=plain, rays_per_frame=h_n)
+    ray_h, path_len = ray_h.reshape(f_n, h_n, -1), path_len.reshape(f_n, h_n, -1)
+    dlat, dlon = column_geodesic(model, az_deg.reshape(-1), lat0, lon0, step, n_terr)
     terr_elev, terr_normal = sample_terrain_data(pack, model, dlat, dlon, lat0, lon0)
+    dlat, dlon, terr_elev = (x.reshape(f_n, w_n, n_terr) for x in (dlat, dlon, terr_elev))
+    terr_normal = terr_normal.reshape(f_n, w_n, n_terr, 3)
 
-    # 3. crossing segments [H, W, K]; the fractional hit position is a
+    # 3. crossing segments [F, H, W, K]; the fractional hit position is a
     # per-pixel quantity reconstructed below
     n_seg = n_terr - 1
     crossing = (combine.terrain_crossing_segments_plain if plain
@@ -201,10 +234,10 @@ def separable_hits(pack: TerrainPack, table: Optional[RefractionTable],
     # segment ends of the terrain (elevation + normal) and ray (altitude +
     # path length) stacks; the hit's dlat/dlon re-derive per pixel from
     # (column azimuth, key·step) through the same geodesic
-    stacked = torch.cat([terr_elev[..., None], terr_normal], dim=-1)  # [W, N, 4]
-    c_lo, c_hi = combine.gather_column_pairs(stacked, ks)  # [H, W, K, 4] ×2
-    ray_stack = torch.stack([ray_h, path_len], dim=-1)  # [H, N, 2]
-    r_lo, r_hi = combine.gather_ray_pairs(ray_stack, ks)
+    stacked = torch.cat([terr_elev[..., None], terr_normal], dim=-1)  # [F, W, N, 4]
+    c_lo, c_hi = combine.gather_pairs(stacked, ks, (0, 2))  # [F, H, W, K, 4] ×2
+    ray_stack = torch.stack([ray_h, path_len], dim=-1)  # [F, H, N, 2]
+    r_lo, r_hi = combine.gather_pairs(ray_stack, ks, (0, 1))
     d1 = r_lo[..., 0] - c_lo[..., 0]
     d2 = r_hi[..., 0] - c_hi[..., 0]
     denom = d1 - d2
@@ -217,12 +250,10 @@ def separable_hits(pack: TerrainPack, table: Optional[RefractionTable],
     hit_plen = r_lo[..., 1] * (1.0 - prop) + r_hi[..., 1] * prop
     hit_dist = safe_keys * float(np.float32(step))  # dist is linear in the key
     hit_dlat, hit_dlon = model.geodesic_delta(
-        lat0, lon0, az_deg.to(torch.float32)[None, :, None], hit_dist
+        lat0, lon0, az_deg.to(torch.float32)[..., None, :, None], hit_dist
     )
 
-    h_n, w_n = elev_deg.shape[0], az_deg.shape[0]
-    rgba = torch.zeros((h_n, w_n, max_hits, 4), dtype=torch.float32,
-                       device=keys.device)
+    rgba = torch.zeros(keys.shape + (4,), dtype=torch.float32, device=keys.device)
     rgba[..., 3] = float(terrain_alpha)
     hits = HitBuffer(
         valid=valid,
@@ -233,27 +264,32 @@ def separable_hits(pack: TerrainPack, table: Optional[RefractionTable],
         elevation=hit_stack[..., 0],
         path_length=hit_plen,
         normal=hit_stack[..., 1:4],
-        kind=torch.zeros((h_n, w_n, max_hits), dtype=torch.int32, device=keys.device),
+        kind=torch.zeros(keys.shape, dtype=torch.int32, device=keys.device),
         rgba=rgba,
     )
-    if objects is None:
-        return hits
-
-    # 5. scene objects
-    overlap = max_window_overlap(obj_windows, objects.n_objects)
-    if 2 * overlap > max(obj_hit_cap, 2):
-        print(
-            f"WARNING: object metadata depth truncated: {overlap} object windows "
-            f"overlap one column (needs {2 * overlap} slots) but obj_hit_cap="
-            f"{obj_hit_cap}; hits beyond the cap are dropped from metadata "
-            "(compositing is visually saturated by then)",
-            file=sys.stderr,
-        )
-    k_out = max_hits + min(2 * overlap, max(obj_hit_cap, 2))
-    planes = apply_objects_planes(
-        hits_to_planes(hits, k_out), objects, model, lat0, step, ray_h, path_len,
-        dlat, dlon, obj_windows, k_out)
-    return planes_to_hits(*planes)
+    if objects is not None:  # 5. scene objects
+        overlap = (max_window_overlap(obj_windows, objects.n_objects)
+                   if obj_overlap is None else obj_overlap)
+        if 2 * overlap > max(obj_hit_cap, 2):
+            print(
+                f"WARNING: object metadata depth truncated: {overlap} object windows "
+                f"overlap one column (needs {2 * overlap} slots) but obj_hit_cap="
+                f"{obj_hit_cap}; hits beyond the cap are dropped from metadata "
+                "(compositing is visually saturated by then)",
+                file=sys.stderr,
+            )
+        k_out = max_hits + min(2 * overlap, max(obj_hit_cap, 2))
+        key, vals = hits_to_planes(hits, k_out)
+        # the object pass runs frame by frame (its temporaries are per frame)
+        per_frame = [apply_objects_planes(
+            (key[f], vals[:, f]), objects, model, lat0, step, ray_h[f], path_len[f],
+            dlat[f], dlon[f], obj_windows, k_out) for f in range(f_n)]
+        hits = planes_to_hits(torch.stack([k for k, _ in per_frame]),
+                              torch.stack([v for _, v in per_frame], dim=1))
+    if one_frame:
+        hits = HitBuffer(**{f.name: getattr(hits, f.name)[0]
+                            for f in dataclasses.fields(HitBuffer)})
+    return hits
 
 
 def fast_core(pack: TerrainPack, table: Optional[RefractionTable],
@@ -262,18 +298,26 @@ def fast_core(pack: TerrainPack, table: Optional[RefractionTable],
               n_terr: int, max_hits: int, lat0: float, lon0: float, coloring,
               fog_distance: Optional[float], terrain_alpha: float,
               objects: Optional[ObjectSet] = None, obj_windows=None,
-              obj_hit_cap: int = OBJ_HIT_CAP, plain: bool = False):
-    """The whole Fast pipeline on one device: (image [H, W, 3] u8, hits)."""
+              obj_hit_cap: int = OBJ_HIT_CAP, plain: bool = False,
+              obj_overlap: Optional[int] = None,
+              light_dir: Optional[torch.Tensor] = None):
+    """The whole Fast pipeline on one device: (image [H, W, 3] u8, hits), or
+    a sweep's [F, H, W, 3] with the frames of ``separable_hits``.
+    ``light_dir`` (float32 [3], or [F, 3] one a frame) overrides the
+    coloring's light (JAX ``fast_core(light_dir=)``)."""
     hits = separable_hits(
         pack, table, elev_deg, az_deg, alt0, model=model, shape=shape,
         straight=straight, step=step, n_terr=n_terr, max_hits=max_hits,
         lat0=lat0, lon0=lon0, terrain_alpha=terrain_alpha, objects=objects,
         obj_windows=obj_windows, obj_hit_cap=obj_hit_cap, plain=plain,
+        obj_overlap=obj_overlap,
     )
+    if light_dir is not None:  # broadcast over the [H, W, K] of each frame
+        light_dir = light_dir.reshape(light_dir.shape[:-1] + (1, 1, 1, 3))
     image = composite(
         coloring, fog_distance, hits.valid, hits.rgba[..., 3], hits.distance,
         hits.elevation, hits.path_length, hits.normal, hits.kind,
-        hits.rgba[..., :3],
+        hits.rgba[..., :3], light_dir,
     )
     return image, hits
 

@@ -286,9 +286,12 @@ def fused_shared_core(pack: TerrainPack, table: Optional[RefractionTable],
                       model: EarthModel, shape: EarthShape, straight: bool,
                       step: float, n_terr: int, max_hits: int, lat0: float,
                       lon0: float, coloring, fog_distance: Optional[float],
-                      terrain_alpha: float, emit=None):
+                      terrain_alpha: float, emit=None,
+                      rows: Optional[torch.Tensor] = None):
     """The whole tilt-0 Rectilinear frame on the device of ``az_deg`` [W]:
     (image [H, W, 3] u8, hits [H, W, K]). ``cam`` = (width, height, fov).
+    ``rows`` (int64 indices on that device) renders only those image rows
+    (a row shard, ``parallel.mesh``): image and hits are then [R, W, ...].
 
     The pixel elevation grid is derived on the device in float32; it does
     not depend on the view direction, so direction 0 serves.
@@ -300,6 +303,8 @@ def fused_shared_core(pack: TerrainPack, table: Optional[RefractionTable],
     width, height, fov = cam
     elev_hw, _ = camera.rectilinear_ray_params_device(width, height, fov, 0.0, 0.0,
                                                       az_deg.device)
+    if rows is not None:
+        elev_hw = elev_hw.index_select(0, rows)
     az = az_deg.to(torch.float32)
 
     # the shared per-column terrain scan (utils.rs:176-199)

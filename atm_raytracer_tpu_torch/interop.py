@@ -28,6 +28,24 @@ def table_from_arrays(h0, inv_dh, values, poly, device="cpu") -> RefractionTable
     )
 
 
+def sweep_table_from_arrays(h0, inv_dh, values, pairs, device="cpu") -> RefractionTable:
+    """A stacked sweep ``RefractionTable`` from the JAX sweep's table
+    (``parallel/mesh.py``: h0, inv_dh, values [F, n], pairs [F, n-1, 2],
+    poly None): one l(h) table a frame, no fit."""
+    values = np.asarray(values, np.float32)
+    pairs = np.asarray(pairs, np.float32)
+    if values.ndim != 2 or pairs.shape != (values.shape[0], values.shape[1] - 1, 2):
+        raise ValueError(f"values must be [F, n] and pairs [F, n-1, 2], got "
+                         f"{values.shape} and {pairs.shape}")
+    return RefractionTable(
+        h0=float(np.float32(np.asarray(h0))),
+        inv_dh=float(np.float32(np.asarray(inv_dh))),
+        values=torch.tensor(values, device=device),
+        pairs=torch.tensor(pairs, device=device),
+        poly=None,
+    )
+
+
 def pack_from_arrays(tiles, rows_m1, cols_m1, lat_min: int, lon_min: int,
                      n_rows: int, n_cols: int, device="cpu",
                      grad_bound: float = math.inf,

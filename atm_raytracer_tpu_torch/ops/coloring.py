@@ -91,9 +91,12 @@ def _elev_ramp(elev: torch.Tensor, palette: str) -> torch.Tensor:
     )
 
 
-def color_hits(params: ColoringParams, distance, elevation, normal, kind, rgb):
+def color_hits(params: ColoringParams, distance, elevation, normal, kind, rgb,
+               light_dir: Optional[torch.Tensor] = None):
     """color_for_pixel over all hit slots: [..., K] fields → [..., K, 3]
-    on the u8 grid."""
+    on the u8 grid. ``light_dir`` (float32, [3] or broadcastable against
+    ``normal``, e.g. [F, 1, 1, 1, 3] for a sweep's frames) overrides
+    ``params.light_dir`` under Shading."""
     if params.kind == "Simple":
         dist_ratio = distance / params.max_distance
         mul = 1.0 - dist_ratio * 0.6
@@ -120,7 +123,8 @@ def color_hits(params: ColoringParams, distance, elevation, normal, kind, rgb):
         return torch.where((elevation <= params.water_level)[..., None], water, land)
 
     # Shading: ambient + (1 − ambient)·max(L·N, 0)² (shading.rs:108-112)
-    light = torch.tensor(params.light_dir, dtype=torch.float32, device=normal.device)
+    light = (torch.tensor(params.light_dir, dtype=torch.float32, device=normal.device)
+             if light_dir is None else light_dir)
     light_dot = (normal * light).sum(-1).clamp(min=0.0)
     brightness = params.ambient_light + (1.0 - params.ambient_light) * light_dot ** 2
     _, _, _, water_col = _palette_colors(params.palette)

@@ -15,6 +15,10 @@ segments (``crossing_envelopes_plain`` is its plain version) and skips the
 chunks whose ray and terrain envelopes do not overlap: no segment there
 can cross.
 
+A sweep's frames ride a leading axis: ray rows [F, H, N+1] against
+terrain columns [F, W, N_t] give [F, H, W, K], frame f's rays meeting only
+frame f's columns, in one K1 launch.
+
 Path death (gen_path_cache stops one element after h < −1000,
 utils.rs:159-171): segment k of ray h participates iff no sample j < k of
 that ray is below −1000 m.
@@ -50,11 +54,11 @@ def ray_alive_mask(ray_h: torch.Tensor) -> torch.Tensor:
 
 
 def ray_death_limit(ray_h: torch.Tensor, n_seg: int) -> torch.Tensor:
-    """[H] int32 bound: segments k < limit[h] are alive — the first sample
-    below DEATH_ALTITUDE plus one, or n_seg for a ray that never dies."""
+    """[..., H] int32 bound: segments k < limit[h] are alive — the first
+    sample below DEATH_ALTITUDE plus one, or n_seg for a ray that never dies."""
     dead = ray_h < DEATH_ALTITUDE
-    first = torch.argmax(dead.to(torch.uint8), dim=1)  # first max = first dead
-    limit = torch.where(dead.any(dim=1), first + 1, torch.full_like(first, n_seg))
+    first = torch.argmax(dead.to(torch.uint8), dim=-1)  # first max = first dead
+    limit = torch.where(dead.any(dim=-1), first + 1, torch.full_like(first, n_seg))
     return limit.clamp(max=n_seg).to(torch.int32)
 
 
@@ -94,12 +98,14 @@ def merge_sorted_k(a: torch.Tensor, b: torch.Tensor, k: int) -> torch.Tensor:
 
 
 def _check_combine_args(ray_h, terr_elev, n_seg, max_hits):
-    if ray_h.ndim != 2 or terr_elev.ndim != 2:
-        raise ValueError("ray_h must be [H, N+1] and terr_elev [W, N_t]")
-    if min(ray_h.shape[1], terr_elev.shape[1]) < n_seg + 1:
+    if ray_h.ndim != terr_elev.ndim or ray_h.ndim not in (2, 3) or (
+            ray_h.ndim == 3 and ray_h.shape[0] != terr_elev.shape[0]):
+        raise ValueError("ray_h must be [H, N+1] and terr_elev [W, N_t], or both "
+                         "with one leading frame axis [F, ...]")
+    if min(ray_h.shape[-1], terr_elev.shape[-1]) < n_seg + 1:
         raise ValueError(
             f"n_seg={n_seg} needs {n_seg + 1} samples per row; got ray "
-            f"{ray_h.shape[1]}, terrain {terr_elev.shape[1]}"
+            f"{ray_h.shape[-1]}, terrain {terr_elev.shape[-1]}"
         )
     if not 1 <= max_hits <= 4:
         raise ValueError(f"max_hits must be 1..4, got {max_hits}")
@@ -112,8 +118,12 @@ def terrain_crossing_segments_plain(ray_h: torch.Tensor, terr_elev: torch.Tensor
                                     chunk: int = 0) -> torch.Tensor:
     """Plain PyTorch combine: the [H, W, C] sign-test cube one segment chunk
     at a time, folded by an integer min (K = 1) or a sorted top-K merge.
-    ``chunk`` = 0 sizes chunks to ~2^25 cube elements."""
+    ``chunk`` = 0 sizes chunks to ~2^25 cube elements. A leading frame axis
+    runs frame by frame."""
     _check_combine_args(ray_h, terr_elev, n_seg, max_hits)
+    if ray_h.ndim == 3:
+        return torch.stack([terrain_crossing_segments_plain(r, t, n_seg, max_hits, chunk)
+                            for r, t in zip(ray_h, terr_elev)])
     h_n, w_n = ray_h.shape[0], terr_elev.shape[0]
     if chunk <= 0:
         chunk = int(max(1, min(256, 2**25 // max(1, h_n * w_n))))
@@ -145,13 +155,15 @@ def terrain_crossing_segments(ray_h: torch.Tensor, terr_elev: torch.Tensor,
     """First ``max_hits`` terrain-crossing SEGMENT INDICES per pixel.
 
     Args:
-      ray_h: [H, N+1] ray altitudes at x = k*step.
-      terr_elev: [W, N_t] terrain elevations on the same x grid (N_t ≥ n_seg+1).
+      ray_h: [H, N+1] ray altitudes at x = k*step, or [F, H, N+1].
+      terr_elev: [W, N_t] terrain elevations on the same x grid (N_t ≥ n_seg+1),
+        or [F, W, N_t].
       n_seg: number of segments to test.
       max_hits: K slots, 1..4 (1 for opaque terrain).
 
-    Returns int32 [H, W, K] ascending; NO_HIT_SEG = no crossing. CPU tensors
-    run the plain version; CUDA tensors launch K1 or raise.
+    Returns int32 [(F,) H, W, K] ascending; NO_HIT_SEG = no crossing. CPU
+    tensors run the plain version; CUDA tensors launch K1 (once, whatever F
+    is) or raise.
     """
     if ray_h.device.type == "cpu":
         return terrain_crossing_segments_plain(ray_h, terr_elev, n_seg, max_hits)
@@ -181,37 +193,46 @@ def crossing_envelopes_plain(ray_h: torch.Tensor, terr_elev: torch.Tensor, n_seg
     """Plain version of K1's envelope prepass: (ray_lo, ray_hi) over tiles
     of TILE_H rays and (terr_lo, terr_hi) over tiles of TILE_W columns, each
     [tiles, ceil(n_seg/CHUNK)] float32. K1 skips chunk c of a block when
-    ray_lo > terr_hi or ray_hi < terr_lo there."""
+    ray_lo > terr_hi or ray_hi < terr_lo there. A leading frame axis gives
+    each frame its own tiles: [F, tiles, chunks]."""
+    if ray_h.ndim == 3:
+        per_frame = [crossing_envelopes_plain(r, t, n_seg) for r, t in zip(ray_h, terr_elev)]
+        return tuple(torch.stack(e) for e in zip(*per_frame))
     return (*_tile_envelope(ray_h, n_seg, TILE_H), *_tile_envelope(terr_elev, n_seg, TILE_W))
 
 
 def crossing_segments_cuda(ray_h: torch.Tensor, terr_elev: torch.Tensor,
                            n_seg: int, max_hits: int) -> torch.Tensor:
-    """Launch K1 (csrc/combine.cu) on CUDA tensors; int32 [H, W, K]."""
+    """Launch K1 (csrc/combine.cu) on CUDA tensors; int32 [(F,) H, W, K]."""
     return crossing_segments_envelopes_cuda(ray_h, terr_elev, n_seg, max_hits)[0]
 
 
 def crossing_segments_envelopes_cuda(ray_h: torch.Tensor, terr_elev: torch.Tensor,
                                      n_seg: int, max_hits: int):
     """K1's segments and the envelopes its prepass wrote (the scratch, in
-    ``crossing_envelopes_plain``'s order)."""
+    ``crossing_envelopes_plain``'s order and shapes). One launch for all the
+    frames of a leading frame axis; the one-frame call is F = 1."""
     _check_combine_args(ray_h, terr_elev, n_seg, max_hits)
+    frames = ray_h.ndim == 3
     ray = ray_h.to(torch.float32).contiguous()
     terr = terr_elev.to(torch.float32).contiguous()
-    h_n, w_n = ray.shape[0], terr.shape[0]
+    if not frames:
+        ray, terr = ray[None], terr[None]
+    f_n, h_n, w_n = ray.shape[0], ray.shape[1], terr.shape[1]
     dev = ray.device
-    out = torch.empty((h_n, w_n, max_hits), dtype=torch.int32, device=dev)
+    out = torch.empty((f_n, h_n, w_n, max_hits), dtype=torch.int32, device=dev)
     n_chunks = -(-n_seg // CHUNK)
-    env = tuple(torch.empty((-(-n // tile), n_chunks), dtype=torch.float32, device=dev)
+    env = tuple(torch.empty((f_n, -(-n // tile), n_chunks), dtype=torch.float32, device=dev)
                 for n, tile in ((h_n, TILE_H), (h_n, TILE_H), (w_n, TILE_W), (w_n, TILE_W)))
-    if h_n == 0 or w_n == 0:
-        return out, env
-    limit = ray_death_limit(ray, n_seg).contiguous()
-    _kernels.COMBINE.call(
-        ray.data_ptr(), ray.shape[1], terr.data_ptr(), terr.shape[1],
-        limit.data_ptr(), h_n, w_n, int(n_seg), int(max_hits),
-        *(e.data_ptr() for e in env), out.data_ptr(), _kernels.stream_ptr(dev),
-    )
+    if f_n and h_n and w_n:
+        limit = ray_death_limit(ray, n_seg).contiguous()  # [F, H]
+        _kernels.COMBINE.call(
+            dev, ray.data_ptr(), ray.shape[2], terr.data_ptr(), terr.shape[2],
+            limit.data_ptr(), f_n, h_n, w_n, int(n_seg), int(max_hits),
+            *(e.data_ptr() for e in env), out.data_ptr(),
+        )
+    if not frames:
+        return out[0], tuple(e[0] for e in env)
     return out, env
 
 
@@ -225,36 +246,40 @@ def crossing_prop(ray_h, terr_elev, ks):
     return d1 / torch.where(denom == 0.0, torch.ones_like(denom), denom)
 
 
-def _gather_pairs(field: torch.Tensor, row_axis: int, ki: torch.Tensor):
+def gather_pairs(field: torch.Tensor, ki: torch.Tensor, axes):
     """Both segment-end values of ``field`` rows at integer segments ``ki``.
 
-    field: [R, N(, D)]; ki: [...] int with the field row given by axis
-    ``row_axis`` of ki (0: ray rows, 1: terrain columns). Segments clamp to
-    [0, N-2]. Returns (lo, hi) shaped ki(+D).
+    field: [R_0, …, R_m, N(, D)]; ki: [...] int whose axes ``axes`` (m+1 of
+    them, in order) pick the field's leading indices: (0,) for ray rows
+    [H, N+1] at [H, W, K], (1,) for terrain columns [W, N_t] at [H, W, K],
+    (0, 1) and (0, 2) for a sweep's [F, H, N+1] and [F, W, N_t] at
+    [F, H, W, K]. Segments clamp to [0, N-2]. Returns (lo, hi) shaped ki(+D).
     """
-    n = field.shape[1]
-    shape = [1] * ki.ndim
-    shape[row_axis] = ki.shape[row_axis]
-    rows = torch.arange(ki.shape[row_axis], device=ki.device).reshape(shape)
+    n = field.shape[len(axes)]
+    index = []
+    for axis in axes:
+        shape = [1] * ki.ndim
+        shape[axis] = ki.shape[axis]
+        index.append(torch.arange(ki.shape[axis], device=ki.device).reshape(shape))
     k = ki.to(torch.int64).clamp(0, n - 2)
-    return field[rows, k], field[rows, k + 1]
+    return field[(*index, k)], field[(*index, k + 1)]
 
 
 def gather_ray_pairs(field: torch.Tensor, ki: torch.Tensor):
     """(lo, hi) of a per-ray field [H, N+1(,D)] at segments ki [H, W, K]."""
-    return _gather_pairs(field, 0, ki)
+    return gather_pairs(field, ki, (0,))
 
 
 def gather_column_pairs(field: torch.Tensor, ki: torch.Tensor):
     """(lo, hi) of a per-column field [W, N_t(,D)] at segments ki [H, W, K]."""
-    return _gather_pairs(field, 1, ki)
+    return gather_pairs(field, ki, (1,))
 
 
 def gather_ray_field(field: torch.Tensor, keys: torch.Tensor) -> torch.Tensor:
     """Lerp a per-ray field [B, N+1] at float keys [B, ...] (k + prop)."""
     k = torch.floor(keys)
     prop = keys - k
-    lo, hi = _gather_pairs(field, 0, k.to(torch.int64))
+    lo, hi = gather_ray_pairs(field, k.to(torch.int64))
     return lo * (1.0 - prop) + hi * prop
 
 
@@ -262,7 +287,7 @@ def gather_column_field(field: torch.Tensor, keys: torch.Tensor) -> torch.Tensor
     """Lerp a per-column field [W, N_t(, D)] at float keys [..., W] (k + prop)."""
     k = torch.floor(keys)
     prop = keys - k
-    lo, hi = _gather_pairs(field, 1, k.to(torch.int64))
+    lo, hi = gather_column_pairs(field, k.to(torch.int64))
     if field.ndim == 3:
         prop = prop[..., None]
     return lo * (1.0 - prop) + hi * prop

@@ -25,9 +25,11 @@ def apply_fog(color: torch.Tensor, path_length: torch.Tensor,
 
 
 def composite(coloring: ColoringParams, fog_distance: Optional[float], valid,
-              alpha, distance, elevation, path_length, normal, kind, rgb):
-    """[..., K] hit fields → the composited image [..., 3] uint8."""
-    colors = color_hits(coloring, distance, elevation, normal, kind, rgb)
+              alpha, distance, elevation, path_length, normal, kind, rgb,
+              light_dir: Optional[torch.Tensor] = None):
+    """[..., K] hit fields → the composited image [..., 3] uint8.
+    ``light_dir``: a per-frame light override (``color_hits``)."""
+    colors = color_hits(coloring, distance, elevation, normal, kind, rgb, light_dir)
     if fog_distance is not None:
         colors = apply_fog(colors, path_length, fog_distance)
         def_color = torch.from_numpy(fog_color())

@@ -55,12 +55,16 @@ FLAT = EarthShape(None)
 @dataclasses.dataclass
 class RefractionTable:
     """Uniform-grid table of l(h) on one device (f32), plus the piecewise
-    Chebyshev fit ``poly`` (host tuples) when the profile admits one."""
+    Chebyshev fit ``poly`` (host tuples) when the profile admits one.
+
+    A sweep's per-frame tables stack (``stack``) into values [F, n] and
+    pairs [F, n-1, 2] with no fit: ray b of a march then reads the table of
+    frame b // rays_per_frame."""
 
     h0: float  # f32-representable
     inv_dh: float
-    values: torch.Tensor  # [n] f32
-    pairs: torch.Tensor  # [n-1, 2] f32: (values[i], values[i+1])
+    values: torch.Tensor  # [n] f32, or [F, n] stacked
+    pairs: torch.Tensor  # [n-1, 2] f32: (values[i], values[i+1]); [F, n-1, 2] stacked
     poly: Optional[Tuple] = None  # ((h_lo, h_hi, (c0..c6)), ...)
     # poly_rows by device, built on first use (callers must not write to them)
     _rows: dict = dataclasses.field(default_factory=dict, init=False, repr=False,
@@ -90,14 +94,32 @@ class RefractionTable:
             poly=poly,
         )
 
-    def lookup(self, h: torch.Tensor) -> torch.Tensor:
+    @property
+    def stacked(self) -> bool:
+        return self.values.ndim == 2
+
+    @staticmethod
+    def stack(tables) -> "RefractionTable":
+        """Per-frame tables of one grid (h0, inv_dh) as one stacked table,
+        each cut to the shortest one's n samples; the fits are dropped."""
+        n_min = min(int(t.values.shape[0]) for t in tables)
+        return RefractionTable(
+            h0=tables[0].h0,
+            inv_dh=tables[0].inv_dh,
+            values=torch.stack([t.values[:n_min] for t in tables]),
+            pairs=torch.stack([t.pairs[: n_min - 1] for t in tables]),
+            poly=None,
+        )
+
+    def lookup(self, h: torch.Tensor, frame: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Linear interpolation of l(h); clamps outside the grid, with the
-        base index clamped to n-2 so the i+1 tap stays in bounds."""
-        n = self.values.shape[0]
+        base index clamped to n-2 so the i+1 tap stays in bounds. A stacked
+        table reads row ``frame`` (int64, shaped like ``h``)."""
+        n = self.values.shape[-1]
         t = ((h - self.h0) * self.inv_dh).clamp(0.0, float(n - 1))
         i = torch.clamp(torch.floor(t).to(torch.int64), max=n - 2)
         f = t - i.to(t.dtype)
-        row = self.pairs[i]  # [..., 2]
+        row = self.pairs[i] if frame is None else self.pairs[frame, i]  # [..., 2]
         return row[..., 0] * (1.0 - f) + row[..., 1] * f
 
     def poly_rows(self) -> torch.Tensor:
@@ -193,8 +215,8 @@ def eval_l_poly(poly: Tuple, h: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def _eval_l(table: RefractionTable, h: torch.Tensor) -> torch.Tensor:
-    return eval_l_poly(table.poly, h) if table.poly is not None else table.lookup(h)
+def _eval_l(table: RefractionTable, h: torch.Tensor, frame=None) -> torch.Tensor:
+    return eval_l_poly(table.poly, h) if table.poly is not None else table.lookup(h, frame)
 
 
 def _acceleration(h, v, l, radius: Optional[float]):
@@ -209,17 +231,18 @@ def _acceleration(h, v, l, radius: Optional[float]):
     return geom if l is None else l * (u * u + v * v) + geom
 
 
-def _rk4_stages(h, v, dx: float, table: Optional[RefractionTable], radius):
+def _rk4_stages(h, v, dx: float, table: Optional[RefractionTable], radius, frame=None):
     """The four RK4 stages (k·h, k·v) of one step; l(h) at stage heights
     predicted from the carried slope (h, h + dx/2·v, h + dx·v), l2 serving
-    both k2 and k3. ``table`` None integrates without refraction."""
+    both k2 and k3. ``table`` None integrates without refraction; a stacked
+    table is read at each ray's ``frame``."""
     half = _f32(np.float32(0.5) * np.float32(dx))
     if table is None:
         l1 = l2 = l4 = None
     else:
-        l1 = _eval_l(table, h)
-        l2 = _eval_l(table, h + half * v)
-        l4 = _eval_l(table, h + dx * v)
+        l1 = _eval_l(table, h, frame)
+        l2 = _eval_l(table, h + half * v, frame)
+        l4 = _eval_l(table, h + dx * v, frame)
     k1v = _acceleration(h, v, l1, radius)
     k1h = v
     k2h = v + half * k1v
@@ -238,9 +261,9 @@ def _rk4_combine(x, ks, dx: float):
     return x + sixth * (k1 + 2.0 * k2 + 2.0 * k3 + k4)
 
 
-def _rk4_step(h, v, dx: float, table: Optional[RefractionTable], radius):
+def _rk4_step(h, v, dx: float, table: Optional[RefractionTable], radius, frame=None):
     """One classic RK4 step of (h, h')."""
-    kh, kv = _rk4_stages(h, v, dx, table, radius)
+    kh, kv = _rk4_stages(h, v, dx, table, radius, frame)
     return _rk4_combine(h, kh, dx), _rk4_combine(v, kv, dx)
 
 
@@ -437,14 +460,34 @@ def march_scan(alt, elev_rad: torch.Tensor, step: float, n_steps: int,
     return user
 
 
+def _check_frames(table: RefractionTable, b: int, rays_per_frame: Optional[int]) -> None:
+    """A stacked table must hold a table for every frame of ``b`` rays."""
+    if not rays_per_frame or -(-b // rays_per_frame) > table.values.shape[0]:
+        raise ValueError(f"a stacked table of {table.values.shape[0]} frames needs "
+                         f"rays_per_frame for {b} rays, got {rays_per_frame}")
+
+
+def _ray_frames(table: Optional[RefractionTable], b: int,
+                rays_per_frame: Optional[int], device) -> Optional[torch.Tensor]:
+    """Each ray's frame, b // rays_per_frame, for a stacked table (int64
+    [B]); None for a table shared by every ray."""
+    if table is None or not table.stacked:
+        return None
+    _check_frames(table, b, rays_per_frame)
+    return torch.arange(b, device=device) // int(rays_per_frame)
+
+
 def march_nodes_plain(alt, v0, dx: float, n_coarse: int,
-                      table: RefractionTable, radius: Optional[float]):
-    """Plain PyTorch coarse node loop: (h, v) nodes [n_coarse+1, B] f32."""
+                      table: RefractionTable, radius: Optional[float],
+                      rays_per_frame: Optional[int] = None):
+    """Plain PyTorch coarse node loop: (h, v) nodes [n_coarse+1, B] f32.
+    A stacked table gives ray b the l(h) of frame b // ``rays_per_frame``."""
+    frame = _ray_frames(table, alt.shape[0], rays_per_frame, alt.device)
     hs = [alt]
     vs = [v0]
     h, v = alt, v0
     for _ in range(n_coarse):
-        h, v = _rk4_step(h, v, dx, table, radius)
+        h, v = _rk4_step(h, v, dx, table, radius, frame)
         hs.append(h)
         vs.append(v)
     return torch.stack(hs), torch.stack(vs)
@@ -484,13 +527,16 @@ def march_cuda(alt: torch.Tensor, v0: torch.Tensor, dx: float, n_coarse: int,
                table: RefractionTable, radius: Optional[float], *,
                fine: Optional[Tuple[float, int, int]] = None, nodes: bool = True,
                rays_per_cta: Optional[int] = None,
-               clocks: Optional[torch.Tensor] = None):
+               clocks: Optional[torch.Tensor] = None,
+               rays_per_frame: Optional[int] = None):
     """Launch K2 (csrc/march.cu) on CUDA tensors: (h, p, node_h, node_v).
 
     ``fine`` = (step, coarse, n_steps) with dx = _f32(step·coarse) writes
     the fine altitudes and path lengths h, p [B, n_steps+1] (else None);
     ``nodes`` writes the nodes (h, v) [n_coarse+1, B] (else None). l(h)
-    comes from ``table.poly`` when it exists, else from the table itself.
+    comes from ``table.poly`` when it exists, else from the table itself;
+    a stacked table gives ray b the table of frame b // ``rays_per_frame``
+    (the kernel's table stride).
     ``rays_per_cta`` (1..32) defaults to ``default_rays_per_cta(B)``.
     ``clocks`` (int64 [n_coarse + 1 + 2·CTAs] on the device, CTAs =
     ceil(B / rays_per_cta)) receives the clock64() stamps of CTA 0's steps,
@@ -506,6 +552,11 @@ def march_cuda(alt: torch.Tensor, v0: torch.Tensor, dx: float, n_coarse: int,
         raise ValueError("march_cuda: nothing to write")
     b = alt.shape[0]
     dev = alt.device
+    if table.stacked:
+        _check_frames(table, b, rays_per_frame)
+        table_stride = int(table.pairs.shape[1])  # float2 rows a frame
+    else:
+        table_stride, rays_per_frame = 0, 1
     rays_per_cta = int(rays_per_cta or default_rays_per_cta(b, dev))
     if clocks is not None and (
             clocks.dtype != torch.int64 or clocks.device != dev
@@ -529,6 +580,8 @@ def march_cuda(alt: torch.Tensor, v0: torch.Tensor, dx: float, n_coarse: int,
     # without a fit the kernel reads the table; the poly pointer is unused
     poly = table.poly_rows() if table.poly is not None else pairs
     n_poly = len(table.poly) if table.poly is not None else 0
+    if n_poly and table_stride:
+        raise ValueError("march_cuda: a stacked table has no fit")
     inv_r = 0.0 if radius is None else _f32(1.0 / radius)
     fstep = _f32(step)
 
@@ -536,12 +589,12 @@ def march_cuda(alt: torch.Tensor, v0: torch.Tensor, dx: float, n_coarse: int,
         return None if t is None else t.data_ptr()
 
     _kernels.MARCH.call(
-        alt.data_ptr(), v0.data_ptr(), b, _f32(dx), int(n_coarse), int(coarse), n_out,
-        poly.data_ptr(), n_poly, pairs.data_ptr(), int(table.values.shape[0]),
-        table.h0, table.inv_dh, inv_r, 0.0 if radius is None else _f32(radius),
-        0 if radius is None else 1, fstep, _f32(np.float32(fstep) * np.float32(fstep)),
+        dev, alt.data_ptr(), v0.data_ptr(), b, _f32(dx), int(n_coarse), int(coarse), n_out,
+        poly.data_ptr(), n_poly, pairs.data_ptr(), int(table.values.shape[-1]),
+        table_stride, int(rays_per_frame), table.h0, table.inv_dh, inv_r,
+        0.0 if radius is None else _f32(radius), 0 if radius is None else 1, fstep, _f32(np.float32(fstep) * np.float32(fstep)),
         ptr(basis), ptr(out_h), ptr(out_p), ptr(node_h), ptr(node_v), ptr(clocks),
-        rays_per_cta, _kernels.stream_ptr(dev),
+        rays_per_cta,
     )
     return out_h, out_p, node_h, node_v
 
@@ -584,6 +637,7 @@ def march_rays(
     straight: bool,
     coarse: int = 1,
     plain: bool = False,
+    rays_per_frame: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """March a batch of rays N fixed steps: ([B, N+1] h, [B, N+1] path length).
 
@@ -592,7 +646,9 @@ def march_rays(
     grid by cubic Hermite dense output. On CUDA tensors the nodes, the fill
     and the path lengths are one launch of K2 (``march_cuda``); CPU tensors,
     or ``plain`` on any device (the kernel's oracle on the card), run
-    ``march_nodes_plain``, ``hermite_fill`` and ``_finish_march``.
+    ``march_nodes_plain``, ``hermite_fill`` and ``_finish_march``. With a
+    stacked ``table`` (a sweep's per-frame atmospheres) ray b takes the
+    l(h) of frame b // ``rays_per_frame``.
     """
     elev_rad = elev_rad.to(torch.float32)
     if isinstance(alt, torch.Tensor):
@@ -611,13 +667,15 @@ def march_rays(
     n_coarse = -(-n_steps // coarse)
     dx = _f32(step * coarse)
     if plain or alt.device.type == "cpu":
-        h_nodes, v_nodes = march_nodes_plain(alt, v0, dx, n_coarse, table, radius)
+        h_nodes, v_nodes = march_nodes_plain(alt, v0, dx, n_coarse, table, radius,
+                                             rays_per_frame)
         h_fine = hermite_fill(h_nodes, v_nodes, dx, coarse, n_steps)
         return _finish_march(h_fine, step, radius)
     if alt.device.type != "cuda":
         raise ValueError(f"march_rays: unsupported device {alt.device}")
     h, p, _, _ = march_cuda(alt, v0, dx, n_coarse, table, radius,
-                            fine=(step, coarse, n_steps), nodes=False)
+                            fine=(step, coarse, n_steps), nodes=False,
+                            rays_per_frame=rays_per_frame)
     return h, p
 
 

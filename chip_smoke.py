@@ -15,7 +15,8 @@ nothing of JAX. Phases, each printed as it ends; any failure exits non-zero
 before the result line:
 
 1. device   — the card's name, and its power limit from nvidia-smi;
-2. build    — both CUDA kernels built from ``atm_raytracer_tpu_torch/csrc``;
+2. build    — both CUDA kernels built from ``atm_raytracer_tpu_torch/csrc``,
+              one nvcc each, started together;
 3. kernels  — each kernel against its plain PyTorch version on the card:
               K1 (combine) segments equal on ragged random fans, K = 1 and 4,
               on the path-death and deep-terrain cases, on two fans where
@@ -115,14 +116,32 @@ before the result line:
               memory, stage times of one chunk, object pixels against the
               Fast render; (d) at 192x108, each generator card against CPU
               (validity flips) and the golden object scene tilted 1 degree
-              (the dense path, through K2) card against CPU.
+              (the dense path, through K2) card against CPU;
+11. sweep   — the BASELINE sweep (bench.py:405-410): 8 frames of 1280x720,
+              fov 45, 100 km in 50 m steps, directions 0..315, through
+              ``parallel.mesh.render_sweep_sharded`` on one card: one K2 and
+              one K1 launch (counted), the median wall of 5 after a warm-up
+              with the frames on the host, frames per second, device busy
+              time and idle share, peak memory; every frame equal to
+              ``render_fast`` of it; K1's segments and envelopes equal to the
+              plain ones and K2 held to the phase-3 contract on the sweep's
+              own inputs, both timed beside their bounds; then a sweep with
+              every frame its own atmosphere (US-76 and an inversion in
+              turn), altitude, tilt and fov: one launch each, K2 reading a
+              table a frame, held to the same contract;
+12. multi-device — the modes of ``parallel.mesh`` over ``[cuda:0,
+              cuda:0]``: Fast and Interpolating at the 1080p headline,
+              Rectilinear at 192x108 at tilt 0 and 1 degree, each equal to
+              its one-device render; ``dryrun_multichip(4, "cuda")``.
 
 The verify tolerance (the JAX package's bench.py verify): at most 1 % of
 pixels differ by more than 2 counts and at most 5 % differ at all.
 
 Output: the kernels line ``{"kernels": [...]}`` (``launches`` summed over
-the counted main-path renders — Fast, Interpolating and the three object
-frames — with the split in ``launches_by_path``) and, last, the result line
+the counted main-path renders — Fast, Interpolating, the three object
+frames and the sweep — with the split in ``launches_by_path``; each
+kernel's numbers at the Interpolating grid and at the sweep's shapes in
+``at_interpolating_grid`` and ``at_sweep``) and, last, the result line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
@@ -227,13 +246,18 @@ def phase_device():
 
 
 def phase_build():
+    """Both kernels built at once (one nvcc each, started together)."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from atm_raytracer_tpu_torch import _kernels
 
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(_kernels.KERNELS)) as pool:
+        list(pool.map(lambda k: k.build(), _kernels.KERNELS))
+    say(f"[build] both kernels in {time.perf_counter() - t0:.2f} s")
     for k in _kernels.KERNELS:
-        t0 = time.perf_counter()
         k.function()
-        took = time.perf_counter() - t0
-        say(f"[build] {k.source}: {took:.2f} s (nvcc {k.build_seconds} s)")
+        say(f"[build] {k.source}: nvcc {k.build_seconds} s")
         for line in k.build_log.splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 say(f"[build]   {line.strip()}")
@@ -728,36 +752,38 @@ def bound(n_bytes: float, n_ops: float):
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
-def k1_bound(h_n: int, w_n: int, n_seg: int, tests: int):
-    """K1's bound at K = 1: each ray and terrain sample read once, the
-    segments and the death limits written or read once; the sign tests run
-    (3 operations each) and the envelopes' min and max."""
-    n_bytes = 4 * ((h_n + w_n) * (n_seg + 1) + h_n * w_n + h_n)
-    n_ops = 3 * tests + 2 * (h_n + w_n) * (n_seg + 1)
+def k1_bound(h_n: int, w_n: int, n_seg: int, tests: int, frames: int = 1):
+    """K1's bound at K = 1 over ``frames`` frames of [h_n, w_n]: each ray
+    and terrain sample read once, the segments and the death limits written
+    or read once; the sign tests run (3 operations each) and the envelopes'
+    min and max."""
+    n_bytes = 4 * frames * ((h_n + w_n) * (n_seg + 1) + h_n * w_n + h_n)
+    n_ops = 3 * tests + 2 * frames * (h_n + w_n) * (n_seg + 1)
     return (*bound(n_bytes, n_ops), n_bytes, n_ops)
 
 
 def k2_bound(n_rays: int, n: int, coarse: int, table):
     """K2's bound for ``n_rays`` rays of ``n`` steps: the altitudes and
-    slopes in, the fit rows and the Hermite basis, the [B, N+1] h and p
-    out; the operations of ``k2_ops``."""
+    slopes in, the fit rows (or the tables, every frame's) and the Hermite
+    basis, the [B, N+1] h and p out; the operations of ``k2_ops``."""
     n_coarse = -(-n // coarse)
-    n_bytes = 4 * (2 * n_rays + 10 * len(table.poly) + 4 * (coarse + 1)
-                   + 2 * n_rays * (n + 1))
-    n_ops = k2_ops(n_rays, n_coarse, n + 1)
+    l_floats = 10 * len(table.poly) if table.poly is not None else table.pairs.numel()
+    n_bytes = 4 * (2 * n_rays + l_floats + 4 * (coarse + 1) + 2 * n_rays * (n + 1))
+    n_ops = k2_ops(n_rays, n_coarse, n + 1, poly=table.poly is not None)
     return (*bound(n_bytes, n_ops), n_bytes, n_ops)
 
 
-def k2_ops(n_rays: int, n_coarse: int, n_samples: int) -> int:
-    """Operations of csrc/march.cu with the Chebyshev l(h) on the sphere,
-    counted from the source (each +, -, *, /, sqrt, min, max, compare,
-    select one). A step: three eval_l of 45 (clamp 2, the search over the
-    register lows 7 compares + 7 adds, t 6, Clenshaw 1 + 6 x 3, last 3, the
-    NaN select 1), four accel of 11, 4 for the stage heights of l2 and l4,
-    12 for the stage slopes and heights, 14 for the update of h and v: 209.
-    A fine sample: the Hermite 7, the chord 10, its add to the prefix sum 1:
-    18."""
-    return n_rays * (n_coarse * 209 + n_samples * 18)
+def k2_ops(n_rays: int, n_coarse: int, n_samples: int, poly: bool = True) -> int:
+    """Operations of csrc/march.cu on the sphere, counted from the source
+    (each +, -, *, /, sqrt, min, max, compare, select, conversion one). A
+    step: three eval_l, of 45 with the Chebyshev l(h) (clamp 2, the search
+    over the register lows 7 compares + 7 adds, t 6, Clenshaw 1 + 6 x 3, last
+    3, the NaN select 1) or 13 with the table (t 2, clamp 2, floor 1,
+    conversion 1, min 1, the fraction 2, the lerp 4); four accel of 11, 4 for
+    the stage heights of l2 and l4, 12 for the stage slopes and heights, 14
+    for the update of h and v: 209 (table: 113). A fine sample: the Hermite
+    7, the chord 10, its add to the prefix sum 1: 18."""
+    return n_rays * (n_coarse * (209 if poly else 113) + n_samples * 18)
 
 
 # The critical path of one K2 step (sphere, Chebyshev l(h) with <= 8
@@ -799,13 +825,15 @@ def k2_clocks(dev, alt, v0, dx, n_coarse, table, radius, fine=None):
             float(cta[0, 1] - cta[0, 0]), float(cta[:, 0].max() - cta[:, 0].min()))
 
 
-def k2_rows_check(table, elev_deg, alt0, shape, step, n_terr, tag):
+def k2_rows_check(table, elev_deg, alt0, shape, step, n_terr, tag, rays_per_frame=None):
     """K2's contract on the main path's call (``march_rows``) at its own
     shapes: the launch's nodes within K2_ATOL of ``march_nodes_plain``, its
     fine h ``torch.equal`` to the PyTorch Hermite fill of its own nodes, its
     p within rtol 1e-6 / atol 1e-3 m of ``_finish_march``'s, and its h
-    within K2_ATOL of the plain ``march_rows``. Returns (march_rows' h, the
-    march inputs, max |dh| and |dp| vs plain, max node |dh|, p ulp)."""
+    within K2_ATOL of the plain ``march_rows``. ``alt0`` is a scalar or one
+    altitude a ray; a stacked ``table`` (a sweep's) is read with
+    ``rays_per_frame``. Returns (march_rows' h, the march inputs, max |dh|
+    and |dp| vs plain, max node |dh|, p ulp)."""
     import torch
 
     from atm_raytracer_tpu_torch.generators import fast
@@ -816,15 +844,16 @@ def k2_rows_check(table, elev_deg, alt0, shape, step, n_terr, tag):
     coarse = R.march_coarse(step)
     n_coarse = -(-n // coarse)
     dx = R._f32(step * coarse)
-    alt = torch.full_like(elev_deg, alt0)
+    alt = alt0 if isinstance(alt0, torch.Tensor) else torch.full_like(elev_deg, alt0)
     v0 = R.initial_slope(alt, torch.deg2rad(elev_deg), shape)
     fine = (step, coarse, n)
-    h, p = fast.march_rows(table, elev_deg, alt0, shape=shape, straight=False, step=step,
-                           n_terr=n_terr)
-    hp, pp = fast.march_rows(table, elev_deg, alt0, shape=shape, straight=False, step=step,
-                             n_terr=n_terr, plain=True)
-    _, _, nh, nv = R.march_cuda(alt, v0, dx, n_coarse, table, radius, fine=fine)
-    nh_p, _ = R.march_nodes_plain(alt, v0, dx, n_coarse, table, radius)
+    rows_kw = dict(shape=shape, straight=False, step=step, n_terr=n_terr,
+                   rays_per_frame=rays_per_frame)
+    h, p = fast.march_rows(table, elev_deg, alt0, **rows_kw)
+    hp, pp = fast.march_rows(table, elev_deg, alt0, plain=True, **rows_kw)
+    _, _, nh, nv = R.march_cuda(alt, v0, dx, n_coarse, table, radius, fine=fine,
+                                rays_per_frame=rays_per_frame)
+    nh_p, _ = R.march_nodes_plain(alt, v0, dx, n_coarse, table, radius, rays_per_frame)
     h_t, p_t = R._finish_march(R.hermite_fill(nh, nv, dx, coarse, n), step, radius)
     torch.cuda.synchronize()
     node_err = float((nh - nh_p).abs().max())
@@ -2101,6 +2130,232 @@ def phase_objects(dev, terrain, size=(1920, 1080), max_distance=200_000.0,
     return launches
 
 
+# The BASELINE sweep (bench.py:405-410): 8 frames of 1280x720, fov 45, 100 km
+# in 50 m steps, directions 0 ... 315 degrees, from the headline's observer
+SWEEP_DIRS = tuple(45.0 * i for i in range(8))
+SWEEP_SIZE = (1280, 720)
+SWEEP_DISTANCE = 100_000.0
+
+
+def sweep_config(direction=45.0):
+    config = headline_config(*SWEEP_SIZE, max_distance=SWEEP_DISTANCE, fov=45.0)
+    config.view.frame.direction = direction
+    return config
+
+
+def phase_sweep(dev, terrain, renders=5):
+    """11. the batched sweep: one K2 and one K1 launch for 8 frames, the
+    wall, the device's idle share, the peak memory, each frame against its
+    single render, both kernels at the sweep's shapes against their plain
+    versions and bounds; then a sweep with every frame its own atmosphere,
+    altitude, tilt and fov (K2 reading a table a frame). Returns (the
+    counted sweep's launches, each kernel's numbers at the sweep's shapes)."""
+    import numpy as np
+    import torch
+
+    from atm_raytracer_tpu_torch.generators import fast
+    from atm_raytracer_tpu_torch.models import camera
+    from atm_raytracer_tpu_torch.ops import combine
+    from atm_raytracer_tpu_torch.parallel import mesh as M
+    from atm_raytracer_tpu_torch.physics import ray as R
+    from atm_raytracer_tpu_torch.physics.atmosphere import AtmosphereDef, LinearFunction, us_76
+
+    t_phase = time.perf_counter()
+    params = sweep_config().into_params(terrain)
+    out, frame, pos = params.output, params.view.frame, params.view.position
+    w_n, h_n, f_n = out.width, out.height, len(SWEEP_DIRS)
+    one = M.make_mesh([dev])
+
+    def sweep(**kw):
+        frames = M.render_sweep_sharded(params, terrain, one, SWEEP_DIRS, **kw)
+        torch.cuda.synchronize()
+        return frames
+
+    # (a) the main path, counted; this first sweep is also the warm-up
+    reset_launches()
+    t0 = time.perf_counter()
+    frames = sweep()
+    first = time.perf_counter() - t0
+    launches = kernel_launches()
+    check(launches == {"combine.cu": 1, "march.cu": 1},
+          f"sweep: launches {launches}, want one of each kernel for {f_n} frames")
+    check(frames.shape == (f_n, h_n, w_n, 3), f"sweep frames {frames.shape}")
+    walls = []
+    for _ in range(renders):
+        t0 = time.perf_counter()
+        sweep()
+        walls.append(time.perf_counter() - t0)
+    med = statistics.median(walls)
+    say(f"[sweep] {f_n} frames of {w_n}x{h_n}, fov 45, {SWEEP_DISTANCE / 1e3:.0f} km in 50 m "
+        f"steps, directions {SWEEP_DIRS[0]:.0f}..{SWEEP_DIRS[-1]:.0f}: launches {launches}; "
+        f"first sweep {first:.3f} s; wall median {med * 1e3:.3f} ms of {renders} (min "
+        f"{min(walls) * 1e3:.3f}, max {max(walls) * 1e3:.3f}), frames on the host: "
+        f"{f_n / med:.2f} frames/s")
+    busy_ms, n_rec, by_name = trace_busy_ms(sweep, "sweep")
+    say(f"[sweep] device busy {busy_ms:.3f} ms a sweep ({n_rec} device records, one "
+        f"sweep traced); idle share of the median wall {1.0 - busy_ms / (med * 1e3):.4f}")
+    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]:
+        say(f"[sweep]   {ms:9.3f} ms  {name[:90]}")
+    torch.cuda.reset_peak_memory_stats(dev)
+    sweep()
+    say(f"[sweep] peak device memory of one sweep: "
+        f"{torch.cuda.max_memory_allocated(dev) / 2**20:.1f} MiB")
+
+    # every frame against render_fast of that frame on the card
+    moved = []
+    for f, d in enumerate(SWEEP_DIRS):
+        single = fast.render_fast(sweep_config(d).into_params(terrain), terrain, dev).image
+        moved.append(int((frames[f] != single).any(-1).sum()))
+    check(sum(moved) == 0, f"sweep frames vs single renders: pixels moved {moved}")
+    say(f"[sweep] each frame vs render_fast of it on the card: pixels moved {moved}")
+
+    # both kernels on the sweep's own inputs, as separable_hits builds them
+    alt0 = float(pos.abs_altitude(terrain))
+    step, n_terr = float(params.simulation_step), int(math.ceil(SWEEP_DISTANCE / 50.0))
+    n_seg = n_terr - 1
+    shape = params.model.to_shape()
+    table = fast.build_refraction_table(params, alt0, dev)
+    pack = terrain.pack(*fast.terrain_bbox(params), dev)
+    elev = camera.fast_ray_elevations(w_n, h_n, frame.fov, frame.tilt).astype(np.float32)
+    az_rel = camera.fast_ray_azimuths(w_n, h_n, frame.fov, 0.0).astype(np.float32)
+    az = np.float32(SWEEP_DIRS)[:, None] + az_rel[None, :]
+    elev_rows = torch.from_numpy(np.tile(elev, f_n)).to(dev)
+    alt_rows = torch.full_like(elev_rows, alt0)
+    ray_h, _, k2_err, k2_p_err, k2_node_err, k2_p_ulp = k2_rows_check(
+        table, elev_rows, alt_rows, shape, step, n_terr, "sweep", rays_per_frame=h_n)
+    ray3 = ray_h.reshape(f_n, h_n, n_terr)
+    terr3 = fast.terrain_columns(pack, params.model, torch.from_numpy(az.reshape(-1)).to(dev),
+                                 LAT0, LON0, step, n_terr)[0].reshape(f_n, w_n, n_terr)
+    segs_k, env_k = combine.crossing_segments_envelopes_cuda(ray3, terr3, n_seg, 1)
+    segs_p = combine.terrain_crossing_segments_plain(ray3, terr3, n_seg, 1)
+    env_p = combine.crossing_envelopes_plain(ray3, terr3, n_seg)
+    check(torch.equal(segs_k, segs_p), "sweep: K1's segments differ from the plain ones")
+    check(all(torch.equal(a, b) for a, b in zip(env_k, env_p)),
+          "sweep: K1's envelopes differ from crossing_envelopes_plain")
+    limit = combine.ray_death_limit(ray3, n_seg)
+    tests = sum(k1_work(segs_p[f], limit[f], tuple(e[f] for e in env_p), n_seg)["tests"]
+                for f in range(f_n))
+    k1_ms = cuda_ms(lambda: combine.crossing_segments_cuda(ray3, terr3, n_seg, 1), 10)
+    k1_plain = cuda_ms(lambda: combine.terrain_crossing_segments_plain(
+        ray3, terr3, n_seg, 1), 1)
+    k1_b, k1_by, k1_bytes, k1_ops = k1_bound(h_n, w_n, n_seg, tests, frames=f_n)
+    rows_kw = dict(shape=shape, straight=False, step=step, n_terr=n_terr, rays_per_frame=h_n)
+    k2_ms = cuda_ms(lambda: fast.march_rows(table, elev_rows, alt_rows, **rows_kw), 10)
+    k2_plain = cuda_ms(lambda: fast.march_rows(table, elev_rows, alt_rows, plain=True,
+                                               **rows_kw), 1)
+    k2_b, k2_by, k2_bytes, k2_ops_n = k2_bound(f_n * h_n, n_seg, R.march_coarse(step), table)
+    say(f"[sweep] K1 (one launch over [{f_n}, {h_n}, {w_n}] x {n_seg}): segments and "
+        f"envelopes equal to plain ({int((segs_p < n_seg).sum())} hits); {k1_ms:.4f} ms vs "
+        f"plain {k1_plain:.3f} ms; tests in live chunks {tests}; bound {k1_b:.4f} ms by "
+        f"{k1_by} ({k1_bytes} B, {k1_ops} operations): {100.0 * k1_b / k1_ms:.1f} % of the "
+        f"bound")
+    say(f"[sweep] K2 (one launch, {f_n * h_n} rays x {n_seg} steps, shared fit): {k2_ms:.4f} "
+        f"ms vs plain {k2_plain:.3f} ms; h max |dh| {k2_err:.3g} m, nodes {k2_node_err:.3g} "
+        f"m (limit {K2_ATOL}), h == Hermite fill of its nodes, p {k2_p_err:.3g} m vs plain "
+        f"and {k2_p_ulp:.1f} ulp vs its own h; bound {k2_b:.4f} ms by {k2_by} ({k2_bytes} B, "
+        f"{k2_ops_n} operations): {100.0 * k2_b / k2_ms:.1f} % of the bound")
+    del ray_h, ray3, terr3, segs_k, segs_p, env_k, env_p
+
+    # (b) every frame its own atmosphere, altitude, tilt and fov: US-76 and
+    # tests/test_parallel.py:129-136's inversion in turn, +0 ... +700 m,
+    # -2 ... +2 degrees, fov 20 ... 45
+    inversion = AtmosphereDef(first_temperature_function=LinearFunction(0.02),
+                              temperature_fixed_point=(0.0, 283.15))
+    atms = [us_76(), inversion] * (f_n // 2)
+    alts = [alt0 + 100.0 * i for i in range(f_n)]
+    tilts = [float(x) for x in np.linspace(-2.0, 2.0, f_n)]
+    fovs = [float(x) for x in np.linspace(20.0, 45.0, f_n)]
+    varied = dict(altitudes_m=alts, atmospheres=atms, tilts_deg=tilts, fovs_deg=fovs)
+    reset_launches()
+    t0 = time.perf_counter()
+    frames_v = sweep(**varied)
+    first_v = time.perf_counter() - t0
+    launches_v = kernel_launches()
+    check(launches_v == {"combine.cu": 1, "march.cu": 1},
+          f"varied sweep: launches {launches_v}, want one of each kernel")
+    t0 = time.perf_counter()
+    again = sweep(**varied)
+    wall_v = time.perf_counter() - t0
+    check(np.array_equal(again, frames_v), "varied sweep: two runs differ")
+    check(all((frames_v[f] != frames_v[f + 1]).any() for f in range(f_n - 1)),
+          "varied sweep: neighbouring frames alike")
+    alt_max = float(np.float32(alts).max())
+    tables = [fast.build_refraction_table(params, alt_max, dev, a) for a in atms]
+    stacked = R.RefractionTable.stack(tables)
+    elev_v = np.stack([camera.fast_ray_elevations(w_n, h_n, fv, t) for fv, t in
+                       zip(np.float32(fovs), np.float32(tilts))]).astype(np.float32)
+    alt_v = torch.from_numpy(np.repeat(np.float32(alts), h_n)).to(dev)
+    _, _, v_err, v_p_err, v_node_err, v_ulp = k2_rows_check(
+        stacked, torch.from_numpy(elev_v.reshape(-1)).to(dev), alt_v, shape, step, n_terr,
+        "per-frame tables", rays_per_frame=h_n)
+    v_ms = cuda_ms(lambda: fast.march_rows(stacked, torch.from_numpy(elev_v.reshape(-1)).to(
+        dev), alt_v, **rows_kw), 10)
+    v_b, v_by, _, _ = k2_bound(f_n * h_n, n_seg, R.march_coarse(step), stacked)
+    say(f"[sweep] varied (atmospheres alternating US-76 and an inversion, +0..+"
+        f"{alts[-1] - alt0:.0f} m, tilt {tilts[0]:.1f}..{tilts[-1]:.1f}, fov "
+        f"{fovs[0]:.0f}..{fovs[-1]:.0f}): launches {launches_v}; wall {wall_v * 1e3:.3f} ms "
+        f"after a {first_v:.3f} s first sweep; K2 reading {stacked.values.shape[0]} tables of "
+        f"{stacked.values.shape[1]} by stride: {v_ms:.4f} ms (bound {v_b:.4f} ms by {v_by}), "
+        f"h max |dh| {v_err:.3g} m vs plain, nodes {v_node_err:.3g} m, h == Hermite fill of "
+        f"its nodes, p {v_p_err:.3g} m and {v_ulp:.1f} ulp")
+    say(f"[sweep] phase wall {time.perf_counter() - t_phase:.1f} s")
+    at_sweep = {
+        "combine.cu": {"shape": f"[{f_n}, {h_n}, {w_n}] x {n_seg}", "ms": k1_ms,
+                       "plain_ms": k1_plain, "bound_ms": k1_b, "bound_by": k1_by,
+                       "tests": tests},
+        "march.cu": {"shape": f"{f_n * h_n} rays x {n_seg}", "ms": k2_ms, "plain_ms": k2_plain,
+                     "bound_ms": k2_b, "bound_by": k2_by, "max_abs_err": k2_err,
+                     "per_frame_tables_ms": v_ms, "per_frame_tables_bound_ms": v_b},
+        "wall_ms": med * 1e3, "frames_per_s": f_n / med, "busy_ms": busy_ms,
+    }
+    return launches, at_sweep
+
+
+def phase_multi_device(dev, terrain, params, small=(192, 108), small_distance=200_000.0):
+    """12. the multi-device modes over ``[dev, dev]``: each equal to its
+    one-device render (image, hit mask, keys): Fast and Interpolating at the
+    1080p headline (``params``), Rectilinear at ``small`` at tilt 0 (rows
+    split) and 1 degree (pixels split; the one-device dense render), then
+    ``dryrun_multichip(4, dev)``."""
+    import torch
+
+    from atm_raytracer_tpu_torch.generators.fast import render_fast
+    from atm_raytracer_tpu_torch.generators.interpolating import render_interpolating
+    from atm_raytracer_tpu_torch.generators.rectilinear import render_rectilinear
+    from atm_raytracer_tpu_torch.parallel import mesh as M
+
+    t_phase = time.perf_counter()
+    two = M.make_mesh([dev, dev])
+    small_params = {t: headline_params(*small, max_distance=small_distance, tilt=t)
+                    for t in (0.0, 1.0)}
+    size = f"{params.output.width}x{params.output.height}"
+    cases = [
+        (f"Fast {size}", M.render_fast_sharded, render_fast, params),
+        (f"Interpolating {size}", M.render_interpolating_sharded, render_interpolating,
+         params),
+        (f"Rectilinear {small[0]}x{small[1]} tilt 0 (rows split)",
+         M.render_rectilinear_sharded, render_rectilinear, small_params[0.0]),
+        (f"Rectilinear {small[0]}x{small[1]} tilt 1 (pixels split)",
+         M.render_rectilinear_sharded,
+         lambda p, t, d: render_rectilinear(p, t, d, cull=False), small_params[1.0]),
+    ]
+    for name, split, single, p in cases:
+        t0 = time.perf_counter()
+        got = split(p, terrain, two)
+        torch.cuda.synchronize()
+        took = time.perf_counter() - t0
+        want = single(p, terrain, dev)
+        moved = int((got.image != want.image).any(-1).sum())
+        check(moved == 0 and torch.equal(got.hits.valid, want.hits.valid)
+              and torch.equal(got.hits.key, want.hits.key),
+              f"{name} over [{dev}, {dev}]: {moved} pixels moved vs one device, or hits differ")
+        say(f"[multi-device] {name} over [{dev}, {dev}]: equal to the one-device render "
+            f"(image, hit mask, keys; {int(got.hits.valid.sum())} hits) in {took:.3f} s")
+    del got, want
+    M.dryrun_multichip(4, dev)  # prints its line
+    say(f"[multi-device] phase wall {time.perf_counter() - t_phase:.1f} s")
+
+
 def main(argv) -> int:
     try:
         import torch
@@ -2153,13 +2408,17 @@ def main(argv) -> int:
         phase_metadata(dev, terrain)
         interp_launches, at_grid = phase_interpolating(dev, terrain)
         obj_launches = phase_objects(dev, terrain)
+        sweep_launches, at_sweep = phase_sweep(dev, terrain)
+        phase_multi_device(dev, terrain, params)
         for k in kernels:  # the launches of every counted main-path render
             src = Path(k["source"]).name
             k["launches_by_path"] = {"fast": k["launches"],
                                      "interpolating": interp_launches[src],
-                                     **{path: n[src] for path, n in obj_launches.items()}}
+                                     **{path: n[src] for path, n in obj_launches.items()},
+                                     "sweep": sweep_launches[src]}
             k["launches"] = sum(k["launches_by_path"].values())
             k["at_interpolating_grid"] = at_grid[src]
+            k["at_sweep"] = at_sweep[src]
     except SmokeFailure as e:
         say(f"FAIL: {e}")
         return 1

@@ -460,3 +460,87 @@ def test_tilted_object_frame_marches_through_the_kernel(cuda_device):
     ok, frac_any, frac_big = verify_tolerance(gpu.image, cpu.image)
     assert ok, (frac_any, frac_big)
     assert _object_hits(gpu) > 100
+
+
+def _frames_fan(seed, f_n, h_n, w_n, n_seg):
+    """F combine fans, a different death row in each frame."""
+    parts = [_fan(seed + f, h_n, w_n, n_seg, extra=5) for f in range(f_n)]
+    ray = np.stack([p[0] for p in parts])
+    for f in range(f_n):
+        ray[f, (3 * f) % h_n, n_seg // (f + 2):] = -2000.0
+    return ray, np.stack([p[1] for p in parts])
+
+
+@pytest.mark.parametrize("max_hits", [1, 4])
+@pytest.mark.parametrize("f_n, h_n, w_n, n_seg", [(3, 41, 70, 300), (8, 720, 96, 400)],
+                         ids=["3x41_rows", "8x720_rows"])
+def test_combine_kernel_frame_axis_equals_frames(f_n, h_n, w_n, n_seg, max_hits,
+                                                 cuda_device):
+    """One K1 launch over [F, H, W, K] (41 rows: not a multiple of TILE_H)
+    equals F one-frame launches, envelopes included, and the plain path."""
+    ray, terr = _frames_fan(9, f_n, h_n, w_n, n_seg)
+    r = torch.from_numpy(ray).to(cuda_device)
+    t = torch.from_numpy(terr).to(cuda_device)
+    before = _kernels.COMBINE.launches
+    got, env = combine.crossing_segments_envelopes_cuda(r, t, n_seg, max_hits)
+    assert _kernels.COMBINE.launches == before + 1
+    assert got.shape == (f_n, h_n, w_n, max_hits)
+    for f in range(f_n):
+        one, env_f = combine.crossing_segments_envelopes_cuda(r[f], t[f], n_seg, max_hits)
+        assert torch.equal(got[f], one)
+        for a, b in zip(env, env_f):
+            assert torch.equal(a[f], b)
+    torch.cuda.synchronize()
+    assert torch.equal(got, combine.terrain_crossing_segments_plain(r, t, n_seg, max_hits))
+    for a, b in zip(env, combine.crossing_envelopes_plain(r, t, n_seg)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("radius", [6_371_000.0, None], ids=["sphere", "flat"])
+def test_march_kernel_table_stride_equals_two_launches(table, radius, cuda_device):
+    """K2 over two frames' tables (stride n - 1) equals one launch a frame;
+    with the plain march of the stacked table as its oracle."""
+    second = R.RefractionTable.build(
+        Atmosphere(dataclasses.replace(us_76(), temperature_fixed_point=(0.0, 283.15))),
+        530e-9, h_hi=30000.0)
+    n = min(table.values.shape[0], second.values.shape[0])
+    one = [R.RefractionTable.from_values(t.values[:n].numpy(), t.h0, t.inv_dh, None,
+                                         cuda_device) for t in (table, second)]
+    stacked = R.RefractionTable.stack(one)
+    h_n, steps = 37, 330
+    elev = torch.deg2rad(torch.linspace(-0.6, 1.5, h_n, device=cuda_device))
+    alt = torch.tensor([100.0, 700.0], device=cuda_device).repeat_interleave(h_n)
+    shape = R.EarthShape(radius)
+    before = _kernels.MARCH.launches
+    h, p = R.march_rays(alt, elev.repeat(2), 50.0, steps, shape, stacked, False,
+                        coarse=16, rays_per_frame=h_n)
+    assert _kernels.MARCH.launches == before + 1
+    hp, _ = R.march_rays(alt, elev.repeat(2), 50.0, steps, shape, stacked, False,
+                         coarse=16, rays_per_frame=h_n, plain=True)
+    for f in range(2):
+        hf, pf = R.march_rays(float(alt[f * h_n]), elev, 50.0, steps, shape, one[f], False,
+                              coarse=16)
+        assert torch.equal(h[f * h_n:(f + 1) * h_n], hf)
+        assert torch.equal(p[f * h_n:(f + 1) * h_n], pf)
+    torch.cuda.synchronize()
+    assert float((h - hp).abs().max()) <= 2e-2  # m, as the Pallas march
+    assert not torch.equal(h[:h_n], h[h_n:])
+
+
+def test_fast_split_over_two_entries_equals_one_device(cuda_device):
+    """``[cuda, cuda]``: the columns split and gathered give the one-device
+    render; a sweep of 3 frames launches each kernel once and its frames
+    equal the single renders."""
+    from atm_raytracer_tpu_torch.parallel import mesh as M
+
+    terrain, params = _rect_scene()
+    one = render_fast(params, terrain, cuda_device)
+    two = M.render_fast_sharded(params, terrain, M.make_mesh([cuda_device] * 2))
+    np.testing.assert_array_equal(two.image, one.image)
+    assert torch.equal(two.hits.valid, one.hits.valid)
+    assert torch.equal(two.hits.key, one.hits.key)
+    k1, k2 = _kernels.COMBINE.launches, _kernels.MARCH.launches
+    frames = M.render_sweep_sharded(params, terrain, M.make_mesh([cuda_device]),
+                                    [45.0, 90.0, 135.0])
+    assert (_kernels.COMBINE.launches, _kernels.MARCH.launches) == (k1 + 1, k2 + 1)
+    np.testing.assert_array_equal(frames[0], one.image)

@@ -49,6 +49,38 @@ def objects_golden_config(generator="Fast", tilt=0.0):
     }
 
 
+def parallel_config(terrain_folder=".", **frame):
+    """The scene of tests/test_parallel.py (72x40, fov 18, 8 km in 100 m
+    steps, 25 m over 49.5/21.5 looking 30 degrees) as a config dict, with
+    ``frame`` overriding view.frame keys."""
+    return {
+        "scene": {"terrain_folder": str(terrain_folder)},
+        "view": {
+            "position": {"latitude": 49.5, "longitude": 21.5,
+                         "altitude": {"Relative": 25.0}},
+            "frame": {"direction": 30.0, "fov": 18.0, "max_distance": 8000.0, **frame},
+        },
+        "simulation_step": 100.0,
+        "output": {"width": 72, "height": 40},
+    }
+
+
+def parallel_object(dist_m, color, shape):
+    """An object ``dist_m`` out at azimuth 30 degrees from the parallel
+    scene's observer, on the ground."""
+    az = math.radians(30.0)
+    return {
+        "position": {
+            "latitude": 49.5 + dist_m / M_PER_DEG * math.cos(az),
+            "longitude": 21.5 + dist_m / M_PER_DEG * math.sin(az)
+            / math.cos(math.radians(49.5)),
+            "altitude": {"Relative": 0.0},
+        },
+        "color": color,
+        "shape": shape,
+    }
+
+
 def verify_tolerance(a, b):
     """The on-chip verify tolerance of bench.py:548-551 on two u8 images:
     (ok, fraction of pixels that moved at all, fraction moved > 2 counts)."""
