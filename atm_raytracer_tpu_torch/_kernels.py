@@ -1,11 +1,17 @@
-"""Build and bind the hand-written CUDA kernels in ``csrc/``.
+"""Build and bind the hand-written CUDA kernels in ``csrc/`` and the host
+tile loaders in ``native/``.
 
 Each ``.cu`` file is compiled on first use by ``nvcc`` for Hopper
 (``sm_90a``) into a shared library with a plain C interface, placed in
-``_build/`` beside this file, and loaded with ``ctypes``. The library name
-carries a hash of the source and the flags, so an edited source rebuilds.
+``_build/`` beside this file, and loaded with ``ctypes``. Each ``native/``
+``.cpp`` file (the DTED and GeoTIFF loaders, host code) is compiled the
+same way by ``g++``. A library's name carries a hash of the source, the
+flags, the compiler's version and the host's architecture, so an
+edited source rebuilds and a library built by another toolchain is never
+loaded; a build writes a temporary file and renames it, so processes that
+build at once never load half a library.
 
-Every C entry point takes device pointers and the CUDA stream as
+Every CUDA entry point takes device pointers and the CUDA stream as
 ``void*`` and ints as ``int``, launches on that stream without
 synchronising, and returns ``cudaGetLastError()``; ``CudaKernel.call``
 raises when that is not 0. Nothing here falls back to another
@@ -21,19 +27,24 @@ PyTorch Hermite fill of its own nodes).
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
+import platform
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
+NATIVE = Path(__file__).resolve().parent / "native"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-fmad=false", "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC",
 )
+GXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17", "-pthread")
 
 
 def _nvcc() -> str:
@@ -45,6 +56,42 @@ def _nvcc() -> str:
             "built from atm_raytracer_tpu_torch/csrc at first use"
         )
     return found
+
+
+@functools.lru_cache(maxsize=None)
+def _compiler_id(compiler: str) -> str:
+    """What ``compiler --version`` prints, and the host's machine."""
+    proc = subprocess.run([compiler, "--version"], capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"{compiler} --version failed: {proc.stderr}")
+    return f"{proc.stdout} {platform.machine()}"
+
+
+def _library_path(source: Path, flags, compiler: str) -> Path:
+    key = b"\0".join([source.read_bytes(), " ".join(flags).encode(),
+                      _compiler_id(compiler).encode()])
+    digest = hashlib.sha256(key).hexdigest()
+    return BUILD_DIR / f"lib{source.stem}_{digest[:16]}.so"
+
+
+def _compile(lib: Path, command) -> tuple:
+    """Run ``command(out)``, which writes a library to ``out``, and move the
+    result to ``lib`` atomically. Returns (seconds, the compiler's stderr);
+    raises with the compiler's output on failure."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = lib.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
+    cmd = command(str(tmp))
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(
+            f"{Path(cmd[0]).name} failed for {lib.name} (exit {proc.returncode}):\n"
+            f"{proc.stdout}\n{proc.stderr}"
+        )
+    os.replace(tmp, lib)  # atomic: a concurrent loader never sees half
+    return seconds, proc.stderr
 
 
 class CudaKernel:
@@ -61,28 +108,14 @@ class CudaKernel:
         self._fn = None
 
     def library_path(self) -> Path:
-        src = (CSRC / self.source).read_bytes()
-        digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-        return BUILD_DIR / f"lib{Path(self.source).stem}_{digest[:16]}.so"
+        return _library_path(CSRC / self.source, NVCC_FLAGS, _nvcc())
 
     def build(self) -> Path:
         """Compile the library unless a build of this exact source exists."""
         lib = self.library_path()
-        if lib.exists():
-            return lib
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / self.source)]
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        self.build_seconds = time.perf_counter() - t0
-        self.build_log = proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed for {self.source} (exit {proc.returncode}):\n"
-                f"{proc.stdout}\n{proc.stderr}"
-            )
-        os.replace(tmp, lib)  # atomic: a concurrent loader never sees half
+        if not lib.exists():
+            self.build_seconds, self.build_log = _compile(
+                lib, lambda out: [_nvcc(), *NVCC_FLAGS, "-o", out, str(CSRC / self.source)])
         return lib
 
     def function(self):
@@ -134,3 +167,44 @@ MARCH = CudaKernel(
 )
 
 KERNELS = (COMBINE, MARCH)
+
+
+def _gxx() -> str:
+    found = shutil.which("g++")
+    if found is None:
+        raise RuntimeError(
+            "g++ not found on PATH: the tile loaders are built from "
+            "atm_raytracer_tpu_torch/native at first use"
+        )
+    return found
+
+
+class HostLibrary:
+    """One ``native/<source>`` C++ library for the host: built by g++ at
+    first use (``libs``, the libraries it links, follow the source), loaded
+    with ``ctypes``."""
+
+    def __init__(self, source: str, libs=()):
+        self.source = source
+        self.libs = tuple(libs)
+        self.build_seconds = None  # wall time of the g++ run, if one ran
+
+    def library_path(self) -> Path:
+        return _library_path(NATIVE / self.source, GXX_FLAGS + self.libs, _gxx())
+
+    def build(self) -> Path:
+        """Compile the library unless a build of this exact source exists."""
+        lib = self.library_path()
+        if not lib.exists():
+            self.build_seconds, _ = _compile(lib, lambda out: [
+                _gxx(), *GXX_FLAGS, "-o", out, str(NATIVE / self.source), *self.libs])
+        return lib
+
+    def load(self) -> ctypes.CDLL:
+        return ctypes.CDLL(str(self.build()))
+
+
+# the tile loaders (terrain/native.py); GeoTIFF inflates Deflate strips with zlib
+DTED_LOADER = HostLibrary("dted_loader.cpp")
+GEOTIFF_LOADER = HostLibrary("geotiff_loader.cpp", libs=("-lz",))
+LOADERS = (DTED_LOADER, GEOTIFF_LOADER)

@@ -2,7 +2,8 @@
 
 The JAX package's objects cannot be imported here (that would import jax),
 so the caller hands over ``np.asarray`` of each field and these converters
-rebuild this package's counterparts on a torch device. Parity tests feed
+rebuild this package's counterparts on the torch device the caller names
+(no default: a converter never picks the CPU on its own). Parity tests feed
 both packages the same refraction table, terrain mosaic, hit grid and scene
 objects this way.
 """
@@ -20,7 +21,7 @@ from .physics.ray import RefractionTable
 from .terrain.store import TerrainPack
 
 
-def table_from_arrays(h0, inv_dh, values, poly, device="cpu") -> RefractionTable:
+def table_from_arrays(h0, inv_dh, values, poly, device) -> RefractionTable:
     """A ``RefractionTable`` from the JAX table's (h0, inv_dh, values, poly)."""
     return RefractionTable.from_values(
         np.asarray(values, np.float32), float(np.asarray(h0)),
@@ -28,7 +29,7 @@ def table_from_arrays(h0, inv_dh, values, poly, device="cpu") -> RefractionTable
     )
 
 
-def sweep_table_from_arrays(h0, inv_dh, values, pairs, device="cpu") -> RefractionTable:
+def sweep_table_from_arrays(h0, inv_dh, values, pairs, device) -> RefractionTable:
     """A stacked sweep ``RefractionTable`` from the JAX sweep's table
     (``parallel/mesh.py``: h0, inv_dh, values [F, n], pairs [F, n-1, 2],
     poly None): one l(h) table a frame, no fit."""
@@ -47,7 +48,7 @@ def sweep_table_from_arrays(h0, inv_dh, values, pairs, device="cpu") -> Refracti
 
 
 def pack_from_arrays(tiles, rows_m1, cols_m1, lat_min: int, lon_min: int,
-                     n_rows: int, n_cols: int, device="cpu",
+                     n_rows: int, n_cols: int, device,
                      grad_bound: float = math.inf,
                      seam_jump: float = math.inf) -> TerrainPack:
     """A plain ``TerrainPack`` from a [T, S, S] tile stack (int16 or f32)
@@ -73,7 +74,7 @@ def pack_from_arrays(tiles, rows_m1, cols_m1, lat_min: int, lon_min: int,
 
 
 def hits_from_arrays(valid, key, dlat, dlon, distance, elevation, path_length,
-                     normal, kind, rgba, device="cpu") -> HitBuffer:
+                     normal, kind, rgba, device) -> HitBuffer:
     """A ``HitBuffer`` from the JAX hit buffer's fields, in its field order
     ([H, W, K] planes; normal [..., 3]; rgba [..., 4])."""
     def f32(x):
@@ -87,7 +88,7 @@ def hits_from_arrays(valid, key, dlat, dlon, distance, elevation, path_length,
     )
 
 
-def objects_from_arrays(*arrays, seg_window: int, host_meta, device="cpu") -> ObjectSet:
+def objects_from_arrays(*arrays, seg_window: int, host_meta, device) -> ObjectSet:
     """An ``ObjectSet`` from the JAX ObjectSet's 14 arrays, in its field
     order (kind, dlat, dlon, elev, r1, r2, height, width, rgba, basis,
     tex_id, textures, tex_hw, cull_r2), and its static ``seg_window`` and

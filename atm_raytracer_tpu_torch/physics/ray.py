@@ -72,8 +72,7 @@ class RefractionTable:
 
     @staticmethod
     def build(atm: Atmosphere, wavelength: float, h_lo: float = -2000.0,
-              h_hi: float = 20000.0, dh: float = 1.0,
-              device="cpu") -> "RefractionTable":
+              h_hi: float = 20000.0, dh: float = 1.0, *, device) -> "RefractionTable":
         hs = np.arange(h_lo, h_hi + dh, dh, dtype=np.float64)
         vals64 = atm.dlnn_dh(hs, wavelength)
         return RefractionTable.from_values(
@@ -83,7 +82,7 @@ class RefractionTable:
 
     @staticmethod
     def from_values(values: np.ndarray, h0: float, inv_dh: float, poly,
-                    device="cpu") -> "RefractionTable":
+                    device) -> "RefractionTable":
         vals = np.asarray(values, np.float32)
         pairs = np.stack([vals[:-1], vals[1:]], axis=-1)
         return RefractionTable(

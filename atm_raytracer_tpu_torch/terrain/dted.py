@@ -1,9 +1,11 @@
-"""DTED reader (MIL-PRF-89020B), host side.
+"""DTED reader and writer (MIL-PRF-89020B), host side.
 
 Native replacement for the ``dted`` Rust crate used by the reference
 (src/terrain/mod.rs:4,24,86; src/terrain/tile.rs:11-31). Pure numpy; the
 format is simple: UHL(80) + DSI(648) + ACC(2700) headers followed by one
 record per longitude line, elevations as big-endian *signed-magnitude* int16.
+The writer builds synthetic tiles for tests and ``chip_smoke.py``; its bytes
+are those of the JAX package's writer.
 """
 
 from __future__ import annotations
@@ -79,3 +81,65 @@ def read_dted(path):
     # record r = longitude line r (west→east); within record: south→north
     elev = vals.reshape(hdr.n_lon, hdr.n_lat).T.astype(np.float32)
     return hdr, elev
+
+
+def _format_angle_lon(deg: float) -> bytes:
+    hemi = b"W" if deg < 0 else b"E"
+    d = abs(deg)
+    dd = int(d)
+    mm = int((d - dd) * 60)
+    ss = int(round((d - dd - mm / 60) * 3600))
+    return f"{dd:03d}{mm:02d}{ss:02d}".encode() + hemi
+
+
+def _format_angle_lat(deg: float) -> bytes:
+    hemi = b"S" if deg < 0 else b"N"
+    d = abs(deg)
+    dd = int(d)
+    mm = int((d - dd) * 60)
+    ss = int(round((d - dd - mm / 60) * 3600))
+    return f"{dd:03d}{mm:02d}{ss:02d}".encode() + hemi
+
+
+def write_dted(path, origin_lat: float, origin_lon: float, elev: np.ndarray):
+    """Write a minimal but spec-conformant DTED tile.
+
+    elev: [n_lat, n_lon] int-valued meters, row 0 = south edge.
+    """
+    n_lat, n_lon = elev.shape
+    lon_interval = int(round(36000 / max(n_lon - 1, 1)))  # tenths of arcsec
+    lat_interval = int(round(36000 / max(n_lat - 1, 1)))
+    uhl = bytearray(b" " * _UHL_LEN)
+    uhl[0:4] = b"UHL1"
+    uhl[4:12] = _format_angle_lon(origin_lon)
+    uhl[12:20] = _format_angle_lat(origin_lat)
+    uhl[20:24] = f"{lon_interval:04d}".encode()
+    uhl[24:28] = f"{lat_interval:04d}".encode()
+    uhl[28:32] = b"0000"  # absolute vertical accuracy
+    uhl[32:35] = b"U  "  # security
+    uhl[35:47] = b" " * 12
+    uhl[47:51] = f"{n_lon:04d}".encode()
+    uhl[51:55] = f"{n_lat:04d}".encode()
+    uhl[55:56] = b"0"
+    dsi = b"DSI" + b" " * (_DSI_LEN - 3)
+    acc = b"ACC" + b" " * (_ACC_LEN - 3)
+
+    vals = np.asarray(elev, np.int64)
+    mag = np.where(vals < 0, (-vals) | 0x8000, vals).astype(">u2")
+    records = []
+    for j in range(n_lon):
+        body = bytearray()
+        body.append(0xAA)
+        body += int(j).to_bytes(3, "big")
+        body += int(j).to_bytes(2, "big")
+        body += (0).to_bytes(2, "big")
+        body += mag[:, j].tobytes()
+        checksum = sum(body) & 0xFFFFFFFF
+        body += checksum.to_bytes(4, "big")
+        records.append(bytes(body))
+    with open(path, "wb") as f:
+        f.write(bytes(uhl))
+        f.write(dsi)
+        f.write(acc)
+        for r in records:
+            f.write(r)

@@ -1,4 +1,4 @@
-"""Minimal GeoTIFF (SRTM-style) reader, host side.
+"""Minimal GeoTIFF (SRTM-style) reader and writer, host side.
 
 Native replacement for the ``geotiff-rs`` crate (reference
 src/terrain/geotiff.rs): SRTM-style 1°×1° tiles georeferenced by filename
@@ -115,3 +115,34 @@ def read_geotiff(path) -> np.ndarray:
         raise ValueError(f"{path}: unsupported sample format {sample_format}/{bits}")
     arr = np.frombuffer(raw, dtype=dt, count=width * height).reshape(height, width)
     return arr.astype(np.float32)
+
+
+def write_geotiff(path, elev: np.ndarray):
+    """Write a minimal uncompressed little-endian int16 TIFF (north-up rows).
+
+    ``elev``: [rows, cols], row 0 = north edge (standard image orientation).
+    Used for synthetic fixtures; georeferencing is by filename, matching the
+    reference's behavior (geotiff.rs:16-42).
+    """
+    elev = np.asarray(elev)
+    h, w = elev.shape
+    data = elev.astype("<i2").tobytes()
+    header = b"II" + struct.pack("<HI", 42, 8)
+    entries = []
+    data_offset = 8 + 2 + 9 * 12 + 4
+
+    def entry(tag, type_, count, value):
+        return struct.pack("<HHII", tag, type_, count, value)
+
+    entries.append(entry(_TAG_WIDTH, 4, 1, w))
+    entries.append(entry(_TAG_LENGTH, 4, 1, h))
+    entries.append(entry(_TAG_BITS, 3, 1, 16))
+    entries.append(entry(_TAG_COMPRESSION, 3, 1, 1))
+    entries.append(entry(262, 3, 1, 1))  # PhotometricInterpretation
+    entries.append(entry(_TAG_STRIP_OFFSETS, 4, 1, data_offset))
+    entries.append(entry(_TAG_ROWS_PER_STRIP, 4, 1, h))
+    entries.append(entry(_TAG_STRIP_COUNTS, 4, 1, len(data)))
+    entries.append(entry(_TAG_SAMPLE_FORMAT, 3, 1, 2))
+    ifd = struct.pack("<H", len(entries)) + b"".join(entries) + struct.pack("<I", 0)
+    with open(path, "wb") as f:
+        f.write(header + ifd + data)

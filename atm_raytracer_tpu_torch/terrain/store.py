@@ -3,8 +3,10 @@
 Counterpart of ``atm_raytracer_tpu/terrain/store.py`` (reference
 src/terrain/mod.rs:55-127): a map from (floor(lat), floor(lon)) to a 1°×1°
 tile, scanned from a folder (DTED keyed by header origin, GeoTIFF by its
-``N49E021`` filename) and loaded lazily. ``Terrain.pack`` stacks the tiles a
-render can reach into one plain [T, S, S] tensor on a device.
+``N49E021`` filename) and loaded lazily. ``Terrain.preload`` decodes the
+tiles a render can reach through the native loaders (``terrain/native.py``),
+one threaded call per format; ``Terrain.pack`` stacks them into one plain
+[T, S, S] tensor on a device.
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ import numpy as np
 import torch
 
 from ..models.earth import DEGREE_DISTANCE
-from . import dted, geotiff
+from . import dted, geotiff, native
 
 
 @dataclasses.dataclass
@@ -51,7 +53,22 @@ class Tile:
         )
 
 
-def _load_tile(path: Path, lat0: int, lon0: int) -> Tile:
+def _load_tile(path: Path, lat0: int, lon0: int, use_native: bool = True) -> Tile:
+    """One tile, through the native loaders first. A file they do not read
+    (not DTED, a TIFF without inline width and height, a compression or
+    sample format they lack) goes to the Python parsers, which read it or
+    raise; ``use_native=False`` takes the Python parsers alone."""
+    if use_native:
+        info = native.probe(path)
+        if info is not None:
+            res = native.load_batch([path], info[2], info[3])
+            if res[2][0] == 0:
+                return Tile(lat0=lat0, lon0=lon0, elev=res[0][0])
+        info = native.gtif_probe(path)
+        if info is not None:
+            elev, status = native.gtif_load_batch([path], *info)
+            if status[0] == 0:  # south-first rows already
+                return Tile(lat0=lat0, lon0=lon0, elev=elev[0])
     try:
         _, elev = dted.read_dted(path)
         return Tile(lat0=lat0, lon0=lon0, elev=elev)
@@ -87,16 +104,20 @@ class TerrainPack:
 
 
 class Terrain:
-    """Folder-scanned tile registry with lazy host loading."""
+    """Folder-scanned tile registry with lazy host loading.
 
-    def __init__(self):
+    ``native=False`` reads every file with the Python parsers (the oracle
+    the native loaders are held to) instead of the native loaders."""
+
+    def __init__(self, native: bool = True):
+        self.native = native
         self._paths: Dict[Tuple[int, int], Path] = {}
         self._loaded: Dict[Tuple[int, int], Tile] = {}
         self._pack_cache: Dict[tuple, TerrainPack] = {}
 
     @staticmethod
-    def from_folder(folder) -> "Terrain":
-        t = Terrain()
+    def from_folder(folder, native: bool = True) -> "Terrain":
+        t = Terrain(native)
         files = 0
         for p in sorted(Path(folder).iterdir()):
             if p.is_dir():
@@ -127,6 +148,10 @@ class Terrain:
             return
         raise ValueError(f"Could not buffer terrain file {path}")
 
+    @property
+    def keys(self):
+        return set(self._paths) | set(self._loaded)
+
     def _tile(self, key: Tuple[int, int]) -> Optional[Tile]:
         if key in self._loaded:
             return self._loaded[key]
@@ -134,9 +159,42 @@ class Terrain:
         if path is None:
             return None
         print(f"Lazy loading terrain file: {path}")
-        tile = _load_tile(path, key[0], key[1])
+        tile = _load_tile(path, key[0], key[1], self.native)
         self._loaded[key] = tile
         return tile
+
+    def preload(self, keys) -> None:
+        """Load every not-yet-loaded tile of ``keys`` that has a file.
+
+        Groups the files by format and post count and decodes each group
+        with ONE threaded native call (``native.load_batch``,
+        ``native.gtif_load_batch``), so a mosaic of dozens of tiles parses
+        in parallel. Every tile fills its slot of its group's batch, so the
+        tiles keep the batch as their arrays and no padding stays alive. A
+        file the native probes or decoders do not take, and every file of a
+        ``native=False`` store, loads through ``_tile`` (the per-tile route)."""
+        missing = [k for k in keys if k not in self._loaded and k in self._paths]
+        if self.native and len(missing) >= 2:
+            groups: Dict[tuple, list] = {}  # (loader, rows, cols) -> [(key, path)]
+            for k in missing:
+                path = self._paths[k]
+                info = native.probe(path)
+                if info is not None:
+                    shape = (native.load_batch, info[2], info[3])
+                elif (info := native.gtif_probe(path)) is not None:
+                    shape = (native.gtif_load_batch, *info)
+                else:
+                    continue
+                groups.setdefault(shape, []).append((k, path))
+            for (load, rows, cols), group in groups.items():
+                # (tiles, status) or (tiles, origins, status)
+                res = load([path for _, path in group], rows, cols)
+                for (k, path), elev, status in zip(group, res[0], res[-1]):
+                    if status == 0:
+                        print(f"Lazy loading terrain file: {path}")
+                        self._loaded[k] = Tile(lat0=k[0], lon0=k[1], elev=elev)
+        for k in missing:
+            self._tile(k)
 
     def get_elev(self, lat: float, lon: float) -> Optional[float]:
         """Host bilinear elevation (terrain/mod.rs:120-126)."""
@@ -150,12 +208,13 @@ class Terrain:
         return 0.0 if e is None else e
 
     def pack(self, lat_range: Tuple[float, float], lon_range: Tuple[float, float],
-             device="cpu") -> TerrainPack:
+             device) -> TerrainPack:
         """Stack every tile intersecting the lat/lon box on ``device``.
 
-        The grid spans the PRESENT tiles' bounding box; tiles pad to the
-        largest post count. Integer-meter mosaics pack as int16. Memoized per
-        (box, tile keys, device): repeat renders reuse the device copy.
+        The tiles load through ``preload``. The grid spans the PRESENT
+        tiles' bounding box; tiles pad to the largest post count.
+        Integer-meter mosaics pack as int16. Memoized per (box, tile keys,
+        device): repeat renders reuse the device copy.
         """
         device = torch.device(device)
         lat_lo, lat_hi = (int(math.floor(v)) for v in lat_range)
@@ -170,6 +229,7 @@ class Terrain:
         cached = self._pack_cache.get(cache_key)
         if cached is not None:
             return cached
+        self.preload(keys)
         tiles = [self._tile(k) for k in keys]
         if keys:
             lat_lo = min(k[0] for k in keys)

@@ -9,14 +9,28 @@ warm-up) with the ``atm_raytracer_tpu_torch`` package found under
 PACKAGE_ROOT, e.g. an unpacked parent commit, for comparisons in turns.
 
 Runs from the root of a checkout of this repository, on a machine with one
-CUDA GPU, ``nvcc`` and PyTorch built for CUDA, PyYAML and Pillow (the
-metadata phase writes the npz artifact's YAML config and a PNG). Imports
+CUDA GPU, ``nvcc``, ``g++`` and PyTorch built for CUDA, PyYAML and Pillow
+(the metadata phase writes the npz artifact's YAML config and a PNG; the
+terrain-files phase a ``gen`` config). Imports
 nothing of JAX. Phases, each printed as it ends; any failure exits non-zero
 before the result line:
 
 1. device   — the card's name, and its power limit from nvidia-smi;
 2. build    — both CUDA kernels built from ``atm_raytracer_tpu_torch/csrc``,
               one nvcc each, started together;
+2b. terrain files — the headline's 45 tiles of 1201 posts as files: both
+              native tile loaders built by g++ (``g++ --version``, the build
+              seconds, whether ``zlib.h`` was found, ``os.cpu_count()``); the
+              tiles written with the port's writers (the southernmost row as
+              GeoTIFF, the rest DTED); ``Terrain.from_folder``, ``preload``
+              (the native parse), the stacking and the upload timed apart,
+              and the same with the Python parsers (``native=False``), every
+              tile equal to its Python parse; the file-backed pack
+              ``torch.equal`` to the in-memory terrain's (and its bounds
+              equal); the Fast headline from the files through one K1 and one
+              K2 launch (counted), bit-equal to the in-memory render; ``gen``
+              from the folder in a subprocess, its PNG equal to that render
+              and its wall time;
 3. kernels  — each kernel against its plain PyTorch version on the card:
               K1 (combine) segments equal on ragged random fans, K = 1 and 4,
               on the path-death and deep-terrain cases, on two fans where
@@ -138,8 +152,9 @@ The verify tolerance (the JAX package's bench.py verify): at most 1 % of
 pixels differ by more than 2 counts and at most 5 % differ at all.
 
 Output: the kernels line ``{"kernels": [...]}`` (``launches`` summed over
-the counted main-path renders — Fast, Interpolating, the three object
-frames and the sweep — with the split in ``launches_by_path``; each
+the counted main-path renders — Fast, Fast from the tile files,
+Interpolating, the three object frames and the sweep — with the split in
+``launches_by_path``; each
 kernel's numbers at the Interpolating grid and at the sweep's shapes in
 ``at_interpolating_grid`` and ``at_sweep``) and, last, the result line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -261,6 +276,179 @@ def phase_build():
         for line in k.build_log.splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 say(f"[build]   {line.strip()}")
+
+
+def tile_name(lat: int, lon: int) -> str:
+    """The ``N49E021`` name that keys a GeoTIFF tile."""
+    return (f"{'N' if lat >= 0 else 'S'}{abs(lat):02d}"
+            f"{'E' if lon >= 0 else 'W'}{abs(lon):03d}")
+
+
+def quiet(fn, *args):
+    """``fn(*args)`` with its standard output captured: (result, lines)."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn(*args)
+    return out, buf.getvalue().splitlines()
+
+
+def timed(fn, *args):
+    """(result, seconds) of ``fn(*args)``, ending in a device synchronize."""
+    import torch
+
+    t0 = time.perf_counter()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def phase_terrain_files(dev, terrain, size=(1920, 1080), max_distance=200_000.0):
+    """2b. The headline's 45 tiles as files: the native loaders built by
+    g++, the tiles written with the port's writers (the southernmost row of
+    tiles as GeoTIFF, the rest DTED), ``Terrain.from_folder`` -> ``preload``
+    -> ``pack`` on the card timed part by part, the Python parsers'
+    ``native=False`` store the same, every tile equal to its Python parse,
+    the pack equal to the in-memory terrain's, the Fast headline from the
+    files (one K1 and one K2 launch, counted) bit-equal to the in-memory
+    render, and ``gen`` from the folder in a subprocess: its PNG equal to
+    that render. Returns the file-backed render's launches."""
+    import os
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    import torch
+    import yaml
+    from PIL import Image
+
+    from atm_raytracer_tpu_torch import _kernels
+    from atm_raytracer_tpu_torch.config import Config
+    from atm_raytracer_tpu_torch.generators.fast import render_fast, terrain_bbox
+    from atm_raytracer_tpu_torch.terrain.dted import write_dted
+    from atm_raytracer_tpu_torch.terrain.geotiff import write_geotiff
+    from atm_raytracer_tpu_torch.terrain.store import Terrain
+
+    t_phase = time.perf_counter()
+    cfg = headline_dict(*size, max_distance)
+    params = Config.from_dict(cfg).into_params(None)
+    gxx = subprocess.run(["g++", "--version"], capture_output=True, text=True, timeout=60)
+    check(gxx.returncode == 0, f"g++ --version failed: {gxx.stderr.strip()}")
+    zlib_h = subprocess.run(["g++", "-x", "c++", "-E", "-o", os.devnull, "-"],
+                            input="#include <zlib.h>\n", capture_output=True, text=True,
+                            timeout=60).returncode == 0
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(_kernels.LOADERS)) as pool:
+        list(pool.map(lambda lib: lib.build(), _kernels.LOADERS))
+    build_s = time.perf_counter() - t0
+    say(f"[terrain] {gxx.stdout.splitlines()[0]}; zlib.h found: {zlib_h}; "
+        f"os.cpu_count() {os.cpu_count()}")
+    say(f"[terrain] both loaders in {build_s:.2f} s ("
+        + ", ".join(f"{lib.source}: g++ {lib.build_seconds} s" for lib in _kernels.LOADERS)
+        + ")")
+
+    box = terrain_bbox(params)
+    keys = sorted(terrain.keys)
+    south = min(k[0] for k in keys)
+    with tempfile.TemporaryDirectory() as tmp:
+        folder = Path(tmp) / "terrain"
+        folder.mkdir()
+        t0 = time.perf_counter()
+        for la, lo in keys:
+            grid = terrain._loaded[(la, lo)].elev.astype(np.int16)
+            if la == south:
+                write_geotiff(folder / f"{tile_name(la, lo)}.tif", grid[::-1])
+            else:
+                write_dted(folder / f"{tile_name(la, lo).lower()}.dt2", la, lo, grid)
+        n_bytes = sum(f.stat().st_size for f in folder.iterdir())
+        n_tif = sum(1 for k in keys if k[0] == south)
+        say(f"[terrain] wrote {len(keys)} tiles of 1201 posts ({n_tif} GeoTIFF, "
+            f"{len(keys) - n_tif} DTED, {n_bytes} B) in {time.perf_counter() - t0:.2f} s")
+
+        split = {}
+        stores = {}
+        for use_native in (True, False):
+            tag = "native" if use_native else "python"
+            t0 = time.perf_counter()
+            store, lines = quiet(Terrain.from_folder, folder, use_native)
+            scan_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            _, loaded = quiet(store.preload, sorted(store.keys))
+            parse_s = time.perf_counter() - t0
+            check(len(store._loaded) == len(keys), f"{tag}: preload loaded "
+                  f"{len(store._loaded)} of {len(keys)} tiles")
+            check(sum(ln.startswith("Lazy loading terrain file:") for ln in loaded)
+                  == len(keys), f"{tag}: {len(loaded)} lines from preload")
+            host, stack_s = timed(store.pack, *box, "cpu")
+            _, upload_s = timed(lambda: [x.to(dev) for x in (host.tiles, host.rows_m1,
+                                                             host.cols_m1)])
+            pack, pack_s = timed(store.pack, *box, dev)
+            split[tag] = {"scan_s": scan_s, "parse_s": parse_s, "stack_s": stack_s,
+                          "upload_s": upload_s, "pack_s": pack_s}
+            stores[tag] = (store, pack)
+            say(f"[terrain] {tag}: folder scan {scan_s:.4f} s ({lines[-1]}); preload "
+                f"{parse_s:.4f} s; stacking (pack on the CPU) {stack_s:.4f} s; upload of "
+                f"{host.tiles.numel() * host.tiles.element_size()} B {upload_s:.4f} s; "
+                f"pack on {dev} {pack_s:.4f} s")
+        native_store, file_pack = stores["native"]
+        python_store = stores["python"][0]
+        for k in keys:
+            check(np.array_equal(native_store._loaded[k].elev, python_store._loaded[k].elev),
+                  f"tile {k}: the native loader and the Python parser differ")
+        say(f"[terrain] all {len(keys)} native tiles equal to their Python parse")
+
+        mem_pack = terrain.pack(*box, dev)
+        for f in ("tiles", "rows_m1", "cols_m1"):
+            check(torch.equal(getattr(file_pack, f), getattr(mem_pack, f)),
+                  f"file-backed pack {f} differs from the in-memory pack's")
+        check((file_pack.grad_bound, file_pack.seam_jump)
+              == (mem_pack.grad_bound, mem_pack.seam_jump),
+              f"file-backed bounds {(file_pack.grad_bound, file_pack.seam_jump)} vs "
+              f"{(mem_pack.grad_bound, mem_pack.seam_jump)}")
+        say(f"[terrain] file-backed pack == in-memory pack ({tuple(file_pack.tiles.shape)} "
+            f"{file_pack.tiles.dtype}; grad_bound {file_pack.grad_bound}, seam_jump "
+            f"{file_pack.seam_jump})")
+
+        want = render_fast(params, terrain, dev).image
+        reset_launches()
+        got = render_fast(params, native_store, dev).image
+        torch.cuda.synchronize()
+        launches = kernel_launches()
+        check(launches == {"combine.cu": 1, "march.cu": 1},
+              f"file-backed headline: launches {launches}")
+        check(np.array_equal(got, want), "file-backed headline image differs from the "
+              f"in-memory render ({int((got != want).any(-1).sum())} pixels)")
+        say(f"[terrain] file-backed Fast headline == in-memory render (launches {launches})")
+        del stores, native_store, python_store, file_pack, host, pack
+
+        cfg["scene"] = {"terrain_folder": str(folder)}
+        cfg["output"]["file"] = "out.png"
+        (Path(tmp) / "cfg.yaml").write_text(yaml.safe_dump(cfg))
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "atm_raytracer_tpu_torch.cli", "gen", "-c", "cfg.yaml"],
+            cwd=tmp, capture_output=True, text=True, timeout=300,
+            env={**os.environ, "PYTHONPATH": str(ROOT)},
+        )
+        cli_s = time.perf_counter() - t0
+        check(proc.returncode == 0, f"gen from the folder failed:\n{proc.stderr[-2000:]}")
+        out = proc.stdout.splitlines()
+        n_lazy = sum(ln.startswith("Lazy loading terrain file:") for ln in out)
+        for ln in out:
+            if not ln.startswith("Lazy loading terrain file:"):
+                say(f"[terrain] gen: {ln}")
+        png = np.asarray(Image.open(Path(tmp) / "out.png").convert("RGB"))
+        check(np.array_equal(png, want), "gen's PNG differs from the in-memory render "
+              f"({int((png != want).any(-1).sum())} pixels)")
+        say(f"[terrain] gen from the folder: wall {cli_s:.3f} s (a new process: "
+            f"imports, CUDA start, scan, preload of {n_lazy} tiles, pack, table, render, "
+            "PNG); PNG == in-memory render")
+    split["cli_gen_s"] = cli_s
+    say(f"[terrain] {json.dumps(split)}")
+    say(f"[terrain] phase wall {time.perf_counter() - t_phase:.1f} s")
+    return launches
 
 
 def random_fan(rng, h_n, w_n, n_samp, n_terr_samp):
@@ -643,11 +831,9 @@ def headline_terrain(params):
     return terrain
 
 
-def headline_config(width=1920, height=1080, max_distance=200_000.0, step=50.0,
-                    tilt=0.0, fov=40.0):
-    from atm_raytracer_tpu_torch.config import Config
-
-    return Config.from_dict({
+def headline_dict(width=1920, height=1080, max_distance=200_000.0, step=50.0,
+                  tilt=0.0, fov=40.0) -> dict:
+    return {
         "view": {
             "position": {"latitude": LAT0, "longitude": LON0,
                          "altitude": {"Relative": 100.0}},
@@ -656,7 +842,14 @@ def headline_config(width=1920, height=1080, max_distance=200_000.0, step=50.0,
         },
         "simulation_step": step,
         "output": {"width": width, "height": height},
-    })
+    }
+
+
+def headline_config(width=1920, height=1080, max_distance=200_000.0, step=50.0,
+                    tilt=0.0, fov=40.0):
+    from atm_raytracer_tpu_torch.config import Config
+
+    return Config.from_dict(headline_dict(width, height, max_distance, step, tilt, fov))
 
 
 def headline_params(width=1920, height=1080, max_distance=200_000.0, step=50.0,
@@ -2393,13 +2586,14 @@ def main(argv) -> int:
     try:
         name = phase_device()
         phase_build()
-        phase_kernels(dev)
-        phase_goldens(dev)
         params = headline_params()
         t0 = time.perf_counter()
         terrain = headline_terrain(params)
         say(f"[headline] {len(terrain._loaded)} tiles of 1201 posts built in "
             f"{time.perf_counter() - t0:.1f} s")
+        files_launches = phase_terrain_files(dev, terrain)
+        phase_kernels(dev)
+        phase_goldens(dev)
         kernels, wall_s = phase_headline(dev, params, terrain)
         phase_profile(dev, params, terrain, wall_s)
         phase_rect_small(dev, terrain)
@@ -2413,6 +2607,7 @@ def main(argv) -> int:
         for k in kernels:  # the launches of every counted main-path render
             src = Path(k["source"]).name
             k["launches_by_path"] = {"fast": k["launches"],
+                                     "fast_from_files": files_launches[src],
                                      "interpolating": interp_launches[src],
                                      **{path: n[src] for path, n in obj_launches.items()},
                                      "sweep": sweep_launches[src]}

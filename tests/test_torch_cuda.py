@@ -107,7 +107,7 @@ def test_envelope_kernel_equals_plain(case, cuda_device):
 
 @pytest.fixture(scope="module")
 def table():
-    return R.RefractionTable.build(Atmosphere(us_76()), 530e-9, h_hi=30000.0)
+    return R.RefractionTable.build(Atmosphere(us_76()), 530e-9, h_hi=30000.0, device="cpu")
 
 
 @pytest.mark.parametrize("l_form", ["poly", "table"])
@@ -226,6 +226,40 @@ def test_render_on_card_matches_cpu(alpha, cuda_device):
     cpu = render_fast(params, terrain, "cpu")
     ok, frac_any, frac_big = verify_tolerance(gpu.image, cpu.image)
     assert ok, (frac_any, frac_big)
+
+
+def test_pack_from_files_on_card(cuda_device, tmp_path):
+    """A 2 x 2 mosaic written as DTED and GeoTIFF files, decoded by the native
+    loaders and packed on the card, equals the CPU pack of the Python
+    parsers' tiles; the Fast render over it launches both kernels."""
+    from atm_raytracer_tpu_torch.terrain.dted import write_dted
+    from atm_raytracer_tpu_torch.terrain.geotiff import write_geotiff
+
+    rng = np.random.default_rng(8)
+    for la, lo in ((49, 21), (49, 22), (50, 21), (50, 22)):
+        grid = (_hills() + rng.integers(-20, 20, (121, 121))).astype(np.int16)
+        if lo == 21:
+            write_dted(tmp_path / f"n{la}_e{lo:03d}.dt2", la, lo, grid)
+        else:
+            write_geotiff(tmp_path / f"N{la}E{lo:03d}.tif", grid[::-1])
+    box = ((49.2, 50.8), (21.2, 22.8))
+    terrain = Terrain.from_folder(tmp_path)
+    gpu = terrain.pack(*box, cuda_device)
+    cpu = Terrain.from_folder(tmp_path, native=False).pack(*box, "cpu")
+    assert gpu.tiles.device.type == "cuda" and gpu.tiles.dtype == torch.int16
+    for f in ("tiles", "rows_m1", "cols_m1"):
+        assert torch.equal(getattr(gpu, f).cpu(), getattr(cpu, f)), f
+    assert (gpu.grad_bound, gpu.seam_jump) == (cpu.grad_bound, cpu.seam_jump)
+    params = Config.from_dict({
+        "view": {"position": {"latitude": 49.9, "longitude": 21.9,
+                              "altitude": {"Relative": 30.0}},
+                 "frame": {"direction": 45.0, "fov": 40.0, "max_distance": 30000.0}},
+        "simulation_step": 100.0,
+        "output": {"width": 96, "height": 64},
+    }).into_params(terrain)
+    before = [k.launches for k in _kernels.KERNELS]
+    render_fast(params, terrain, cuda_device)
+    assert [k.launches for k in _kernels.KERNELS] == [b + 1 for b in before]
 
 
 def _rect_scene(tilt=0.0, alpha=1.0):
@@ -502,7 +536,7 @@ def test_march_kernel_table_stride_equals_two_launches(table, radius, cuda_devic
     with the plain march of the stacked table as its oracle."""
     second = R.RefractionTable.build(
         Atmosphere(dataclasses.replace(us_76(), temperature_fixed_point=(0.0, 283.15))),
-        530e-9, h_hi=30000.0)
+        530e-9, h_hi=30000.0, device="cpu")
     n = min(table.values.shape[0], second.values.shape[0])
     one = [R.RefractionTable.from_values(t.values[:n].numpy(), t.h0, t.inv_dh, None,
                                          cuda_device) for t in (table, second)]

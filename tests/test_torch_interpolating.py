@@ -189,7 +189,7 @@ def _pixel_inputs(kg, has_objects, hp=9, wp=11, step=50.0):
     re = rng.random((23, 29)).astype(np.float32)
     rd = rng.random((23, 29)).astype(np.float32)
     re[::4] = 0.5
-    got = T._interpolate_pixels(interop.hits_from_arrays(**grid),
+    got = T._interpolate_pixels(interop.hits_from_arrays(**grid, device="cpu"),
                                 *(torch.from_numpy(x) for x in (gi, gj, re, rd)),
                                 step, 2 * kg, has_objects)
     jgrid = JHitBuffer(**{k: jnp.asarray(v) for k, v in grid.items()})
@@ -237,7 +237,7 @@ def test_grouping_kind_interleave_does_not_split():
         valid=np.ones(sh, bool), key=dist / 50.0, dlat=np.full(sh, 0.01),
         dlon=np.full(sh, 0.01), distance=dist, elevation=np.full(sh, 100.0),
         path_length=dist, normal=np.broadcast_to(np.array([0.0, 0.0, 1.0]), sh + (3,)),
-        kind=np.broadcast_to(np.array([1, 0, 1]), sh), rgba=np.ones(sh + (4,)),
+        kind=np.broadcast_to(np.array([1, 0, 1]), sh), rgba=np.ones(sh + (4,)), device="cpu",
     )
     zero = torch.zeros((1, 1), dtype=torch.int32)
     half = torch.full((1, 1), 0.5)

@@ -92,7 +92,7 @@ def _port_objects(jset):
     """The JAX ObjectSet carried across (interop), on the CPU."""
     arrays = [np.asarray(x) for x in jset.tree_flatten()[0]]
     return interop.objects_from_arrays(*arrays, seg_window=jset.seg_window,
-                                       host_meta=jset.host_meta)
+                                       host_meta=jset.host_meta, device="cpu")
 
 
 # -- host parts: bit for bit ---------------------------------------------------

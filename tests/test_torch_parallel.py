@@ -161,7 +161,7 @@ def test_kernel_launches_with_its_tensors_device_current(kernel, monkeypatch):
             torch.from_numpy(rng.normal(size=(4, 11)).astype(np.float32)),
             torch.from_numpy(rng.normal(size=(3, 11)).astype(np.float32)), 10, 1)
     else:
-        table = RefractionTable.from_values(np.zeros(64, np.float32), -2000.0, 1.0, None)
+        table = RefractionTable.from_values(np.zeros(64, np.float32), -2000.0, 1.0, None, "cpu")
         alt = torch.full((5,), 100.0)
         march_cuda(alt, torch.zeros(5), 40.0, 3, table, 6.371e6,
                    fine=(10.0, 4, 12), nodes=False, rays_per_cta=8)

@@ -95,7 +95,7 @@ def test_camera_device_twin_within_four_ulp(cam):
 def tables():
     jt = JR.RefractionTable.build(Atmosphere(us_76()), 530e-9)
     tt = interop.table_from_arrays(
-        np.asarray(jt.h0), np.asarray(jt.inv_dh), np.asarray(jt.values), jt.poly
+        np.asarray(jt.h0), np.asarray(jt.inv_dh), np.asarray(jt.values), jt.poly, "cpu"
     )
     return jt, tt
 
@@ -257,7 +257,7 @@ def test_cull_bounds_match_jax(tmp_path):
     make_terrain_folder(tmp_path, tiles=((49, 22),), n=41)
     jt, tt = JTerrain.from_folder(tmp_path), TTerrain.from_folder(tmp_path)
     box = ((48.7, 51.2), (20.6, 23.1))
-    jp, tp = jt.pack(*box), tt.pack(*box)
+    jp, tp = jt.pack(*box), tt.pack(*box, "cpu")
     assert tp.grad_bound == jp.grad_bound and tp.grad_bound > 0.0
     assert tp.seam_jump == jp.seam_jump and tp.seam_jump > 0.0
     rng = np.random.default_rng(4)
@@ -266,7 +266,7 @@ def test_cull_bounds_match_jax(tmp_path):
         jt.add_tile(JTile(la, lo, grid))
         tt.add_tile(TTile(la, lo, grid))
     box = ((49.1, 49.9), (21.1, 22.9))
-    jp, tp = jt.pack(*box), tt.pack(*box)
+    jp, tp = jt.pack(*box), tt.pack(*box, "cpu")
     assert (tp.grad_bound, tp.seam_jump) == (jp.grad_bound, jp.seam_jump)
 
 

@@ -254,7 +254,7 @@ def test_strided_march_plain_equals_frames_and_jax():
     stacked = interop.sweep_table_from_arrays(
         tables[0].h0, tables[0].inv_dh,
         np.stack([np.asarray(t.values)[:n_min] for t in tables]),
-        np.stack([np.asarray(t.pairs)[:n_min - 1] for t in tables]))
+        np.stack([np.asarray(t.pairs)[:n_min - 1] for t in tables]), "cpu")
     assert stacked.stacked and stacked.values.shape == (2, n_min)
     h_n, step, n = 33, 50.0, 330
     elev = np.deg2rad(np.linspace(-0.5, 1.0, h_n)).astype(np.float32)
@@ -263,7 +263,8 @@ def test_strided_march_plain_equals_frames_and_jax():
     h, p = TR.march_rays(torch.from_numpy(alts), torch.from_numpy(np.tile(elev, 2)), step, n,
                          shape, stacked, False, coarse=16, rays_per_frame=h_n)
     for f, jt in enumerate(tables):
-        one = interop.table_from_arrays(jt.h0, jt.inv_dh, np.asarray(jt.values)[:n_min], None)
+        one = interop.table_from_arrays(jt.h0, jt.inv_dh, np.asarray(jt.values)[:n_min], None,
+                                        "cpu")
         hf, pf = TR.march_rays(float(alts[f * h_n]), torch.from_numpy(elev), step, n, shape,
                                one, False, coarse=16)
         assert torch.equal(h[f * h_n:(f + 1) * h_n], hf)

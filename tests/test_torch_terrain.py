@@ -101,12 +101,12 @@ def _sample_points():
 def test_pack_layout_matches_jax(terrains):
     jt, tt = terrains
     box = ((48.7, 51.2), (20.6, 23.1))
-    jp, tp = jt.pack(*box), tt.pack(*box)
+    jp, tp = jt.pack(*box), tt.pack(*box, "cpu")
     assert (tp.lat_min, tp.lon_min, tp.n_rows, tp.n_cols) == (
         jp.lat_min, jp.lon_min, jp.n_rows, jp.n_cols)
     assert tp.tiles.dtype == torch.int16 and tp.tiles.shape[0] == 4
     np.testing.assert_array_equal(tp.rows_m1.numpy(), np.asarray(jp.rows_m1))
-    assert tt.pack(*box) is tp  # memoized per box and device
+    assert tt.pack(*box, "cpu") is tp  # memoized per box and device
     assert tt.get_elev(49.3, 21.4) == jt.get_elev(49.3, 21.4)
 
 
@@ -115,7 +115,7 @@ def test_pack_layout_matches_jax(terrains):
 def test_sample_terrain_data_matches_jax(terrains, cfg):
     jt, tt = terrains
     box = ((48.7, 51.2), (20.6, 23.1))
-    jp, tp = jt.pack(*box), tt.pack(*box)
+    jp, tp = jt.pack(*box), tt.pack(*box, "cpu")
     dlat, dlon = _sample_points()
     je, jn = j_sample(jp, JEarth.from_config(cfg), jnp.asarray(dlat),
                       jnp.asarray(dlon), LAT0, LON0)
@@ -136,12 +136,12 @@ def test_float_mosaic_through_interop():
     assert jp.quad is None
     tp = interop.pack_from_arrays(
         np.asarray(jp.tiles), np.asarray(jp.rows_m1), np.asarray(jp.cols_m1),
-        jp.lat_min, jp.lon_min, jp.n_rows, jp.n_cols,
+        jp.lat_min, jp.lon_min, jp.n_rows, jp.n_cols, "cpu",
     )
     own = TTerrain()
     for la, lo in ((49, 21), (49, 22)):
         own.add_tile(TTile(la, lo, jt._loaded[(la, lo)].elev))
-    own_pack = own.pack((49.1, 49.9), (21.1, 22.9))
+    own_pack = own.pack((49.1, 49.9), (21.1, 22.9), "cpu")
     assert torch.equal(own_pack.tiles, tp.tiles)
     dlat, dlon = _sample_points()
     dlat, dlon = dlat * 0.4, dlon * 0.9 + 0.5
