@@ -12,7 +12,9 @@ and is never chosen for the user: without a GPU the command fails loudly;
 
 ``gen`` renders the Fast, Rectilinear and InterpolatingRectilinear
 generators, scene objects included, draws the annotation overlays, and
-writes the metadata artifact (``--output-meta``). ``gen --shard`` splits the
+writes the metadata artifact (``--output-meta``). On a CUDA device, Fast
+takes the banded render (``render_fast_streamed``, one progress line a
+band); on the CPU, ``render_fast``. ``gen --shard`` splits the
 frame over every visible device of ``--device``'s type
 (``parallel.mesh``); with fewer than two it renders on the one device.
 """
@@ -86,7 +88,7 @@ def run_gen(args) -> int:
     import torch
 
     from .config import Config, merge_cli, parse_config
-    from .generators.fast import render_fast
+    from .generators.fast import render_fast, render_fast_streamed
     from .generators.interpolating import render_interpolating
     from .generators.rectilinear import render_rectilinear
     from .meta.serialize import save_metadata
@@ -138,7 +140,11 @@ def run_gen(args) -> int:
         result = render_rectilinear(params, terrain, device, progress=progress)
     elif generator == "InterpolatingRectilinear":  # one launch sequence
         result = render_interpolating(params, terrain, device, progress=progress)
-    else:  # Fast is one launch sequence: its only line is the last
+    elif device.type == "cuda":
+        # banded: one line a band while the bands' images stream to the host
+        # (the JAX CLI's route on the accelerator, its cli.py:133-145)
+        result = render_fast_streamed(params, terrain, device, bands=8, progress=progress)
+    else:  # Fast on the CPU is one launch sequence: its only line is the last
         result = render_fast(params, terrain, device)
         progress(100)
     phase("Outputting image...")

@@ -48,7 +48,7 @@ from ..physics.atmosphere import Atmosphere
 from ..physics.ray import EarthShape, RefractionTable, march_coarse, march_rays
 from ..terrain.sample import sample_terrain_data
 from ..terrain.store import Terrain, TerrainPack
-from .base import HitBuffer, RenderResult
+from .base import HitBuffer, RenderResult, fetch_flat, fetch_pool, submit_fetch
 
 
 def terrain_bbox(params: Params) -> Tuple[Tuple[float, float], Tuple[float, float]]:
@@ -152,6 +152,28 @@ def march_rows(table: Optional[RefractionTable], elev_deg: torch.Tensor, alt0,
     )
 
 
+def march_frames(table: Optional[RefractionTable], elev_deg: torch.Tensor,
+                 alt0: torch.Tensor, *, shape: EarthShape, straight: bool, step: float,
+                 n_terr: int, plain: bool = False):
+    """Stage 1 for F frames: the rows of ``elev_deg`` ([F, H], or [H] shared
+    by the frames) from the altitudes ``alt0`` [F], one march over the F·H
+    rays; (ray_h, path_len) [F, H, n_terr]."""
+    f_n, h_n = alt0.shape[0], elev_deg.shape[-1]
+    alt_rows = alt0.to(torch.float32)[:, None].expand(f_n, h_n).reshape(-1)
+    ray_h, path_len = march_rows(
+        table, elev_deg.expand(f_n, h_n).reshape(-1), alt_rows, shape=shape,
+        straight=straight, step=step, n_terr=n_terr, plain=plain, rays_per_frame=h_n)
+    return ray_h.reshape(f_n, h_n, -1), path_len.reshape(f_n, h_n, -1)
+
+
+def frame_altitudes(alt0, device) -> torch.Tensor:
+    """One frame's altitude as a [1] tensor, filled on ``device`` (no copy
+    from host memory); a tensor as it is, [1]."""
+    if isinstance(alt0, torch.Tensor):
+        return alt0.reshape(1)
+    return torch.full((1,), float(alt0), dtype=torch.float32, device=device)
+
+
 def column_geodesic(model: EarthModel, az_deg: torch.Tensor, lat0: float,
                     lon0: float, step: float, n_terr: int):
     """(dlat, dlon) [W, n_terr] degrees along each column's geodesic at
@@ -177,7 +199,7 @@ def separable_hits(pack: TerrainPack, table: Optional[RefractionTable],
                    lon0: float, terrain_alpha: float,
                    objects: Optional[ObjectSet] = None, obj_windows=None,
                    obj_hit_cap: int = OBJ_HIT_CAP, plain: bool = False,
-                   obj_overlap: Optional[int] = None) -> HitBuffer:
+                   obj_overlap: Optional[int] = None, march=None) -> HitBuffer:
     """Hits on the separable (elevation-row × azimuth-column) grid.
 
     Shared by the Fast generator (camera rows and columns) and the
@@ -200,22 +222,20 @@ def separable_hits(pack: TerrainPack, table: Optional[RefractionTable],
 
     ``plain`` runs the march and the combine as their plain PyTorch
     versions on whatever device the tensors are on (the kernels' oracle on
-    the card); otherwise CUDA tensors go through the kernels.
+    the card); otherwise CUDA tensors go through the kernels. ``march``,
+    the (ray_h, path_len) [F, H, n_terr] of ``march_frames`` for these rows,
+    skips the march (the banded render marches once for all its bands).
     """
     one_frame = az_deg.ndim == 1
     if one_frame:
         az_deg = az_deg[None]
-        alt0 = (alt0.reshape(1) if isinstance(alt0, torch.Tensor) else  # filled on the
-                torch.full((1,), float(alt0), dtype=torch.float32,   # device: no copy
-                           device=az_deg.device))                    # from host memory
+        alt0 = frame_altitudes(alt0, az_deg.device)
     # flatten the frames' rays and columns, then split them again
     f_n, w_n = az_deg.shape
-    h_n = elev_deg.shape[-1]
-    alt_rows = alt0.to(torch.float32)[:, None].expand(f_n, h_n).reshape(-1)
-    ray_h, path_len = march_rows(
-        table, elev_deg.expand(f_n, h_n).reshape(-1), alt_rows, shape=shape,
-        straight=straight, step=step, n_terr=n_terr, plain=plain, rays_per_frame=h_n)
-    ray_h, path_len = ray_h.reshape(f_n, h_n, -1), path_len.reshape(f_n, h_n, -1)
+    if march is None:
+        march = march_frames(table, elev_deg, alt0, shape=shape, straight=straight,
+                             step=step, n_terr=n_terr, plain=plain)
+    ray_h, path_len = march
     dlat, dlon = column_geodesic(model, az_deg.reshape(-1), lat0, lon0, step, n_terr)
     terr_elev, terr_normal = sample_terrain_data(pack, model, dlat, dlon, lat0, lon0)
     dlat, dlon, terr_elev = (x.reshape(f_n, w_n, n_terr) for x in (dlat, dlon, terr_elev))
@@ -300,17 +320,18 @@ def fast_core(pack: TerrainPack, table: Optional[RefractionTable],
               objects: Optional[ObjectSet] = None, obj_windows=None,
               obj_hit_cap: int = OBJ_HIT_CAP, plain: bool = False,
               obj_overlap: Optional[int] = None,
-              light_dir: Optional[torch.Tensor] = None):
+              light_dir: Optional[torch.Tensor] = None, march=None):
     """The whole Fast pipeline on one device: (image [H, W, 3] u8, hits), or
     a sweep's [F, H, W, 3] with the frames of ``separable_hits``.
     ``light_dir`` (float32 [3], or [F, 3] one a frame) overrides the
-    coloring's light (JAX ``fast_core(light_dir=)``)."""
+    coloring's light (JAX ``fast_core(light_dir=)``); ``march``: see
+    ``separable_hits``."""
     hits = separable_hits(
         pack, table, elev_deg, az_deg, alt0, model=model, shape=shape,
         straight=straight, step=step, n_terr=n_terr, max_hits=max_hits,
         lat0=lat0, lon0=lon0, terrain_alpha=terrain_alpha, objects=objects,
         obj_windows=obj_windows, obj_hit_cap=obj_hit_cap, plain=plain,
-        obj_overlap=obj_overlap,
+        obj_overlap=obj_overlap, march=march,
     )
     if light_dir is not None:  # broadcast over the [H, W, K] of each frame
         light_dir = light_dir.reshape(light_dir.shape[:-1] + (1, 1, 1, 3))
@@ -322,52 +343,182 @@ def fast_core(pack: TerrainPack, table: Optional[RefractionTable],
     return image, hits
 
 
-def render_fast(params: Params, terrain: Terrain, device,
-                max_hits: Optional[int] = None, plain: bool = False,
-                obj_hit_cap: int = OBJ_HIT_CAP) -> RenderResult:
-    """Full Fast-generator render from lowered Params (fast.rs:22-98) on
-    ``device``. The image comes back to the host; the hits stay on device.
-    ``obj_hit_cap``: see ``separable_hits``."""
-    device = torch.device(device)
-    out = params.output
-    frame = params.view.frame
-    pos = params.view.position
-    alt0 = pos.abs_altitude(terrain)
-
+def _fast_setup(params: Params, terrain: Terrain, device, max_hits: Optional[int]):
+    """What a Fast render of ``params`` needs before its first launch: the
+    camera angles (host), the terrain pack and the table on ``device``, the
+    march length and the hit depth."""
+    out, frame = params.output, params.view.frame
+    alt0 = params.view.position.abs_altitude(terrain)
     elev_deg = camera.fast_ray_elevations(out.width, out.height, frame.fov, frame.tilt)
     az_deg = camera.fast_ray_azimuths(out.width, out.height, frame.fov, frame.direction)
-
-    lat_rng, lon_rng = terrain_bbox(params)
-    pack = terrain.pack(lat_rng, lon_rng, device)
+    pack = terrain.pack(*terrain_bbox(params), device)
     table = build_refraction_table(params, alt0, device)
     n_terr = int(math.ceil(frame.max_distance / params.simulation_step))
     if max_hits is None:
         max_hits = 1 if params.terrain_alpha >= 1.0 else 4
-    objects, obj_windows = build_objects_cached(params, az_deg, n_terr, device)
+    return alt0, elev_deg, az_deg, pack, table, n_terr, int(max_hits)
 
-    image, hits = fast_core(
-        pack, table,
-        torch.from_numpy(elev_deg.astype(np.float32)).to(device),
-        torch.from_numpy(az_deg.astype(np.float32)).to(device),
-        float(alt0),
+
+def core_kwargs(params: Params, n_terr: int) -> dict:
+    """The keyword arguments every core takes from ``params``."""
+    pos = params.view.position
+    return dict(
         model=params.model,
         shape=params.model.to_shape(),
         straight=params.straight_rays,
         step=float(params.simulation_step),
         n_terr=n_terr,
-        max_hits=int(max_hits),
         lat0=float(pos.latitude),
         lon0=float(pos.longitude),
         coloring=params.coloring,
         fog_distance=params.view.fog_distance,
         terrain_alpha=float(params.terrain_alpha),
+    )
+
+
+def device_f32(x: np.ndarray, device) -> torch.Tensor:
+    """A host array as a float32 tensor on ``device``."""
+    return torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(device)
+
+
+def render_fast(params: Params, terrain: Terrain, device,
+                max_hits: Optional[int] = None, plain: bool = False,
+                obj_hit_cap: int = OBJ_HIT_CAP, fetch_image: bool = True) -> RenderResult:
+    """Full Fast-generator render from lowered Params (fast.rs:22-98) on
+    ``device``. The image comes back to the host (``base.fetch_flat``), or
+    stays a device tensor with ``fetch_image=False``; the hits stay on
+    device. ``obj_hit_cap``: see ``separable_hits``."""
+    device = torch.device(device)
+    pos = params.view.position
+    alt0, elev_deg, az_deg, pack, table, n_terr, max_hits = _fast_setup(
+        params, terrain, device, max_hits)
+    objects, obj_windows = build_objects_cached(params, az_deg, n_terr, device)
+
+    image, hits = fast_core(
+        pack, table, device_f32(elev_deg, device), device_f32(az_deg, device), float(alt0),
         objects=objects,
         obj_windows=obj_windows,
         obj_hit_cap=int(obj_hit_cap),
         plain=plain,
+        max_hits=max_hits,
+        **core_kwargs(params, n_terr),
     )
     return RenderResult(
-        image=image.cpu().numpy(),
+        image=fetch_flat(image).reshape(image.shape) if fetch_image else image,
+        hits=hits,
+        elevation_deg=elev_deg,
+        azimuth_deg=camera.wrap_azimuth_deg(az_deg),
+        observer=(pos.latitude, pos.longitude, alt0),
+    )
+
+
+def _largest_band_divisor(w: int, bands: int) -> int:
+    """The most bands, at most ``bands``, that split ``w`` columns evenly."""
+    for b in range(min(bands, w), 0, -1):
+        if w % b == 0:
+            return b
+    return 1
+
+
+# the exception cap of a streamed band (JAX ``render_fast_streamed``); a band
+# with more exceptions in a channel is fetched again raw
+STREAM_EXC_CAP = 256
+
+
+def _stream_bands(pool, pack, table, elev, az, alt0: float, march, b: int, kw: dict,
+                  compact: bool, exc_cap: int):
+    """Launch each of ``b`` azimuth bands and submit its image's fetch on
+    ``pool``, with no host sync: (band images, band hits, fetched outs,
+    handles), the outs valid once their handles have returned."""
+    from ..meta.pack import pack_frame_stream
+
+    wb = az.shape[0] // b
+    band_imgs, band_hits, outs, handles = [], [], [], []
+    for i in range(b):
+        image_b, hits_b = fast_core(pack, table, elev, az[i * wb:(i + 1) * wb], alt0,
+                                    march=march, **kw)
+        band_imgs.append(image_b)
+        band_hits.append(hits_b)
+        segs = pack_frame_stream(hits_b.valid, image_b, exc_cap) if compact else (image_b,)
+        o, hs = submit_fetch(pool, segs)
+        outs.append(o)
+        handles.append(hs)
+    return band_imgs, band_hits, outs, handles
+
+
+def render_fast_streamed(params: Params, terrain: Terrain, device, bands: int = 8,
+                         max_hits: Optional[int] = None, progress=None,
+                         compact: bool = False) -> RenderResult:
+    """Banded Fast render: march once, combine per column band, stream
+    (JAX ``render_fast_streamed``, fast.py:579-728).
+
+    The frame splits into ``_largest_band_divisor(W, bands)`` contiguous
+    azimuth bands that share one march (one K2 launch); each band is one
+    ``fast_core`` (one K1 launch), and its image leaves through
+    ``submit_fetch`` as soon as it is enqueued, so its copy runs on the copy
+    stream while later bands compute. With ``compact`` a band leaves through
+    ``meta.pack.pack_frame_stream`` (bitmask + 4-bit channel deltas, static
+    shapes: no sync to learn a count); a band whose exceptions overflow
+    ``STREAM_EXC_CAP`` is fetched again raw from its image, still on the
+    device.
+    ``compact`` is off by default, unlike JAX's: on an H100 the codec's
+    launches and its host decode cost far more than the link time it saves
+    (PERF.md §6).
+    ``progress`` gets one monotone percent a band, ending at 100. The hits
+    are concatenated on the device.
+
+    The image and the hits equal ``render_fast``'s: every stage is per
+    column, so a band computes its columns as the whole frame does. On the
+    card that holds bit for bit at any shape. On the CPU it holds where
+    each band keeps its columns' places in PyTorch's vectorized loops (one
+    thread; band width × samples and rows × band width × slots multiples
+    of the vector width): its atan2 rounds differently in a loop's scalar
+    tail (PERF.md §6). Scene objects take ``render_fast``, as JAX's do.
+    """
+    if params.objects:
+        result = render_fast(params, terrain, device, max_hits=max_hits)
+        if progress is not None:
+            progress(100)
+        return result
+    from ..meta.pack import frame_base_rgb, unpack_frame_stream
+
+    device = torch.device(device)
+    pos = params.view.position
+    alt0, elev_deg, az_deg, pack, table, n_terr, max_hits = _fast_setup(
+        params, terrain, device, max_hits)
+    kw = dict(core_kwargs(params, n_terr), max_hits=max_hits)
+    h, w = params.output.height, params.output.width
+    b = _largest_band_divisor(w, max(1, int(bands)))
+    wb = w // b
+    elev = device_f32(elev_deg, device)
+    az = device_f32(az_deg, device)
+    exc_cap = STREAM_EXC_CAP
+    march = march_frames(table, elev, frame_altitudes(alt0, device), shape=kw["shape"],
+                         straight=kw["straight"], step=kw["step"], n_terr=n_terr)
+
+    with fetch_pool() as pool:
+        band_imgs, band_hits, outs, handles = _stream_bands(
+            pool, pack, table, elev, az, float(alt0), march, b, kw, compact, exc_cap)
+        for i, hs in enumerate(handles):
+            for handle in hs:
+                handle.result()
+            if progress is not None:
+                progress(int(round(100.0 * (i + 1) / b)))
+
+    if compact:
+        sky = frame_base_rgb(params.coloring, params.view.fog_distance)
+        slabs = []
+        for o, image_b in zip(outs, band_imgs):
+            slab = unpack_frame_stream(*o, sky, h, wb, exc_cap)
+            if slab is None:  # an exception channel overflowed: the raw band
+                slab = fetch_flat(image_b).reshape(h, wb, 3)
+            slabs.append(slab)
+    else:
+        slabs = [o[0].reshape(h, wb, 3) for o in outs]
+    hits = HitBuffer(**{f.name: torch.cat([getattr(x, f.name) for x in band_hits], dim=1)
+                        for f in dataclasses.fields(HitBuffer)})
+    return RenderResult(
+        image=np.concatenate(slabs, axis=1),
         hits=hits,
         elevation_deg=elev_deg,
         azimuth_deg=camera.wrap_azimuth_deg(az_deg),

@@ -39,7 +39,7 @@ from ..config import Params
 from ..models import camera
 from ..ops.composite import composite
 from ..terrain.store import Terrain
-from .base import HitBuffer, RenderResult
+from .base import HitBuffer, RenderResult, fetch_flat
 from .fast import (
     build_objects_cached,
     build_refraction_table,
@@ -416,12 +416,14 @@ def _camera_grids(width, height, fov, tilt, direction):
 
 def render_interpolating(params: Params, terrain: Terrain, device,
                          max_hits: Optional[int] = None, progress=None,
-                         plain: bool = False) -> RenderResult:
+                         plain: bool = False, fetch_image: bool = True) -> RenderResult:
     """Full InterpolatingRectilinear render (:110-161) on ``device``.
 
     The snapped grid's march and combine go through K2 and K1 on a CUDA
-    device unless ``plain``. The image comes back to the host; the hits stay
-    on the device; the angle grids are the host f64 bilinear ones [H, W].
+    device unless ``plain``. The image comes back to the host
+    (``base.fetch_flat``), or stays a device tensor with ``fetch_image=False``;
+    the hits stay on the device; the angle grids are the host f64 bilinear
+    ones [H, W].
     ``progress`` (if given) receives a single final 100: the frame is one
     launch sequence. Scene objects are planned on the grid's azimuths.
     """
@@ -467,7 +469,7 @@ def render_interpolating(params: Params, terrain: Terrain, device,
         obj_windows=obj_windows,
         plain=plain,
     )
-    image_host = image.cpu().numpy()
+    image_host = fetch_flat(image).reshape(image.shape) if fetch_image else image
     if progress is not None:
         progress(100)
     return RenderResult(

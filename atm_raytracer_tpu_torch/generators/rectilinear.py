@@ -56,7 +56,7 @@ from ..physics.ray import (
 )
 from ..terrain.sample import sample_elevation, sample_terrain_data
 from ..terrain.store import Terrain, TerrainPack
-from .base import HitBuffer, RenderResult
+from .base import HitBuffer, RenderResult, fetch_flat
 from .fast import build_refraction_table, terrain_bbox, terrain_columns
 
 M_CAND = 4  # candidate blocks captured per pixel per round (culled path)
@@ -721,7 +721,8 @@ def _frame_hits(parts, h: int, w: int) -> HitBuffer:
 
 def render_rectilinear(params: Params, terrain: Terrain, device,
                        max_hits: Optional[int] = None, cull: bool = True,
-                       plain: bool = False, progress=None) -> RenderResult:
+                       plain: bool = False, progress=None,
+                       fetch_image: bool = True) -> RenderResult:
     """Full Rectilinear render (rectilinear.rs:24-60) on ``device``.
 
     tilt 0 takes the fused shared-column path, or with scene objects the
@@ -729,7 +730,8 @@ def render_rectilinear(params: Params, terrain: Terrain, device,
     tilted opaque object-free frame (K = 1) the
     envelope-culled path; anything else, or ``cull=False``, the dense
     pixelwise path. The march of the last two goes through the march kernel
-    on a CUDA device unless ``plain``. The image comes back to the host;
+    on a CUDA device unless ``plain``. The image comes back to the host
+    (``base.fetch_flat``), or stays a device tensor with ``fetch_image=False``;
     the hits stay on the device. The angle grids of the result are the host
     f64 ones. ``progress`` (if given) receives monotone whole-percent values
     from the host loops (windows of the tilt-0 scan, row chunks, culled
@@ -801,7 +803,7 @@ def render_rectilinear(params: Params, terrain: Terrain, device,
         hits = _frame_hits([p[1] for p in parts], h, w)
     emit(1.0)
     return RenderResult(
-        image=image.cpu().numpy(),
+        image=fetch_flat(image).reshape(image.shape) if fetch_image else image,
         hits=hits,
         elevation_deg=np.rad2deg(elev_rad),
         azimuth_deg=np.rad2deg(dir_rad),

@@ -19,9 +19,9 @@ planes) stay readable.
 ``fmt="reference"`` writes the reference binary's gzip(bincode(AllData))
 layout through :mod:`.bincode`.
 
-The compaction runs where the hits live (``_pack_artifact``): one boolean
-index per field after a single host sync for the count. Loaded artifacts
-come back as CPU tensors.
+The compaction runs where the hits live (``_pack_artifact``): one index per
+field after a single host sync for the count, then one batched fetch of the
+bitmask and the fields. Loaded artifacts come back as CPU tensors.
 """
 
 from __future__ import annotations
@@ -33,7 +33,7 @@ import numpy as np
 import torch
 
 from ..config import Config
-from ..generators.base import HitBuffer, RenderResult
+from ..generators.base import HitBuffer, RenderResult, fetch_flat_many
 
 FORMAT_VERSION = 2
 
@@ -46,23 +46,26 @@ def _pack_artifact(hits: HitBuffer):
     """Valid-slot compaction of every stored field, on the hits' device.
 
     Returns host arrays: (bits u32 [ceil(P/32)], count, {field: [count,
-    ...]}) with the valid slots in flat C order. The 32-bit validity words
-    are summed in int64 on the device (PyTorch's CUDA uint32 arithmetic is
-    thin) and narrowed to u32 on the host; ``kind`` narrows to u8 there.
+    ...]}) with the valid slots in flat C order. One host sync learns the
+    count; the bitmask (``meta.pack._bitmask``: u32 words as int32 bits)
+    and the eight compacted fields then come over in one
+    ``fetch_flat_many``. ``kind`` narrows to u8 on the host.
     """
+    from .pack import _bitmask, _u32
+
     vflat = hits.valid.reshape(-1)
     p = vflat.shape[0]
     idx = torch.nonzero(vflat).squeeze(1)  # the one host sync: the count
-    words = torch.nn.functional.pad(vflat.to(torch.int64), (0, (-p) % 32))
-    pow2 = torch.pow(2, torch.arange(32, dtype=torch.int64, device=vflat.device))
-    bits = (words.reshape(-1, 32) * pow2).sum(dim=1)
-    segments = {}
-    for name in PACKED_FIELDS:
-        x = getattr(hits, name)
-        x = x.reshape((p,) + x.shape[hits.valid.ndim:])
-        segments[name] = x.index_select(0, idx).cpu().numpy()
+    n = int(idx.shape[0])
+    fields = [getattr(hits, name) for name in PACKED_FIELDS]
+    trailing = [x.shape[hits.valid.ndim:] for x in fields]
+    bits, *flats = fetch_flat_many(
+        [_bitmask(vflat)]
+        + [x.reshape((p,) + t).index_select(0, idx) for x, t in zip(fields, trailing)])
+    segments = {name: flat.reshape((n,) + t)
+                for name, flat, t in zip(PACKED_FIELDS, flats, trailing)}
     segments["kind"] = segments["kind"].astype(np.uint8)
-    return bits.cpu().numpy().astype(np.uint32), int(idx.shape[0]), segments
+    return _u32(bits), n, segments
 
 
 def save_metadata(path, config: Config, result: RenderResult,

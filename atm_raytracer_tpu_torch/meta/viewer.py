@@ -22,7 +22,7 @@ from typing import Optional
 import numpy as np
 
 from ..config import Config
-from ..generators.base import RenderResult
+from ..generators.base import RenderResult, fetch_flat
 from ..ops.composite import composite
 from ..render.image import save_png
 from .serialize import load_metadata
@@ -40,7 +40,7 @@ def _render_from_metadata(config: Config, result: RenderResult,
         hits.distance, hits.elevation, hits.path_length, hits.normal,
         hits.kind, hits.rgba[..., :3],
     )
-    return img.cpu().numpy()
+    return fetch_flat(img).reshape(img.shape)
 
 
 def _dms(value: float, pos: str, neg: str) -> str:

@@ -26,6 +26,17 @@ class ColoringParams:
     palette: str = "Improved"
 
 
+def on_device(values, device, dtype=torch.float32) -> torch.Tensor:
+    """Host constants as a tensor on ``device`` without a host sync: a CUDA
+    upload goes non-blocking from page-locked memory (a pageable ``.to``
+    waits for the device's queue to drain, which would stall a banded
+    render's loop)."""
+    t = torch.as_tensor(np.asarray(values)).to(dtype)
+    if torch.device(device).type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
+
+
 def quantize_u8_grid(x: torch.Tensor) -> torch.Tensor:
     """(x*255) as u8 / 255: Rust float→int casts truncate and saturate."""
     return torch.trunc(x.clamp(0.0, 1.0) * 255.0) / 255.0
@@ -76,7 +87,7 @@ def _palette_colors(palette: str):
 def _elev_ramp(elev: torch.Tensor, palette: str) -> torch.Tensor:
     thr, cols, _, _ = _palette_colors(palette)
     t1, t2, t3, t4 = thr
-    g, base, mid, top = [torch.from_numpy(c).to(elev.device) for c in cols]
+    g, base, mid, top = [on_device(c, elev.device) for c in cols]
 
     def lerp(a, b, p):
         return a * (1.0 - p[..., None]) + b * p[..., None]
@@ -123,14 +134,13 @@ def color_hits(params: ColoringParams, distance, elevation, normal, kind, rgb,
         return torch.where((elevation <= params.water_level)[..., None], water, land)
 
     # Shading: ambient + (1 − ambient)·max(L·N, 0)² (shading.rs:108-112)
-    light = (torch.tensor(params.light_dir, dtype=torch.float32, device=normal.device)
-             if light_dir is None else light_dir)
+    light = on_device(params.light_dir, normal.device) if light_dir is None else light_dir
     light_dot = (normal * light).sum(-1).clamp(min=0.0)
     brightness = params.ambient_light + (1.0 - params.ambient_light) * light_dot ** 2
     _, _, _, water_col = _palette_colors(params.palette)
     terrain_col = torch.where(
         (elevation <= params.water_level)[..., None],
-        torch.from_numpy(water_col).to(normal.device),
+        on_device(water_col, normal.device),
         _elev_ramp(elevation, params.palette),
     )
     base = torch.where((kind == 1)[..., None], rgb, terrain_col)

@@ -12,7 +12,14 @@ from typing import Optional
 
 import torch
 
-from .coloring import ColoringParams, color_hits, fog_color, quantize_u8_grid, sky_color
+from .coloring import (
+    ColoringParams,
+    color_hits,
+    fog_color,
+    on_device,
+    quantize_u8_grid,
+    sky_color,
+)
 
 
 def apply_fog(color: torch.Tensor, path_length: torch.Tensor,
@@ -20,7 +27,7 @@ def apply_fog(color: torch.Tensor, path_length: torch.Tensor,
     """coeff = 1 − exp(−path_length/fog_dist), mixed toward rgb(160,160,160)
     and truncated to the u8 grid (renderer/mod.rs:367-376)."""
     coeff = 1.0 - torch.exp(-path_length / fog_dist)
-    fogc = torch.from_numpy(fog_color()).to(color.device)
+    fogc = on_device(fog_color(), color.device)
     return quantize_u8_grid(color * (1.0 - coeff[..., None]) + fogc * coeff[..., None])
 
 
@@ -32,10 +39,9 @@ def composite(coloring: ColoringParams, fog_distance: Optional[float], valid,
     colors = color_hits(coloring, distance, elevation, normal, kind, rgb, light_dir)
     if fog_distance is not None:
         colors = apply_fog(colors, path_length, fog_distance)
-        def_color = torch.from_numpy(fog_color())
+        def_color = on_device(fog_color(), colors.device)
     else:
-        def_color = torch.from_numpy(sky_color(coloring))
-    def_color = def_color.to(device=colors.device, dtype=torch.float32)
+        def_color = on_device(sky_color(coloring), colors.device)
 
     a = torch.where(valid, alpha, torch.zeros_like(alpha))
     # The reference re-quantizes the running sum to the u8 grid after EVERY

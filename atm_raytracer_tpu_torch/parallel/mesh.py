@@ -43,7 +43,8 @@ from ..config import Config, Params
 from ..generators import fast as fast_mod
 from ..generators import interpolating as interp_mod
 from ..generators import rectilinear as rect_mod
-from ..generators.base import HitBuffer, RenderResult
+from ..generators.base import HitBuffer, RenderResult, fetch_flat
+from ..generators.fast import core_kwargs, device_f32
 from ..models import camera
 from ..ops.composite import composite
 from ..ops.objects import ObjectSet, max_window_overlap
@@ -97,29 +98,8 @@ def _gather_hits(parts, axis: int, device, stop: Optional[int] = None) -> HitBuf
     return HitBuffer(**fields)
 
 
-def _core_kwargs(params: Params, n_terr: int) -> dict:
-    """The keyword arguments every core takes from ``params``."""
-    pos = params.view.position
-    return dict(
-        model=params.model,
-        shape=params.model.to_shape(),
-        straight=params.straight_rays,
-        step=float(params.simulation_step),
-        n_terr=n_terr,
-        lat0=float(pos.latitude),
-        lon0=float(pos.longitude),
-        coloring=params.coloring,
-        fog_distance=params.view.fog_distance,
-        terrain_alpha=float(params.terrain_alpha),
-    )
-
-
 def _n_terr(params: Params) -> int:
     return int(math.ceil(params.view.frame.max_distance / params.simulation_step))
-
-
-def _f32(x: np.ndarray, device) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(device)
 
 
 def render_fast_sharded(params: Params, terrain: Terrain, mesh: Sequence[torch.device],
@@ -135,7 +115,7 @@ def render_fast_sharded(params: Params, terrain: Terrain, mesh: Sequence[torch.d
     n_terr = _n_terr(params)
     if max_hits is None:
         max_hits = 1 if params.terrain_alpha >= 1.0 else 4
-    kw = _core_kwargs(params, n_terr)
+    kw = core_kwargs(params, n_terr)
 
     images, parts = [], []
     for dev, (c0, c1) in zip(mesh, _shards(az_padded.shape[0], len(mesh))):
@@ -144,7 +124,7 @@ def render_fast_sharded(params: Params, terrain: Terrain, mesh: Sequence[torch.d
         image, hits = fast_mod.fast_core(
             terrain.pack(*fast_mod.terrain_bbox(params), dev),
             fast_mod.build_refraction_table(params, alt0, dev),
-            _f32(elev_deg, dev), _f32(az_padded[c0:c1], dev), float(alt0),
+            device_f32(elev_deg, dev), device_f32(az_padded[c0:c1], dev), float(alt0),
             max_hits=int(max_hits), objects=objects,
             obj_windows=_shard_windows(windows, c0, c1),
             obj_overlap=(None if objects is None
@@ -156,7 +136,7 @@ def render_fast_sharded(params: Params, terrain: Terrain, mesh: Sequence[torch.d
     dev0 = mesh[0]
     image = torch.cat([im.to(dev0) for im in images], dim=1)[:, :true_w]
     return RenderResult(
-        image=image.cpu().numpy(),
+        image=fetch_flat(image).reshape(image.shape),
         hits=_gather_hits(parts, 1, dev0, true_w),
         elevation_deg=elev_deg,
         azimuth_deg=camera.wrap_azimuth_deg(az_deg),
@@ -253,7 +233,7 @@ def render_sweep_sharded(
             dataclasses.replace(frame, direction=float(d)), pos, params.model)
         lights.append(col.light_dir if col.light_dir is not None else (0.0, 0.0, 1.0))
     lights = np.asarray(lights, np.float32)  # [F, 3]
-    kw = _core_kwargs(params, n_terr)
+    kw = core_kwargs(params, n_terr)
     stacked = None
     if atmospheres is not None:
         # a table per distinct atmosphere, built on the first device and
@@ -273,17 +253,17 @@ def render_sweep_sharded(
                                         pairs=stacked.pairs[f0:f1].to(dev))
         image, hits = fast_mod.fast_core(
             terrain.pack(*fast_mod.terrain_bbox(params), dev), table,
-            _f32(elev_deg if elev_frames is None else elev_frames[f0:f1], dev),
-            _f32(az_frames[f0:f1], dev), _f32(alts[f0:f1], dev),
+            device_f32(elev_deg if elev_frames is None else elev_frames[f0:f1], dev),
+            device_f32(az_frames[f0:f1], dev), device_f32(alts[f0:f1], dev),
             max_hits=int(max_hits), objects=ObjectSet.build(params, dev),
-            light_dir=_f32(lights[f0:f1], dev), **kw,
+            light_dir=device_f32(lights[f0:f1], dev), **kw,
         )
         images.append(image)
         parts.append(hits)
     dev0 = mesh[0]
     frames = torch.cat([im.to(dev0) for im in images])[:f]
     if fetch_frames:
-        frames = frames.cpu().numpy()
+        frames = fetch_flat(frames).reshape(frames.shape)
     if not return_hits:
         return frames
     if return_hits == "valid":
@@ -316,7 +296,7 @@ def render_interpolating_sharded(params: Params, terrain: Terrain,
     n_terr = _n_terr(params)
     if max_hits is None:
         max_hits = 2 if params.terrain_alpha >= 1.0 else 4
-    kw = _core_kwargs(params, n_terr)
+    kw = core_kwargs(params, n_terr)
     coloring, fog = kw.pop("coloring"), kw.pop("fog_distance")
 
     grid_parts = []
@@ -327,7 +307,7 @@ def render_interpolating_sharded(params: Params, terrain: Terrain,
         grid_parts.append(fast_mod.separable_hits(
             terrain.pack(*fast_mod.terrain_bbox(params), dev),
             fast_mod.build_refraction_table(params, alt0, dev),
-            _f32(grid_elev_deg, dev), _f32(grid_az_pad[c0:c1], dev), alt0,
+            device_f32(grid_elev_deg, dev), device_f32(grid_az_pad[c0:c1], dev), alt0,
             max_hits=1 if (objects is None and params.terrain_alpha >= 1.0) else int(max_hits),
             objects=objects, obj_windows=_shard_windows(windows, c0, c1),
             obj_overlap=(None if objects is None
@@ -352,7 +332,7 @@ def render_interpolating_sharded(params: Params, terrain: Terrain,
     dev0 = mesh[0]
     image = torch.cat([im.to(dev0) for im in images])[: out.height]
     return RenderResult(
-        image=image.cpu().numpy(),
+        image=fetch_flat(image).reshape(image.shape),
         hits=_gather_hits(parts, 0, dev0, out.height),
         elevation_deg=elev_out,
         azimuth_deg=az_out,
@@ -377,7 +357,7 @@ def render_rectilinear_pixelwise_sharded(params: Params, terrain: Terrain,
     n_terr = _n_terr(params)
     if max_hits is None:
         max_hits = 1 if params.terrain_alpha >= 1.0 else 4
-    kw = _core_kwargs(params, n_terr)
+    kw = core_kwargs(params, n_terr)
 
     p_total = h * w
     chunk = rect_mod.PIXEL_ROWS * w
@@ -396,15 +376,15 @@ def render_rectilinear_pixelwise_sharded(params: Params, terrain: Terrain,
     for c0 in range(0, p_total + pad, chunk):
         for dev, (pack, table, objects), (s0, s1) in zip(mesh, inputs, _shards(chunk, n_dev)):
             image, hits = rect_mod.rectilinear_core(
-                pack, table, _f32(elev_flat[c0 + s0:c0 + s1], dev),
-                _f32(dir_flat[c0 + s0:c0 + s1], dev), alt0, max_hits=int(max_hits),
+                pack, table, device_f32(elev_flat[c0 + s0:c0 + s1], dev),
+                device_f32(dir_flat[c0 + s0:c0 + s1], dev), alt0, max_hits=int(max_hits),
                 objects=objects, **kw)
             images.append(image.to(dev0))
             parts.append(hits.to(dev0))
     image = torch.cat(images)[:p_total].reshape(h, w, 3)
     hits = _gather_hits(parts, 0, dev0, p_total)
     return RenderResult(
-        image=image.cpu().numpy(),
+        image=fetch_flat(image).reshape(image.shape),
         hits=rect_mod._frame_hits([hits], h, w),
         elevation_deg=np.rad2deg(elev_rad),
         azimuth_deg=np.rad2deg(dir_rad),
@@ -431,14 +411,14 @@ def render_rectilinear_sharded(params: Params, terrain: Terrain,
     n_terr = _n_terr(params)
     if max_hits is None:
         max_hits = 1 if params.terrain_alpha >= 1.0 else 4
-    kw = _core_kwargs(params, n_terr)
+    kw = core_kwargs(params, n_terr)
 
     rows_per = -(-h // len(mesh))
     images, parts = [], []
     for i, dev in enumerate(mesh):
         image, hits = rect_mod.fused_shared_core(
             terrain.pack(*fast_mod.terrain_bbox(params), dev),
-            fast_mod.build_refraction_table(params, alt0, dev), _f32(az_col, dev), alt0,
+            fast_mod.build_refraction_table(params, alt0, dev), device_f32(az_col, dev), alt0,
             cam=(w, h, float(frame.fov)), max_hits=int(max_hits),
             rows=torch.arange(i * rows_per, (i + 1) * rows_per, device=dev).clamp(max=h - 1),
             **kw)
@@ -447,7 +427,7 @@ def render_rectilinear_sharded(params: Params, terrain: Terrain,
     dev0 = mesh[0]
     image = torch.cat([im.to(dev0) for im in images])[:h]
     return RenderResult(
-        image=image.cpu().numpy(),
+        image=fetch_flat(image).reshape(image.shape),
         hits=_gather_hits(parts, 0, dev0, h),
         elevation_deg=np.rad2deg(elev_rad),
         azimuth_deg=np.rad2deg(dir_rad),

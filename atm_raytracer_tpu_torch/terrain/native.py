@@ -6,13 +6,18 @@ decodes baseline GeoTIFF tiles, each batch with one worker thread per tile
 ``geotiff-rs`` crates, batched. Their output is bit-equal to the Python
 parsers ``terrain.dted.read_dted`` and ``terrain.geotiff.read_geotiff``
 (flipped to south-first rows). Both libraries are built by g++ at first use
-(``_kernels.LOADERS``); a missing compiler or a failed build raises.
+(``_kernels.LOADERS``). Where one cannot be built (no g++, or no ``zlib.h``
+for the GeoTIFF loader), ``available()`` / ``gtif_available()`` print one
+line naming the build error and return False, and the store reads that
+format with the Python parsers, as the JAX package does without its
+libraries.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import sys
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -47,6 +52,34 @@ def _gtif() -> ctypes.CDLL:
     _bind(lib, "gtif_load_batch", [ctypes.c_char_p, ctypes.c_int, _C_FLOAT_P, _C_INT_P,
                                    ctypes.c_int, ctypes.c_int, ctypes.c_int], None)
     return lib
+
+
+def _buildable(load, what: str) -> bool:
+    """Whether ``load()`` binds its library; if not, one line on stderr
+    naming the build error (the caller's cache prints it once a process)."""
+    try:
+        load()
+        return True
+    except (RuntimeError, OSError) as e:
+        lines = [ln.strip() for ln in str(e).splitlines() if ln.strip()]
+        errors = [ln for ln in lines[1:] if "error" in ln.lower()]
+        reason = "; ".join(lines[:1] + errors[:1])
+        print(f"WARNING: the native {what} loader could not be built ({reason}); "
+              f"reading {what} tiles with the Python parser", file=sys.stderr)
+        return False
+
+
+@functools.cache
+def available() -> bool:
+    """Whether the DTED loader builds and loads here (JAX ``native.available``)."""
+    return _buildable(_dted, "DTED")
+
+
+@functools.cache
+def gtif_available() -> bool:
+    """Whether the GeoTIFF loader builds and loads here (JAX
+    ``native.gtif_available``)."""
+    return _buildable(_gtif, "GeoTIFF")
 
 
 def _blob(paths) -> bytes:

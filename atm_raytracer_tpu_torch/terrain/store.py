@@ -5,7 +5,8 @@ src/terrain/mod.rs:55-127): a map from (floor(lat), floor(lon)) to a 1°×1°
 tile, scanned from a folder (DTED keyed by header origin, GeoTIFF by its
 ``N49E021`` filename) and loaded lazily. ``Terrain.preload`` decodes the
 tiles a render can reach through the native loaders (``terrain/native.py``),
-one threaded call per format; ``Terrain.pack`` stacks them into one plain
+one threaded call per format, or with the Python parsers for a format whose
+loader cannot be built here; ``Terrain.pack`` stacks them into one plain
 [T, S, S] tensor on a device.
 """
 
@@ -57,13 +58,15 @@ def _load_tile(path: Path, lat0: int, lon0: int, use_native: bool = True) -> Til
     """One tile, through the native loaders first. A file they do not read
     (not DTED, a TIFF without inline width and height, a compression or
     sample format they lack) goes to the Python parsers, which read it or
-    raise; ``use_native=False`` takes the Python parsers alone."""
-    if use_native:
+    raise; ``use_native=False``, or a loader that cannot be built here
+    (``native.available``), takes the Python parsers."""
+    if use_native and native.available():
         info = native.probe(path)
         if info is not None:
             res = native.load_batch([path], info[2], info[3])
             if res[2][0] == 0:
                 return Tile(lat0=lat0, lon0=lon0, elev=res[0][0])
+    if use_native and native.gtif_available():
         info = native.gtif_probe(path)
         if info is not None:
             elev, status = native.gtif_load_batch([path], *info)
@@ -171,17 +174,18 @@ class Terrain:
         ``native.gtif_load_batch``), so a mosaic of dozens of tiles parses
         in parallel. Every tile fills its slot of its group's batch, so the
         tiles keep the batch as their arrays and no padding stays alive. A
-        file the native probes or decoders do not take, and every file of a
-        ``native=False`` store, loads through ``_tile`` (the per-tile route)."""
+        file the native probes or decoders do not take, every file of a
+        ``native=False`` store and every file of a format whose loader cannot
+        be built here loads through ``_tile`` (the per-tile route)."""
         missing = [k for k in keys if k not in self._loaded and k in self._paths]
         if self.native and len(missing) >= 2:
+            use_dted, use_gtif = native.available(), native.gtif_available()
             groups: Dict[tuple, list] = {}  # (loader, rows, cols) -> [(key, path)]
             for k in missing:
                 path = self._paths[k]
-                info = native.probe(path)
-                if info is not None:
+                if use_dted and (info := native.probe(path)) is not None:
                     shape = (native.load_batch, info[2], info[3])
-                elif (info := native.gtif_probe(path)) is not None:
+                elif use_gtif and (info := native.gtif_probe(path)) is not None:
                     shape = (native.gtif_load_batch, *info)
                 else:
                     continue

@@ -146,14 +146,32 @@ before the result line:
 12. multi-device — the modes of ``parallel.mesh`` over ``[cuda:0,
               cuda:0]``: Fast and Interpolating at the 1080p headline,
               Rectilinear at 192x108 at tilt 0 and 1 degree, each equal to
-              its one-device render; ``dryrun_multichip(4, "cuda")``.
+              its one-device render; ``dryrun_multichip(4, "cuda")``;
+13. transfer — (a) ``fetch_flat`` of the Fast headline image and of the
+              sweep's frames against ``.cpu()`` and a reused pinned buffer,
+              ``_pack_artifact``'s one batched fetch against nine per-field
+              copies, medians of 20, every array equal; (b)
+              ``render_fast_streamed`` at the headline, bands 8, ``compact``
+              on and off: image and hits ``torch.equal`` to ``render_fast``,
+              one K2 and eight K1 launches (counted), 8 progress lines, no
+              host sync in the band loop (``set_sync_debug_mode("error")``),
+              medians of 20 in turns with ``render_fast``, device busy, idle
+              share and the ``Memcpy DtoH`` time under kernels on another
+              stream from a trace of one render, ``STREAM_EXC_CAP`` of 0
+              sending every band down the raw route; (c) ``pack_frame_compact`` on the headline frame and the
+              sweep's 8 frames (bytes, device ms, decode ms, bit-exact, the
+              card's payload equal to the CPU's) and ``fetch_viewer_fields``,
+              ``_separable`` and ``_delta`` at the headline within the JAX
+              tests' tolerances. Phase 2b's ``gen`` takes the banded render
+              and prints 8 progress lines.
 
 The verify tolerance (the JAX package's bench.py verify): at most 1 % of
 pixels differ by more than 2 counts and at most 5 % differ at all.
 
 Output: the kernels line ``{"kernels": [...]}`` (``launches`` summed over
 the counted main-path renders — Fast, Fast from the tile files,
-Interpolating, the three object frames and the sweep — with the split in
+Interpolating, the three object frames, the sweep and the banded Fast
+render — with the split in
 ``launches_by_path``; each
 kernel's numbers at the Interpolating grid and at the sweep's shapes in
 ``at_interpolating_grid`` and ``at_sweep``) and, last, the result line
@@ -436,6 +454,9 @@ def phase_terrain_files(dev, terrain, size=(1920, 1080), max_distance=200_000.0)
         check(proc.returncode == 0, f"gen from the folder failed:\n{proc.stderr[-2000:]}")
         out = proc.stdout.splitlines()
         n_lazy = sum(ln.startswith("Lazy loading terrain file:") for ln in out)
+        pct = [ln.split(": ", 1)[1] for ln in out if ln.endswith("%...")]
+        check(pct == [f"{p}%..." for p in (12, 25, 38, 50, 62, 75, 88, 100)],
+              f"gen: progress lines {pct}, want one a band of the banded render")
         for ln in out:
             if not ln.startswith("Lazy loading terrain file:"):
                 say(f"[terrain] gen: {ln}")
@@ -443,8 +464,8 @@ def phase_terrain_files(dev, terrain, size=(1920, 1080), max_distance=200_000.0)
         check(np.array_equal(png, want), "gen's PNG differs from the in-memory render "
               f"({int((png != want).any(-1).sum())} pixels)")
         say(f"[terrain] gen from the folder: wall {cli_s:.3f} s (a new process: "
-            f"imports, CUDA start, scan, preload of {n_lazy} tiles, pack, table, render, "
-            "PNG); PNG == in-memory render")
+            f"imports, CUDA start, scan, preload of {n_lazy} tiles, pack, table, the "
+            "banded render, PNG); 8 progress lines; PNG == in-memory render")
     split["cli_gen_s"] = cli_s
     say(f"[terrain] {json.dumps(split)}")
     say(f"[terrain] phase wall {time.perf_counter() - t_phase:.1f} s")
@@ -1269,15 +1290,18 @@ DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 
 def busy_us(spans) -> float:
     """Length of the union of (start, end) intervals."""
-    total, cur_s, cur_e = 0.0, None, None
+    return sum(e - s for s, e in merged(spans))
+
+
+def merged(spans):
+    """The union of (start, end) intervals as sorted disjoint intervals."""
+    out = []
     for s, e in sorted(spans):
-        if cur_e is None or s > cur_e:
-            if cur_e is not None:
-                total += cur_e - cur_s
-            cur_s, cur_e = s, e
+        if out and s <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], e)
         else:
-            cur_e = max(cur_e, e)
-    return total + ((cur_e - cur_s) if cur_e is not None else 0.0)
+            out.append([s, e])
+    return out
 
 
 def phase_profile(dev, params, terrain, wall_s, renders=3, reps=10):
@@ -1295,6 +1319,7 @@ def phase_profile(dev, params, terrain, wall_s, renders=3, reps=10):
     from torch.profiler import ProfilerActivity, profile
 
     from atm_raytracer_tpu_torch.generators import fast
+    from atm_raytracer_tpu_torch.generators.base import fetch_flat
     from atm_raytracer_tpu_torch.ops import combine
 
     out_dir = ROOT / "chiprun_out"
@@ -1346,7 +1371,7 @@ def phase_profile(dev, params, terrain, wall_s, renders=3, reps=10):
     core_ms = cuda_ms(lambda: fast.fast_core(*args, **kw), reps)
     t["gathers + per-hit geodesic (derived)"] = hits_ms - sum(t.values())
     t["composite (derived)"] = core_ms - hits_ms
-    t["image to host"] = cuda_ms(lambda: image.cpu(), reps)
+    t["image to host (fetch_flat)"] = cuda_ms(lambda: fetch_flat(image), reps)
     total = sum(t.values())
     for name, ms in t.items():
         say(f"[profile] stage {name}: {ms:.3f} ms ({100.0 * ms / total:.1f} % of "
@@ -1369,8 +1394,18 @@ def hits_agree(a, b):
 def trace_busy_ms(fn, name: str):
     """Device busy time (union of the device records of a torch.profiler
     trace of one ``fn()``) in ms, the record count, and ms by record name.
-    The trace file is parsed and deleted: one Rectilinear frame is ~2·10^5
-    records."""
+    One Rectilinear frame is ~2·10^5 records."""
+    events = trace_events(fn, name)
+    spans = [(float(e["ts"]), float(e["ts"]) + float(e["dur"])) for e in events]
+    by_name: dict = {}
+    for e in events:
+        by_name[e["name"]] = by_name.get(e["name"], 0.0) + float(e["dur"]) / 1e3
+    return busy_us(spans) / 1e3, len(events), by_name
+
+
+def trace_events(fn, name: str):
+    """The device records (kernels, copies, memsets) of a torch.profiler
+    trace of one ``fn()``; the trace file is parsed and deleted."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1386,11 +1421,7 @@ def trace_busy_ms(fn, name: str):
               if e.get("ph") == "X" and e.get("cat") in DEVICE_CATS]
     trace.unlink()
     check(bool(events), f"the profiler recorded no device activity ({name})")
-    spans = [(float(e["ts"]), float(e["ts"]) + float(e["dur"])) for e in events]
-    by_name: dict = {}
-    for e in events:
-        by_name[e["name"]] = by_name.get(e["name"], 0.0) + float(e["dur"]) / 1e3
-    return busy_us(spans) / 1e3, len(events), by_name
+    return events
 
 
 def phase_rect_small(dev, terrain):
@@ -2549,6 +2580,334 @@ def phase_multi_device(dev, terrain, params, small=(192, 108), small_distance=20
     say(f"[multi-device] phase wall {time.perf_counter() - t_phase:.1f} s")
 
 
+
+
+def host_ms(fn, reps: int = 20):
+    """(median, min, max) host milliseconds of ``fn()`` ending in a
+    synchronize, over ``reps`` runs after one warm-up."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(walls), min(walls), max(walls)
+
+
+def per_field_artifact(hits):
+    """The artifact compaction as it was before the batched fetch: one
+    ``.cpu()`` a field (and one for the words), each a sync."""
+    import numpy as np
+    import torch
+
+    from atm_raytracer_tpu_torch.meta.serialize import PACKED_FIELDS
+
+    vflat = hits.valid.reshape(-1)
+    p = vflat.shape[0]
+    idx = torch.nonzero(vflat).squeeze(1)
+    words = torch.nn.functional.pad(vflat.to(torch.int64), (0, (-p) % 32))
+    pow2 = torch.pow(2, torch.arange(32, dtype=torch.int64, device=vflat.device))
+    bits = (words.reshape(-1, 32) * pow2).sum(dim=1)
+    segments = {}
+    for name in PACKED_FIELDS:
+        x = getattr(hits, name)
+        segments[name] = x.reshape((p,) + x.shape[hits.valid.ndim:]).index_select(
+            0, idx).cpu().numpy()
+    segments["kind"] = segments["kind"].astype(np.uint8)
+    return bits.cpu().numpy().astype(np.uint32), int(idx.shape[0]), segments
+
+
+def frame_codec(tag, valid, image, sky, reps=10):
+    """``pack_frame_compact`` of one frame, or of F frames on a leading axis,
+    on the card: the bytes shipped against raw, device ms, the fetch, the
+    host decode ms, a bit-exact reconstruction and the CPU's pack of the
+    same inputs equal. Returns the numbers."""
+    import numpy as np
+    import torch
+
+    from atm_raytracer_tpu_torch.generators import base
+    from atm_raytracer_tpu_torch.meta import pack as P
+
+    frames = image if image.ndim == 4 else image[None]
+    valids = valid if valid.ndim == 4 else valid[None]
+    f_n, h, w = frames.shape[0], frames.shape[1], frames.shape[2]
+
+    def ship():
+        bits, img_n, img_ei, img_ev, counts = P.pack_frame_compact(valids, frames)
+        cts = counts.tolist()  # the one sync: the counts
+        segs = [bits]
+        for f in range(f_n):
+            n_px, *nes = cts[f]
+            for c in range(3):
+                segs += [img_n[f, c, :(n_px + 1) // 2], img_ei[f, c, :nes[c]],
+                         img_ev[f, c, :nes[c]]]
+        return cts, base.fetch_flat_many(segs)
+
+    def decode(cts, outs):
+        words = outs[0].reshape(f_n, -1)
+        return [P.unpack_frame_compact(
+            words[f], [tuple(outs[1 + 9 * f + 3 * c: 4 + 9 * f + 3 * c]) for c in range(3)],
+            sky, h, w, cts[f][0]) for f in range(f_n)]
+
+    device_ms = cuda_ms(lambda: P.pack_frame_compact(valids, frames), reps)
+    cts, outs = ship()
+    decoded = decode(cts, outs)
+    want = frames.cpu().numpy()
+    check(all(np.array_equal(d, want[f]) for f, d in enumerate(decoded)),
+          f"{tag}: the compact frame codec did not reconstruct the frame bit for bit")
+    card = P.pack_frame_compact(valids, frames)
+    cpu = P.pack_frame_compact(valids.cpu(), frames.cpu())
+    for name, a, b in zip(("bits", "img_n", "img_ei", "img_ev", "counts"), card, cpu):
+        check(torch.equal(a.cpu(), b), f"{tag}: the card's {name} differs from the CPU's pack")
+    decode_walls = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        decode(cts, outs)
+        decode_walls.append((time.perf_counter() - t0) * 1e3)
+    route_ms = host_ms(lambda: decode(*ship()), 20)[0]
+    raw_ms = host_ms(lambda: base.fetch_flat(frames), 20)[0]
+    shipped = sum(int(o.nbytes) for o in outs)
+    raw = int(frames.numel())
+    n_px = sum(c[0] for c in cts)
+    numbers = {"frames": f_n, "hit_px": n_px, "bytes_shipped": shipped, "bytes_raw": raw,
+               "device_ms": device_ms, "decode_ms": statistics.median(decode_walls),
+               "codec_route_ms": route_ms, "raw_fetch_ms": raw_ms,
+               "exceptions": sum(sum(c[1:]) for c in cts)}
+    say(f"[transfer] codec {tag}: {f_n} frame(s) of {w}x{h}, {n_px} hit pixels; "
+        f"{shipped} B shipped against {raw} B raw ({shipped / raw:.3f}); pack "
+        f"{device_ms:.3f} ms on the device (CUDA events, mean of {reps}); host decode "
+        f"{numbers['decode_ms']:.3f} ms (median of 5); pack + counts + fetch + decode "
+        f"{route_ms:.3f} ms against the raw fetch_flat {raw_ms:.3f} ms (medians of 20); "
+        f"{numbers['exceptions']} exceptions; bit-exact; the card's payload == the CPU's")
+    return numbers
+
+
+def phase_transfer(dev, terrain, params):
+    """13. the transfer group: (a) ``fetch_flat`` of the Fast headline image
+    and of the sweep's frames against ``.cpu()``, and ``_pack_artifact``'s
+    one batched fetch against the per-field copies; (b)
+    ``render_fast_streamed`` at the 1080p headline, bands 8, ``compact`` on
+    and off: equal to ``render_fast``, one K2 and eight K1 launches, 8
+    progress lines, no host sync in the band loop
+    (``torch.cuda.set_sync_debug_mode("error")``), the median wall of 20
+    beside ``render_fast``'s in turns, device busy, idle share and the
+    ``Memcpy DtoH`` time that overlaps kernels on another stream from a
+    profiler trace of one render, and an overflow (``STREAM_EXC_CAP`` set
+    to 0) taking the raw route; (c) the codecs: ``pack_frame_compact`` on the headline
+    frame and on the sweep's 8 frames, ``fetch_viewer_fields``,
+    ``_separable`` and ``_delta`` at the headline. Returns the launches of
+    the counted streamed render (``compact=False``, the default)."""
+    import numpy as np
+    import torch
+
+    from atm_raytracer_tpu_torch.generators import base, fast
+    from atm_raytracer_tpu_torch.meta import pack as P
+    from atm_raytracer_tpu_torch.meta.serialize import PACKED_FIELDS, _pack_artifact
+    from atm_raytracer_tpu_torch.parallel import mesh as M
+
+    t_phase = time.perf_counter()
+    summary = {}
+    # (a) the fetches
+    r = fast.render_fast(params, terrain, dev, fetch_image=False)
+    img = r.image
+    frames, sweep_valid = M.render_sweep_sharded(
+        sweep_config().into_params(terrain), terrain, [dev], SWEEP_DIRS,
+        return_hits="valid", fetch_frames=False)
+    torch.cuda.synchronize()
+    for tag, t in (("headline image", img), ("sweep frames", frames)):
+        check(np.array_equal(base.fetch_flat(t), t.cpu().reshape(-1).numpy()),
+              f"fetch_flat of the {tag} differs from .cpu()")
+        buf = torch.empty(t.numel(), dtype=t.dtype, pin_memory=True)
+
+        def reused(t=t, buf=buf):
+            buf.copy_(t.reshape(-1), non_blocking=True)
+            torch.cuda.current_stream().synchronize()
+            return buf.numpy().copy()
+
+        pinned, pageable, reuse = (host_ms(fn) for fn in (
+            lambda t=t: base.fetch_flat(t), lambda t=t: t.cpu(), reused))
+        n_bytes = t.numel() * t.element_size()
+        summary[tag] = {"bytes": n_bytes, "fetch_flat_ms": pinned[0], "cpu_ms": pageable[0],
+                        "reused_pinned_copy_out_ms": reuse[0]}
+        say(f"[transfer] {tag}, {n_bytes} B: fetch_flat (a pinned buffer a call) median "
+            f"{pinned[0]:.3f} ms (min {pinned[1]:.3f}, max {pinned[2]:.3f}); .cpu() "
+            f"(pageable) {pageable[0]:.3f} ms (min {pageable[1]:.3f}, max {pageable[2]:.3f}); "
+            f"one reused pinned buffer copied out {reuse[0]:.3f} ms; medians of 20; "
+            f"{n_bytes / pinned[0] / 1e6:.2f} GB/s pinned; bytes equal")
+    bits, n, seg = _pack_artifact(r.hits)
+    bits_o, n_o, seg_o = per_field_artifact(r.hits)
+    check(np.array_equal(bits, bits_o) and n == n_o and all(
+        np.array_equal(seg[k], seg_o[k]) and seg[k].dtype == seg_o[k].dtype
+        for k in PACKED_FIELDS), "_pack_artifact differs from the per-field copies")
+    many = host_ms(lambda: _pack_artifact(r.hits))
+    each = host_ms(lambda: per_field_artifact(r.hits))
+    summary["artifact"] = {"slots": n, "fetch_flat_many_ms": many[0], "per_field_ms": each[0]}
+    say(f"[transfer] artifact compaction, {n} slots: one fetch_flat_many {many[0]:.3f} ms "
+        f"against 9 per-field .cpu() {each[0]:.3f} ms (medians of 20); every array equal")
+
+    # (b) the banded render
+    plain = fast.render_fast(params, terrain, dev)
+    hit_fields = [f.name for f in dataclasses.fields(plain.hits)]
+    real_bands = fast._stream_bands
+
+    def no_sync(*args, **kw):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return real_bands(*args, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+    launches = None
+    for compact in (True, False):
+        lines = []
+        torch.cuda.synchronize()
+        reset_launches()
+        fast._stream_bands = no_sync
+        try:
+            got = fast.render_fast_streamed(params, terrain, dev, bands=8,
+                                            progress=lines.append, compact=compact)
+        except RuntimeError as e:
+            check(False, f"streamed (compact={compact}): the band loop synced: {e}")
+        finally:
+            fast._stream_bands = real_bands
+        torch.cuda.synchronize()
+        counted = kernel_launches()
+        check(counted == {"combine.cu": 8, "march.cu": 1},
+              f"streamed (compact={compact}): launches {counted}, want 8 K1 and 1 K2")
+        check(lines == [12, 25, 38, 50, 62, 75, 88, 100],
+              f"streamed (compact={compact}): progress {lines}")
+        check(np.array_equal(got.image, plain.image),
+              f"streamed (compact={compact}): image differs from render_fast "
+              f"({int((got.image != plain.image).any(-1).sum())} pixels)")
+        for f in hit_fields:
+            check(torch.equal(getattr(got.hits, f), getattr(plain.hits, f)),
+                  f"streamed (compact={compact}): hits.{f} differs from render_fast")
+        if not compact:  # the default route, gen's on the card
+            launches = counted
+        say(f"[transfer] streamed {params.output.width}x{params.output.height}, bands 8, "
+            f"compact={compact}: launches {counted}; "
+            f"progress {lines}; no sync in the band loop; image and all "
+            f"{len(hit_fields)} hit fields torch.equal to render_fast")
+
+    runs = {"render_fast": lambda: fast.render_fast(params, terrain, dev),
+            "streamed compact": lambda: fast.render_fast_streamed(params, terrain, dev,
+                                                                  compact=True),
+            "streamed raw": lambda: fast.render_fast_streamed(params, terrain, dev,
+                                                              compact=False)}
+    walls = {k: [] for k in runs}
+    for fn in runs.values():
+        fn()
+    for i in range(20):  # in turns, the order rotating
+        names = list(runs)[i % 3:] + list(runs)[:i % 3]
+        for k in names:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            runs[k]()
+            torch.cuda.synchronize()
+            walls[k].append((time.perf_counter() - t0) * 1e3)
+    for k, ws in walls.items():
+        med = statistics.median(ws)
+        events = trace_events(runs[k], "transfer")
+        spans = [(float(e["ts"]), float(e["ts"]) + float(e["dur"])) for e in events]
+        busy = busy_us(spans) / 1e3
+        kernels = [(e, (float(e["ts"]), float(e["ts"]) + float(e["dur"]))) for e in events
+                   if e.get("cat") == "kernel"]
+        copies = [(e, (float(e["ts"]), float(e["ts"]) + float(e["dur"]))) for e in events
+                  if e.get("cat") == "gpu_memcpy" and "DtoH" in e["name"]]
+        dtoh = sum(b - a for _, (a, b) in copies) / 1e3
+        overlap = 0.0
+        for e, (a, b) in copies:
+            stream = e.get("args", {}).get("stream")
+            for s0, s1 in merged([sp for k_e, sp in kernels
+                                  if k_e.get("args", {}).get("stream") != stream]):
+                overlap += max(0.0, min(b, s1) - max(a, s0))
+        streams = (sorted({str(e.get("args", {}).get("stream")) for e, _ in kernels}),
+                   sorted({str(e.get("args", {}).get("stream")) for e, _ in copies}))
+        summary[k] = {"wall_ms": med, "busy_ms": busy, "idle": 1.0 - busy / med,
+                      "dtoh_ms": dtoh, "dtoh_overlapping_kernels_ms": overlap / 1e3,
+                      "records": len(events)}
+        say(f"[transfer] {k}: wall median {med:.3f} ms of 20 (min {min(ws):.3f}, max "
+            f"{max(ws):.3f}); one render traced: device busy {busy:.3f} ms, idle share "
+            f"{1.0 - busy / med:.4f}, Memcpy DtoH {dtoh:.3f} ms in {len(copies)} records, "
+            f"{overlap / 1e3:.3f} ms of it under kernels on another stream (kernel "
+            f"streams {streams[0]}, DtoH streams {streams[1]})")
+
+    raw = []
+    real_fetch = fast.fetch_flat
+    real_cap = fast.STREAM_EXC_CAP
+    fast.fetch_flat = lambda t, *a: raw.append(tuple(t.shape)) or real_fetch(t, *a)
+    fast.STREAM_EXC_CAP = 0
+    try:
+        got = fast.render_fast_streamed(params, terrain, dev, compact=True)
+    finally:
+        fast.fetch_flat = real_fetch
+        fast.STREAM_EXC_CAP = real_cap
+    check(raw and np.array_equal(got.image, plain.image),
+          f"STREAM_EXC_CAP=0: {len(raw)} bands took the raw route; image equal "
+          f"{np.array_equal(got.image, plain.image)}")
+    say(f"[transfer] STREAM_EXC_CAP=0: {len(raw)} of 8 bands overflowed and took the raw route "
+        f"({raw[0]}); image equal to render_fast")
+
+    # (c) the codecs
+    sky = P.frame_base_rgb(params.coloring, params.view.fog_distance)
+    summary["codec headline"] = frame_codec("headline", plain.hits.valid, img, sky)
+    summary["codec sweep"] = frame_codec("sweep", sweep_valid, frames, sky)
+    step = float(params.simulation_step)
+    hits = r.hits
+    host = {f: getattr(hits, f).cpu().numpy() for f in ("key", "dlat", "dlon", "elevation")}
+    valid = np.isfinite(host["key"])
+    rng = {f: float(host[f][valid].max() - host[f][valid].min()) for f in host}
+
+    vf = P.fetch_viewer_fields(hits, step)
+    check(np.array_equal(vf.valid, valid) and np.array_equal(vf.key, host["key"]),
+          "fetch_viewer_fields: valid or key differ")
+    for f, levels_bits in (("dlat", 22), ("dlon", 22), ("elevation", 15)):
+        err = float(np.abs(getattr(vf, f)[valid] - host[f][valid]).max())
+        check(err <= max(rng[f], 1e-30 if levels_bits == 22 else 1.0) * 2.0 ** -levels_bits,
+              f"fetch_viewer_fields: {f} off by {err}")
+    sep, (img_h,) = P.fetch_viewer_fields_separable(r, params.model, step, co_fetch=(img,))
+    check(np.array_equal(img_h, plain.image.reshape(-1)), "co-fetched image differs")
+    check(np.array_equal(sep.valid, valid) and np.array_equal(sep.key[valid],
+                                                              host["key"][valid]),
+          "fetch_viewer_fields_separable: valid or key differ")
+    check(float(np.abs(sep.elevation[valid] - host["elevation"][valid]).max())
+          <= max(rng["elevation"], 1.0) * 2.0 ** -15, "separable: elevation out of band")
+    sep_err = max(float(np.abs(getattr(sep, f)[valid] - host[f][valid].astype(np.float64))
+                        .max()) for f in ("dlat", "dlon"))
+    check(sep_err < 1.5e-6, f"separable: derived lat/lon off by {sep_err} degrees")
+    v3, frame3, stats = P.fetch_viewer_fields_delta(r, params.model, step, sky)
+    check(np.array_equal(frame3, plain.image), "fetch_viewer_fields_delta: image differs")
+    check(np.array_equal(v3.valid, valid) and np.array_equal(v3.elevation, sep.elevation),
+          "delta: valid or elevation differ from the separable pack")
+    key_err = float(np.abs(v3.key[valid] - sep.key[valid]).max())
+    ll_err = max(float(np.abs(getattr(v3, f)[valid] - getattr(sep, f)[valid]).max())
+                 for f in ("dlat", "dlon"))
+    check(key_err <= 0.5 / P._KEY_QUANT + 1e-5 and ll_err < 2.8e-6,
+          f"delta: key off by {key_err}, lat/lon by {ll_err}")
+    times = {k: host_ms(fn, 5)[0] for k, fn in (
+        ("dense", lambda: P.fetch_viewer_fields(hits, step)),
+        ("separable", lambda: P.fetch_viewer_fields_separable(r, params.model, step)),
+        ("delta", lambda: P.fetch_viewer_fields_delta(r, params.model, step, sky)))}
+    summary["viewer"] = {"slots": int(valid.size), "valid": int(valid.sum()),
+                         "dense_bytes": vf.nbytes, "separable_bytes": sep.nbytes,
+                         "delta_bytes": stats["staged_bytes"], **{f"{k}_ms": v for k, v
+                                                                  in times.items()}}
+    say(f"[transfer] viewer fields at the headline ({valid.size} slots, {int(valid.sum())} "
+        f"valid): dense {vf.nbytes} B {times['dense']:.3f} ms; separable {sep.nbytes} B "
+        f"{times['separable']:.3f} ms, lat/lon within {sep_err:.2e} deg; delta "
+        f"{stats['staged_bytes']} B with the frame {times['delta']:.3f} ms ({stats['n_exceptions']}"
+        f" exceptions), key within {key_err:.2e} steps, image equal (medians of 5, "
+        f"each with its pack, sync and decode); the JAX tests' tolerances hold")
+    say(f"[transfer] {json.dumps(summary)}")
+    wall = time.perf_counter() - t_phase
+    say(f"[transfer] phase wall {wall:.1f} s")
+    return launches
+
+
 def main(argv) -> int:
     try:
         import torch
@@ -2604,13 +2963,15 @@ def main(argv) -> int:
         obj_launches = phase_objects(dev, terrain)
         sweep_launches, at_sweep = phase_sweep(dev, terrain)
         phase_multi_device(dev, terrain, params)
+        streamed_launches = phase_transfer(dev, terrain, params)
         for k in kernels:  # the launches of every counted main-path render
             src = Path(k["source"]).name
             k["launches_by_path"] = {"fast": k["launches"],
                                      "fast_from_files": files_launches[src],
                                      "interpolating": interp_launches[src],
                                      **{path: n[src] for path, n in obj_launches.items()},
-                                     "sweep": sweep_launches[src]}
+                                     "sweep": sweep_launches[src],
+                                     "fast_streamed": streamed_launches[src]}
             k["launches"] = sum(k["launches_by_path"].values())
             k["at_interpolating_grid"] = at_grid[src]
             k["at_sweep"] = at_sweep[src]

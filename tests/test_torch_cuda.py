@@ -578,3 +578,139 @@ def test_fast_split_over_two_entries_equals_one_device(cuda_device):
                                     [45.0, 90.0, 135.0])
     assert (_kernels.COMBINE.launches, _kernels.MARCH.launches) == (k1 + 1, k2 + 1)
     np.testing.assert_array_equal(frames[0], one.image)
+
+
+# -- the transfer group, the frame codec and the banded render -------------------------
+
+def test_pinned_fetch_equals_cpu(cuda_device):
+    """``fetch_flat`` / ``fetch_flat_many`` copy through page-locked buffers
+    and give ``.cpu()``'s values, whole and in slices."""
+    from atm_raytracer_tpu_torch.generators import base
+
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    ts = [torch.rand(1080, 1920, 3, device=cuda_device, generator=g).mul(255).to(torch.uint8),
+          torch.randn(37, 53, 4, device=cuda_device, generator=g),
+          torch.rand(1000, device=cuda_device, generator=g) < 0.5,
+          torch.arange(12, device=cuda_device, dtype=torch.int16).reshape(3, 4).t(),
+          torch.zeros(0, device=cuda_device)]
+    for t in ts:
+        for chunk in (0, 4096):
+            got = base.fetch_flat(t, chunk_bytes=chunk)
+            np.testing.assert_array_equal(got, t.cpu().reshape(-1).numpy())
+            if t.numel():
+                assert torch.from_numpy(got).is_pinned()
+    for got, t in zip(base.fetch_flat_many(ts), ts):
+        np.testing.assert_array_equal(got, t.cpu().reshape(-1).numpy())
+
+
+def test_fetch_of_a_strided_tensor_after_the_first_waits_for_its_flattening(cuda_device):
+    """A non-contiguous tensor after the first of a batch: its flat copy, a
+    kernel on the producer stream, runs before the copy stream reads it."""
+    from atm_raytracer_tpu_torch.generators import base
+
+    n = 8192
+    want = np.arange(n * n, dtype=np.int32).reshape(n, n).T.reshape(-1)
+    for _ in range(3):
+        torch.full((n * n,), -1, device=cuda_device, dtype=torch.int32)  # stale bytes
+        busy = torch.randn(4096, 4096, device=cuda_device)
+        for _ in range(10):  # queue device work ahead of both tensors
+            busy = busy @ busy / 4096.0
+        big = torch.arange(n * n, device=cuda_device, dtype=torch.int32).reshape(n, n)
+        small = torch.ones(1, device=cuda_device)
+        got = base.fetch_flat_many((small, big.t()))
+        assert got[0][0] == 1
+        np.testing.assert_array_equal(got[1], want)
+
+
+def test_two_renders_keep_their_own_images(cuda_device):
+    """No staging buffer is reused under a returned image: a second render
+    (and a second fetch) leaves the first one's bytes alone."""
+    from atm_raytracer_tpu_torch.generators import base
+
+    terrain, params = _rect_scene()
+    first = render_fast(params, terrain, cuda_device)
+    kept = first.image.copy()
+    turned = dataclasses.replace(params, view=dataclasses.replace(
+        params.view, frame=dataclasses.replace(params.view.frame, direction=200.0)))
+    second = render_fast(turned, terrain, cuda_device)
+    assert not np.shares_memory(first.image, second.image)
+    assert not np.array_equal(first.image, second.image)
+    np.testing.assert_array_equal(first.image, kept)
+    a = base.fetch_flat(torch.ones(1 << 20, device=cuda_device))
+    base.fetch_flat(torch.zeros(1 << 20, device=cuda_device))
+    assert (a == 1).all()
+
+
+def test_source_freed_under_a_pending_copy_is_read_right(cuda_device):
+    """``record_stream``: a source dropped while its copy still waits on the
+    producer keeps its memory until the copy has run."""
+    from atm_raytracer_tpu_torch.generators import base
+
+    n = 1 << 24
+    busy = torch.randn(4096, 4096, device=cuda_device)
+    src = torch.arange(n, device=cuda_device, dtype=torch.int32)
+    want = np.arange(n, dtype=np.int32)
+    ptr = src.data_ptr()
+    with base.fetch_pool() as pool:
+        for _ in range(20):  # queue device work ahead of the copy
+            busy = busy @ busy / 4096.0
+        src = src + 0  # the copy's source is made behind that work
+        ptr = src.data_ptr()
+        (out,), handles = base.submit_fetch(pool, (src,))
+        del src
+        other = torch.full((n,), -7, device=cuda_device, dtype=torch.int32)
+        assert other.data_ptr() != ptr  # the pending block is not handed out
+    np.testing.assert_array_equal(out, want)
+    assert int((other == -7).sum()) == n
+
+
+def test_pack_frame_stream_makes_no_sync(cuda_device):
+    """The band codec runs under ``set_sync_debug_mode("error")`` and packs
+    the CPU's bytes from the same inputs."""
+    from atm_raytracer_tpu_torch.meta import pack as P
+
+    rng = np.random.default_rng(5)
+    valid = rng.random((108, 240, 2)) < 0.6
+    img = (np.cumsum(rng.integers(-3, 4, (108 * 240, 3)), axis=0) % 200).astype(np.uint8)
+    img = img.reshape(108, 240, 3)
+    img[~valid.any(-1)] = (28, 28, 28)
+    v, im = torch.from_numpy(valid).to(cuda_device), torch.from_numpy(img).to(cuda_device)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = P.pack_frame_stream(v, im, 4096)
+        batched = P.pack_frame_compact(v[None].expand(3, -1, -1, -1),
+                                       im[None].expand(3, -1, -1, -1))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    want = P.pack_frame_stream(torch.from_numpy(valid), torch.from_numpy(img), 4096)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    assert 0 < int(got[4][1:].max()) <= 4096  # exceptions, all inside the cap
+    out = P.unpack_frame_stream(*(g.cpu().numpy() for g in got), np.array([28] * 3), 108,
+                                240, 4096)
+    np.testing.assert_array_equal(out, img)
+    assert torch.equal(batched[4].cpu(), P.pack_frame_compact(
+        torch.from_numpy(valid), torch.from_numpy(img))[4][None].expand(3, -1))
+
+
+@pytest.mark.parametrize("compact", [True, False], ids=["compact", "raw"])
+@pytest.mark.parametrize("alpha", [1.0, 0.65], ids=["k1", "k4"])
+def test_banded_render_equals_render_fast(alpha, compact, cuda_device):
+    """192x108 (8 bands of 24 columns) and K = 4: ``torch.equal`` to
+    ``render_fast``, one K2 launch and one K1 a band, 8 progress lines."""
+    from atm_raytracer_tpu_torch.generators import fast
+
+    terrain, params = _rect_scene(alpha=alpha)
+    params = dataclasses.replace(params, output=dataclasses.replace(
+        params.output, width=192, height=108))
+    plain = fast.render_fast(params, terrain, cuda_device)
+    k1, k2 = _kernels.COMBINE.launches, _kernels.MARCH.launches
+    lines = []
+    got = fast.render_fast_streamed(params, terrain, cuda_device, bands=8,
+                                    progress=lines.append, compact=compact)
+    assert (_kernels.COMBINE.launches - k1, _kernels.MARCH.launches - k2) == (8, 1)
+    assert lines == [12, 25, 38, 50, 62, 75, 88, 100]
+    np.testing.assert_array_equal(got.image, plain.image)
+    for f in dataclasses.fields(got.hits):
+        assert torch.equal(getattr(got.hits, f.name), getattr(plain.hits, f.name)), f.name
