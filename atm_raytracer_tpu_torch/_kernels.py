@@ -5,11 +5,12 @@ Each ``.cu`` file is compiled on first use by ``nvcc`` for Hopper
 (``sm_90a``) into a shared library with a plain C interface, placed in
 ``_build/`` beside this file, and loaded with ``ctypes``. Each ``native/``
 ``.cpp`` file (the DTED and GeoTIFF loaders, host code) is compiled the
-same way by ``g++``. A library's name carries a hash of the source, the
-flags, the compiler's version and the host's architecture, so an
-edited source rebuilds and a library built by another toolchain is never
-loaded; a build writes a temporary file and renames it, so processes that
-build at once never load half a library.
+same way by ``g++``. A library's name carries a hash of the source and
+of the headers it includes with quotes (``csrc/ray_device.cuh``), the
+flags, the compiler's version and the host's architecture, so an edited
+source or header rebuilds and a library built by another toolchain is
+never loaded; a build writes a temporary file and renames it, so
+processes that build at once never load half a library.
 
 Every CUDA entry point takes device pointers and the CUDA stream as
 ``void*`` and ints as ``int``, launches on that stream without
@@ -31,6 +32,7 @@ import functools
 import hashlib
 import os
 import platform
+import re
 import shutil
 import subprocess
 import threading
@@ -67,8 +69,29 @@ def _compiler_id(compiler: str) -> str:
     return f"{proc.stdout} {platform.machine()}"
 
 
+LOCAL_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]+"([^"]+)"', re.MULTILINE)
+
+
+def _source_bytes(source: Path) -> list:
+    """The bytes of ``source`` and of every file it includes with quotes
+    (``#include "ray_device.cuh"``), theirs in turn, each once, in order."""
+    seen, out, todo = set(), [], [source.resolve()]
+    while todo:
+        path = todo.pop(0)
+        if path in seen:
+            continue
+        seen.add(path)
+        data = path.read_bytes()
+        out.append(data)
+        todo += [(path.parent / m.decode()).resolve() for m in LOCAL_INCLUDE.findall(data)]
+    return out
+
+
 def _library_path(source: Path, flags, compiler: str) -> Path:
-    key = b"\0".join([source.read_bytes(), " ".join(flags).encode(),
+    """The library of ``source``: named by a hash of its bytes and its local
+    headers', the flags, the compiler's version and the host's machine, so
+    an edit of a shared header rebuilds every kernel that includes it."""
+    key = b"\0".join([*_source_bytes(source), " ".join(flags).encode(),
                       _compiler_id(compiler).encode()])
     digest = hashlib.sha256(key).hexdigest()
     return BUILD_DIR / f"lib{source.stem}_{digest[:16]}.so"
@@ -166,7 +189,15 @@ MARCH = CudaKernel(
      _P, _P, _P, _P, _P, _P, _I, _P],
 )
 
-KERNELS = (COMBINE, MARCH)
+# K3: the tilt-0 Rectilinear scan (generators/rectilinear.py::tilt0_hits),
+# one launch per progress stride of coarse windows, state carried between
+RECT_SCAN = CudaKernel(
+    "rect_scan.cu", "rect_scan",
+    [_P, _I, _I, _I, _F, _P, _I, _I, _I, _I, _I, _F, _P, _I, _P, _I, _F, _F, _I, _F, _F,
+     _I, _F, _F, _P, _I, _P, _P, _P, _P, _P],
+)
+
+KERNELS = (COMBINE, MARCH, RECT_SCAN)
 
 
 def _gxx() -> str:

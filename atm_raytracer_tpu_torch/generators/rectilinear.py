@@ -8,8 +8,10 @@ along its own geodesic (rectilinear.rs:78-186). Three regimes, all exact:
   ``direction + atan2(x_off, z_focal)``, constant down each image column,
   so the terrain scan is shared per column as in the Fast generator, and
   the per-pixel march streams window by window into the crossing search
-  (``march_scan_light`` for K = 1, ``march_scan`` for K > 1) without
-  forming the [H, W, N] ray grid.
+  without forming the [H, W, N] ray grid (``tilt0_hits``: on the card the
+  CUDA kernel ``csrc/rect_scan.cu``, K3, one thread a pixel in one launch a
+  progress stride; on the CPU, or with ``plain``, ``tilt0_hits_plain``:
+  ``march_scan_light`` for K = 1, ``march_scan`` for K > 1).
 * tilt != 0, opaque terrain (``fused_culled_core``): azimuth couples both
   pixel axes, so nothing is shared; a conservative terrain envelope culls
   the per-pixel sampling to a few candidate blocks, which re-integrate from
@@ -22,8 +24,8 @@ in full (the march kernel on the card), finds their crossings against the
 shared column terrain (``combine.aligned_crossing_segments``) and merges
 ``ops.objects.object_hits_pixelwise``; a tilted object frame takes the dense
 path, which merges the same object hits. Every stage is PyTorch ops on the
-device of its inputs; the object-free tilt-0 and culled scans are Python
-loops over coarse windows (no kernel yet: ROADMAP B7).
+device of its inputs; the culled path's capture scan is a Python loop over
+coarse windows (no kernel yet).
 """
 
 from __future__ import annotations
@@ -36,6 +38,7 @@ import numpy as np
 import torch
 
 from ..config import Params
+from .. import _kernels
 from ..models import camera
 from ..models.earth import EarthModel
 from ..ops import combine
@@ -46,6 +49,8 @@ from ..physics.ray import (
     EarthShape,
     RefractionTable,
     _f32,
+    _hermite_basis,
+    _scan_start,
     hermite_coeffs,
     hermite_plane,
     march_coarse,
@@ -281,49 +286,170 @@ def _multi_hit_scan(elev_hw, terr_pad, alt0, *, shape: EarthShape,
                       consumer, (key0, torch.zeros_like(key0)), coarse=coarse)
 
 
+def tilt0_hits_plain(elev_hw, terr_pad, alt0, *, shape: EarthShape,
+                     table: Optional[RefractionTable], straight: bool, step: float,
+                     n_seg: int, coarse: int, max_hits: int, emit=None):
+    """The tilt-0 scan in plain PyTorch, on any device: (key, path length)
+    [H, W, K], K = ``max_hits``; key +inf (path length 0) where there is no
+    hit. K = 1: ``first_window_scan`` + ``first_hit_retest``; K > 1:
+    ``_multi_hit_scan``. The oracle of K3 (``tilt0_hits_cuda``)."""
+    scan_kw = dict(shape=shape, table=table, straight=straight, step=step, n_seg=n_seg,
+                   coarse=coarse)
+    if max_hits == 1:
+        found = first_window_scan(elev_hw, terr_pad, alt0, emit=emit, **scan_kw)
+        return first_hit_retest(*found, terr_pad, **scan_kw)
+    return _multi_hit_scan(elev_hw, terr_pad, alt0, max_hits=max_hits, emit=emit,
+                           **scan_kw)
+
+
+def tilt0_hits(elev_hw, terr_pad, alt0, *, shape: EarthShape,
+               table: Optional[RefractionTable], straight: bool, step: float,
+               n_seg: int, coarse: int, max_hits: int, emit=None, plain: bool = False):
+    """Each pixel's first ``max_hits`` crossings with its column's terrain:
+    (key, path length) [H, W, K] for the pixel elevations ``elev_hw`` [H, W]
+    (radians) and ``terr_pad`` [W, n_coarse·C + 1] (zero past the march).
+
+    CUDA tensors launch K3 (``tilt0_hits_cuda``) and raise if it cannot be
+    built or launched; CPU tensors, or ``plain`` on any device, run
+    ``tilt0_hits_plain``. ``emit`` (``percent_reporter``) receives the
+    scan's progress, at the same values either way.
+    """
+    kw = dict(shape=shape, table=table, straight=straight, step=step, n_seg=n_seg,
+              coarse=coarse, max_hits=max_hits, emit=emit)
+    if plain or elev_hw.device.type == "cpu":
+        return tilt0_hits_plain(elev_hw, terr_pad, alt0, **kw)
+    if elev_hw.device.type != "cuda":
+        raise ValueError(f"tilt0_hits: unsupported device {elev_hw.device}")
+    key, plh, _ = tilt0_hits_cuda(elev_hw, terr_pad, alt0, **kw)
+    return key, plh
+
+
+def scan_launches(n_coarse: int):
+    """K3's launches: (w0, w1) window ranges, one a progress stride of
+    ``_window_progress`` (36 for 250 windows)."""
+    stride = max(1, n_coarse // 32)
+    return [(w0, min(w0 + stride, n_coarse)) for w0 in range(0, n_coarse, stride)]
+
+
+# K3's per-pixel flags word (csrc/rect_scan.cu): windows run << 9 | hits << 1 | done
+SCAN_WINDOWS_SHIFT = 9
+
+
+def tilt0_hits_cuda(elev_hw, terr_pad, alt0, *, shape: EarthShape,
+                    table: Optional[RefractionTable], straight: bool, step: float,
+                    n_seg: int, coarse: int, max_hits: int, emit=None):
+    """Launch K3 (``csrc/rect_scan.cu``) on the device of ``elev_hw``:
+    (key, path length [H, W, K], flags [H, W] int32). ``flags >>
+    SCAN_WINDOWS_SHIFT`` is the number of windows each pixel ran before it
+    stopped (the scan's work).
+
+    One launch a progress stride (``scan_launches``), the pixels' state kept
+    on the device between launches and ``emit`` called on the host between
+    them, with no synchronisation. The start slopes are the plain version's
+    (``_scan_start``); l(h) comes from ``table.poly`` when it exists, else
+    from the table; ``straight`` or no table marches without refraction.
+    """
+    dev = elev_hw.device
+    h_n, w_n = elev_hw.shape
+    _, v0, coarse, n_coarse = _scan_start(alt0, elev_hw, shape, n_seg, coarse)
+    v0 = v0.contiguous()
+    if terr_pad.shape[0] != w_n or terr_pad.shape[1] < n_coarse * coarse + 1:
+        raise ValueError(f"tilt0_hits_cuda: terr_pad {tuple(terr_pad.shape)} does not "
+                         f"cover {w_n} columns of {n_coarse * coarse + 1} samples")
+    terr_rows = terr_pad.to(torch.float32).t().contiguous()  # [n_coarse·C + 1, W]
+    refract = not straight and table is not None
+    if refract and table.stacked:
+        raise ValueError("tilt0_hits_cuda: the scan takes one table, not a stack")
+    if refract and table.poly is not None:
+        poly, n_poly = table.poly_rows(), len(table.poly)
+    else:
+        poly, n_poly = None, 0
+    pairs = table.pairs.contiguous() if refract else None
+    for t in (terr_rows, poly, pairs):
+        if t is not None and t.device != dev:
+            raise ValueError("tilt0_hits_cuda: terrain, table and pixels live on "
+                             "different devices")
+    radius = shape.radius
+    basis = _hermite_basis(coarse, dev)
+    p_n = h_n * w_n
+    key = torch.empty((h_n, w_n, max_hits), dtype=torch.float32, device=dev)
+    plh = torch.empty_like(key)
+    flags = torch.empty((h_n, w_n), dtype=torch.int32, device=dev)
+    if p_n == 0:
+        return key, plh, flags
+    state = torch.empty((3, p_n), dtype=torch.float32, device=dev)
+    fstep = _f32(step)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    for w0, w1 in scan_launches(n_coarse):
+        _kernels.RECT_SCAN.call(
+            dev, v0.data_ptr(), h_n, w_n, v0.stride(0), _f32(alt0), terr_rows.data_ptr(),
+            terr_rows.stride(0), int(n_seg), int(coarse), w0, w1, _f32(step * coarse),
+            ptr(poly), n_poly, ptr(pairs), int(table.values.shape[-1]) if refract else 0,
+            table.h0 if refract else 0.0, table.inv_dh if refract else 0.0, int(refract),
+            0.0 if radius is None else _f32(1.0 / radius),
+            0.0 if radius is None else _f32(radius), 0 if radius is None else 1, fstep,
+            _f32(np.float32(fstep) * np.float32(fstep)), basis.data_ptr(), int(max_hits),
+            state.data_ptr(), flags.data_ptr(), key.data_ptr(), plh.data_ptr(),
+        )
+        for w in range(w0, w1):
+            _window_progress(emit, w * coarse, coarse, n_coarse)
+    return key, plh, flags
+
+
 def fused_shared_core(pack: TerrainPack, table: Optional[RefractionTable],
                       az_deg: torch.Tensor, alt0, *, cam: tuple,
                       model: EarthModel, shape: EarthShape, straight: bool,
                       step: float, n_terr: int, max_hits: int, lat0: float,
                       lon0: float, coloring, fog_distance: Optional[float],
                       terrain_alpha: float, emit=None,
-                      rows: Optional[torch.Tensor] = None):
+                      rows: Optional[torch.Tensor] = None, plain: bool = False):
     """The whole tilt-0 Rectilinear frame on the device of ``az_deg`` [W]:
     (image [H, W, 3] u8, hits [H, W, K]). ``cam`` = (width, height, fov).
     ``rows`` (int64 indices on that device) renders only those image rows
     (a row shard, ``parallel.mesh``): image and hits are then [R, W, ...].
+    The scan is ``tilt0_hits``: K3 on the card unless ``plain``.
 
     The pixel elevation grid is derived on the device in float32; it does
     not depend on the view direction, so direction 0 serves.
     """
+    elev_hw, terr_pad, stacked, coarse = tilt0_inputs(
+        pack, az_deg, cam=cam, model=model, step=step, n_terr=n_terr, lat0=lat0,
+        lon0=lon0, rows=rows)
+    key, plh = tilt0_hits(elev_hw, terr_pad, alt0, shape=shape, table=table,
+                          straight=straight, step=step, n_seg=n_terr - 1, coarse=coarse,
+                          max_hits=max_hits, emit=emit, plain=plain)
+    hits = column_hits(stacked, key, plh, az_deg.to(torch.float32), model=model,
+                       lat0=lat0, lon0=lon0, step=step, terrain_alpha=terrain_alpha)
+    return _composite_hits(coloring, fog_distance, hits), hits
+
+
+def tilt0_inputs(pack: TerrainPack, az_deg: torch.Tensor, *, cam: tuple,
+                 model: EarthModel, step: float, n_terr: int, lat0: float, lon0: float,
+                 rows: Optional[torch.Tensor] = None):
+    """The tilt-0 scan's inputs on the device of ``az_deg`` [W]: (elev_hw
+    [H, W] or [R, W] with ``rows``, terr_pad [W, n_coarse·C + 1], the
+    columns' elevation and normal stack [W, N, 4], the window length C).
+
+    C is clamped as the scans clamp it: the K = 1 re-expansion and the
+    window bookkeeping must use the window length the scan integrated.
+    """
     n_seg = n_terr - 1
-    # clamped as the scans clamp it: the post-scan re-expansion and the
-    # window bookkeeping must use the window length the scan integrated
     coarse = max(1, min(march_coarse(step), n_seg))
     width, height, fov = cam
     elev_hw, _ = camera.rectilinear_ray_params_device(width, height, fov, 0.0, 0.0,
                                                       az_deg.device)
     if rows is not None:
         elev_hw = elev_hw.index_select(0, rows)
-    az = az_deg.to(torch.float32)
-
     # the shared per-column terrain scan (utils.rs:176-199)
-    terr_elev, terr_normal = terrain_columns(pack, model, az, lat0, lon0, step, n_terr)
+    terr_elev, terr_normal = terrain_columns(pack, model, az_deg.to(torch.float32), lat0,
+                                             lon0, step, n_terr)
     stacked = torch.cat([terr_elev[..., None], terr_normal], dim=-1)  # [W, N, 4]
     n_coarse = -(-n_seg // coarse)
     terr_pad = torch.nn.functional.pad(terr_elev, (0, n_coarse * coarse + 1 - n_terr))
-
-    scan_kw = dict(shape=shape, table=table, straight=straight, step=step,
-                   n_seg=n_seg, coarse=coarse)
-    if max_hits == 1:
-        found = first_window_scan(elev_hw, terr_pad, alt0, emit=emit, **scan_kw)
-        key, plh = first_hit_retest(*found, terr_pad, **scan_kw)
-    else:
-        key, plh = _multi_hit_scan(elev_hw, terr_pad, alt0, max_hits=max_hits,
-                                   emit=emit, **scan_kw)
-    hits = column_hits(stacked, key, plh, az, model=model, lat0=lat0, lon0=lon0,
-                       step=step, terrain_alpha=terrain_alpha)
-    return _composite_hits(coloring, fog_distance, hits), hits
+    return elev_hw, terr_pad, stacked, coarse
 
 
 def column_hits(stacked: torch.Tensor, key: torch.Tensor, plh: torch.Tensor,
@@ -725,12 +851,13 @@ def render_rectilinear(params: Params, terrain: Terrain, device,
                        fetch_image: bool = True) -> RenderResult:
     """Full Rectilinear render (rectilinear.rs:24-60) on ``device``.
 
-    tilt 0 takes the fused shared-column path, or with scene objects the
-    row-chunked shared-column path (``auto_chunk_rows`` rows a chunk); a
-    tilted opaque object-free frame (K = 1) the
-    envelope-culled path; anything else, or ``cull=False``, the dense
-    pixelwise path. The march of the last two goes through the march kernel
-    on a CUDA device unless ``plain``. The image comes back to the host
+    tilt 0 takes the fused shared-column path (its scan K3 on a CUDA
+    device unless ``plain``), or with scene objects the row-chunked
+    shared-column path (``auto_chunk_rows`` rows a chunk); a tilted opaque
+    object-free frame (K = 1) the envelope-culled path; anything else, or
+    ``cull=False``, the dense pixelwise path. The march of the object chunks
+    and of the dense path goes through the march kernel on a CUDA device
+    unless ``plain``. The image comes back to the host
     (``base.fetch_flat``), or stays a device tensor with ``fetch_image=False``;
     the hits stay on the device. The angle grids of the result are the host
     f64 ones. ``progress`` (if given) receives monotone whole-percent values
@@ -772,7 +899,7 @@ def render_rectilinear(params: Params, terrain: Terrain, device,
         if objects is None:
             image, hits = fused_shared_core(
                 pack, table, az, alt0, cam=(w, h, float(frame.fov)),
-                max_hits=int(max_hits), emit=emit, **kw)
+                max_hits=int(max_hits), emit=emit, plain=plain, **kw)
         else:
             image, hits = shared_column_core(
                 pack, table, objects,

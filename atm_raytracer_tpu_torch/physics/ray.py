@@ -19,7 +19,11 @@ nodes only. On CPU tensors both run the plain PyTorch path
 The per-pixel Rectilinear generator marches through the fused scans
 ``march_scan_light`` and ``march_scan``: Python loops over coarse windows
 that hand each window to a consumer, so the [..., N] altitude grid never
-exists. They have no kernel yet; they run as PyTorch ops on any device.
+exists. They run as PyTorch ops on any device: the culled tilted path's
+capture scan, and the plain version of the tilt-0 scan, which on the card
+is the kernel ``csrc/rect_scan.cu`` (K3, ``generators/rectilinear.py::
+tilt0_hits``); K2 and K3 share the RK4 step's device code
+(``csrc/ray_device.cuh``).
 """
 
 from __future__ import annotations
@@ -194,13 +198,21 @@ def _f32(x: float) -> float:
     return float(np.float32(x))
 
 
-def eval_l_poly(poly: Tuple, h: torch.Tensor) -> torch.Tensor:
-    """Piecewise-Chebyshev l(h); clamps to the fitted range like ``lookup``."""
+def eval_l_poly(poly: Tuple, h: torch.Tensor,
+                widths: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Piecewise-Chebyshev l(h); clamps to the fitted range like ``lookup``.
+
+    ``widths`` (``RefractionTable.poly_rows()[:, 2]``, on the device of
+    ``h``) are the segments' widths as the divisors of t: the card divides
+    by a tensor with IEEE division, as the CPU and the kernels do, but by a
+    Python float as a product with its float32 reciprocal. Without them the
+    widths are Python floats (the same quotients on the CPU)."""
     h = h.clamp(_f32(poly[0][0]), _f32(poly[-1][1]))
     out = torch.zeros_like(h)
     for k, (lo, hi, coeffs) in enumerate(poly):
         # zero-width segments exist (single-sample edge pieces)
-        t = ((h - _f32(lo)) / _f32(max(hi - lo, 1e-30)) * 2.0 - 1.0).clamp(-1.0, 1.0)
+        width = _f32(max(hi - lo, 1e-30)) if widths is None else widths[k]
+        t = ((h - _f32(lo)) / width * 2.0 - 1.0).clamp(-1.0, 1.0)
         b1 = torch.zeros_like(t)
         b2 = torch.zeros_like(t)
         for c in coeffs[:0:-1]:  # Clenshaw recurrence
@@ -215,7 +227,9 @@ def eval_l_poly(poly: Tuple, h: torch.Tensor) -> torch.Tensor:
 
 
 def _eval_l(table: RefractionTable, h: torch.Tensor, frame=None) -> torch.Tensor:
-    return eval_l_poly(table.poly, h) if table.poly is not None else table.lookup(h, frame)
+    if table.poly is None:
+        return table.lookup(h, frame)
+    return eval_l_poly(table.poly, h, table.poly_rows()[:, 2])
 
 
 def _acceleration(h, v, l, radius: Optional[float]):

@@ -16,8 +16,9 @@ nothing of JAX. Phases, each printed as it ends; any failure exits non-zero
 before the result line:
 
 1. device   — the card's name, and its power limit from nvidia-smi;
-2. build    — both CUDA kernels built from ``atm_raytracer_tpu_torch/csrc``,
-              one nvcc each, started together;
+2. build    — the three CUDA kernels (K1, K2, K3) built from
+              ``atm_raytracer_tpu_torch/csrc``, one nvcc each, started
+              together, with ptxas's registers, spills and shared memory;
 2b. terrain files — the headline's 45 tiles of 1201 posts as files: both
               native tile loaders built by g++ (``g++ --version``, the build
               seconds, whether ``zlib.h`` was found, ``os.cpu_count()``); the
@@ -49,6 +50,13 @@ before the result line:
               nodes, its p within rtol 1e-6 / atol 1e-3 m of that fill's
               path length (the largest difference printed in ulp); what
               the card's PyTorch computes for ``x / w``, w a Python float;
+              K3 (the tilt-0 Rectilinear scan) against ``tilt0_hits_plain``
+              on the headline scene at 192x108 and 1920x1080, K = 1 and 4,
+              for the poly and table l(h) on the sphere, straight rays on
+              the sphere and the poly l(h) on the flat Earth: one launch a
+              progress stride; valid flags equal on >= 99.99 % of pixels,
+              keys within 1e-3 of a step and path lengths within rtol 1e-6 /
+              atol 1e-3 m where both hit, the worst pixel printed;
 4. goldens  — the three golden Fast scenes, the three golden Interpolating
               scenes (their grids through K1, and K2 where the rays are
               refracted, counted) and the three
@@ -57,8 +65,10 @@ before the result line:
               pixelwise path (-1 degree, translucent; its march goes
               through K2), and the objects golden with each generator (K1
               and K2 once each for Fast and Interpolating, K2 for the
-              Rectilinear row chunks, counted), rendered on the card and
-              with the plain path on the CPU, within the verify tolerance;
+              Rectilinear row chunks, counted; the three tilt-0 Rectilinear
+              goldens through K3, one launch a progress stride, counted),
+              rendered on the card and with the plain path on the CPU, within
+              the verify tolerance;
 5. headline — 1920x1080, fov 40, 200 km in 50 m steps, refracted, spherical,
               over 45 synthetic 1201-post tiles: the render goes through both
               kernels (launch counts; K2 once), matches the plain path on the
@@ -78,13 +88,18 @@ before the result line:
 6. profile  — a torch.profiler trace of the headline (device busy time,
               idle share, top kernels), stage times by CUDA events and the
               peak device memory;
-7. rectilinear — the Rectilinear generator (no kernel of its own yet) on
-              the headline scene: (a) at 192x108 on the card against the
-              CPU; (b) at 1920x1080, tilt 0: median frame wall of 5 renders
-              after a warm-up, peak device memory, device busy time and idle
-              share from a torch.profiler trace of one render, CUDA-event
-              stage times, and the K = 1 keys equal to the first keys of a
-              K = 2 render; (c) at tilt 1 degree through the culled path:
+7. rectilinear — the Rectilinear generator on the headline scene: (a) at
+              192x108 on the card against the CPU; (b) at 1920x1080, tilt 0,
+              its scan through K3 (36 launches, counted): median frame wall
+              of 5 renders after a warm-up, one ``plain=True`` render's wall
+              and image (within the verify tolerance), peak device memory,
+              device busy time, idle share and record count from a
+              torch.profiler trace of one render, the K = 1 keys equal to
+              the first keys of a K = 2 render, K3 at the headline's inputs
+              against ``tilt0_hits_plain`` (its CUDA-event time, its kernel
+              alone by the profiler, the plain version's time, its bound on
+              the windows the pixels ran), CUDA-event stage times; (c) at
+              tilt 1 degree through the culled path:
               one timed render after a warm-up with its round count, and at
               192x108 the culled keys equal to the dense path's (plain
               march);
@@ -169,9 +184,9 @@ The verify tolerance (the JAX package's bench.py verify): at most 1 % of
 pixels differ by more than 2 counts and at most 5 % differ at all.
 
 Output: the kernels line ``{"kernels": [...]}`` (``launches`` summed over
-the counted main-path renders — Fast, Fast from the tile files,
-Interpolating, the three object frames, the sweep and the banded Fast
-render — with the split in
+the counted main-path renders — Fast, Fast from the tile files, the
+Rectilinear tilt-0 headline, Interpolating, the three object frames, the
+sweep and the banded Fast render — with the split in
 ``launches_by_path``; each
 kernel's numbers at the Interpolating grid and at the sweep's shapes in
 ``at_interpolating_grid`` and ``at_sweep``) and, last, the result line
@@ -279,7 +294,7 @@ def phase_device():
 
 
 def phase_build():
-    """Both kernels built at once (one nvcc each, started together)."""
+    """Every kernel built at once (one nvcc each, started together)."""
     from concurrent.futures import ThreadPoolExecutor
 
     from atm_raytracer_tpu_torch import _kernels
@@ -287,12 +302,15 @@ def phase_build():
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(_kernels.KERNELS)) as pool:
         list(pool.map(lambda k: k.build(), _kernels.KERNELS))
-    say(f"[build] both kernels in {time.perf_counter() - t0:.2f} s")
+    say(f"[build] {len(_kernels.KERNELS)} kernels in {time.perf_counter() - t0:.2f} s")
     for k in _kernels.KERNELS:
         k.function()
         say(f"[build] {k.source}: nvcc {k.build_seconds} s")
         for line in k.build_log.splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
+            if "Compiling entry function" in line:  # the instance the lines below are of
+                name = line.split("'")[1]
+                say(f"[build]   {name}")
+            elif "registers" in line or "spill" in line or "smem" in line:
                 say(f"[build]   {line.strip()}")
 
 
@@ -434,7 +452,7 @@ def phase_terrain_files(dev, terrain, size=(1920, 1080), max_distance=200_000.0)
         got = render_fast(params, native_store, dev).image
         torch.cuda.synchronize()
         launches = kernel_launches()
-        check(launches == {"combine.cu": 1, "march.cu": 1},
+        check(launches == FAST_LAUNCHES,
               f"file-backed headline: launches {launches}")
         check(np.array_equal(got, want), "file-backed headline image differs from the "
               f"in-memory render ({int((got != want).any(-1).sum())} pixels)")
@@ -668,8 +686,9 @@ def k2_case(dev, tb, shape, b, n, c, tag, step=50.0, alt=100.0):
 
 def scalar_division_probe(dev):
     """What PyTorch's CUDA true division by a Python scalar computes, beside
-    the CPU's: the plain march divides by Python scalars (``eval_l_poly``'s
-    width, ``_seg_lengths``' radius), the kernel with IEEE division."""
+    the CPU's: the plain march divides by Python scalars (``_seg_lengths``'
+    radius; ``eval_l_poly`` divides by device tensors), the kernels with
+    IEEE division."""
     import numpy as np
     import torch
 
@@ -682,6 +701,143 @@ def scalar_division_probe(dev):
         say(f"[kernels] x / {w} on the card: equal to x * fl32(1/w) "
             f"{torch.equal(card, recip)}; equal to the CPU's division "
             f"{torch.equal(card, cpu)} ({int((card != cpu).sum())} of {x.numel()} differ)")
+
+
+# K3's cases on the card: the l(h) form and the Earth shape of the ray ODE
+K3_FORMS = ("poly sphere", "table sphere", "straight sphere", "poly flat")
+# the frame sizes at which phase 3 holds K3 to its plain version
+K3_SIZES = ((192, 108), (1920, 1080))
+
+
+def k3_launches(params) -> int:
+    """K3's launches for a tilt-0 frame of ``params``: one a progress stride."""
+    from atm_raytracer_tpu_torch.generators import rectilinear as rect
+
+    n_seg = int(math.ceil(params.view.frame.max_distance / params.simulation_step)) - 1
+    coarse = max(1, min(rect.march_coarse(float(params.simulation_step)), n_seg))
+    return len(rect.scan_launches(-(-n_seg // coarse)))
+
+
+def k3_inputs(dev, terrain, params):
+    """The tilt-0 scan's inputs of ``params`` on ``dev``, as
+    ``fused_shared_core`` builds them: (alt0, table, az, elev_hw, terr_pad,
+    stacked, the scan's step / n_seg / coarse keywords)."""
+    import numpy as np
+    import torch
+
+    from atm_raytracer_tpu_torch.generators import rectilinear as rect
+
+    out, frame = params.output, params.view.frame
+    alt0 = float(params.view.position.abs_altitude(terrain))
+    pack = terrain.pack(*rect.terrain_bbox(params), dev)
+    table = rect.build_refraction_table(params, alt0, dev)
+    az = torch.from_numpy(rect.camera.rectilinear_column_azimuths(
+        out.width, frame.fov, frame.direction).astype(np.float32)).to(dev)
+    n_terr = int(math.ceil(frame.max_distance / params.simulation_step))
+    step = float(params.simulation_step)
+    elev_hw, terr_pad, stacked, coarse = rect.tilt0_inputs(
+        pack, az, cam=(out.width, out.height, float(frame.fov)), model=params.model,
+        step=step, n_terr=n_terr, lat0=LAT0, lon0=LON0)
+    return alt0, table, az, elev_hw, terr_pad, stacked, dict(step=step, n_seg=n_terr - 1,
+                                                             coarse=coarse)
+
+
+def k3_form(form: str, table, params) -> dict:
+    """The shape, table and straight keywords of one of K3_FORMS."""
+    from atm_raytracer_tpu_torch.physics import ray as R
+
+    l_form, shape = form.split()
+    return dict(shape=R.FLAT if shape == "flat" else params.model.to_shape(),
+                table=dataclasses.replace(table, poly=None) if l_form == "table" else table,
+                straight=l_form == "straight")
+
+
+def k3_check(tag, got, want):
+    """K3's contract against ``tilt0_hits_plain`` on the same inputs: the
+    valid flags of every slot equal on >= 99.99 % of pixels; where both hold
+    a hit, keys within 1e-3 of a step and path lengths within rtol 1e-6 /
+    atol 1e-3 m. Prints the worst pixel; returns the largest key difference."""
+    import numpy as np
+    import torch
+
+    (key_k, plh_k), (key_p, plh_p) = got, want
+    vk, vp = torch.isfinite(key_k), torch.isfinite(key_p)
+    n_pix = vk.shape[0] * vk.shape[1]
+    flips = int((vk != vp).any(-1).sum())
+    both = vk & vp
+    dk = torch.where(both, (key_k - key_p).abs(), 0.0)
+    over = torch.where(both, (plh_k - plh_p).abs() - (1e-3 + 1e-6 * plh_p.abs()), -1.0)
+    dk_max, over_max = float(dk.max()), float(over.max())
+    at = np.unravel_index(int(dk.argmax()), tuple(dk.shape))
+    at_p = np.unravel_index(int(over.argmax()), tuple(over.shape))
+    say(f"[kernels] K3 {tag}: valid flags differ on {flips} of {n_pix} pixels; "
+        f"{int(both.sum())} hits in both; max |dkey| {dk_max:.3g} at (row, col, slot) "
+        f"{tuple(int(i) for i in at)} (K3 {float(key_k[at]):.6f}, plain "
+        f"{float(key_p[at]):.6f}); path length worst at {tuple(int(i) for i in at_p)}: "
+        f"K3 {float(plh_k[at_p]):.4f} m, plain {float(plh_p[at_p]):.4f} m")
+    check(flips <= 1e-4 * n_pix, f"K3 {tag}: valid flags differ on {flips} of {n_pix} pixels")
+    check(dk_max <= 1e-3, f"K3 {tag}: keys differ by {dk_max} of a step")
+    check(over_max <= 0.0, f"K3 {tag}: a path length is out of rtol 1e-6 / atol 1e-3 m "
+          f"(K3 {float(plh_k[at_p])}, plain {float(plh_p[at_p])})")
+    return dk_max
+
+
+def phase_k3(dev, terrain, sizes=K3_SIZES):
+    """K3 against ``tilt0_hits_plain`` on the card, on the headline scene at
+    each of ``sizes``: K = 1 and 4, every one of K3_FORMS, one launch a
+    progress stride."""
+    import torch
+
+    from atm_raytracer_tpu_torch import _kernels
+    from atm_raytracer_tpu_torch.generators import rectilinear as rect
+
+    for size in sizes:
+        params = headline_params(*size)
+        alt0, table, _, elev_hw, terr_pad, _, kw = k3_inputs(dev, terrain, params)
+        for k in (1, 4):
+            for form in K3_FORMS:
+                fkw = k3_form(form, table, params)
+                before = _kernels.RECT_SCAN.launches
+                key, plh, _ = rect.tilt0_hits_cuda(elev_hw, terr_pad, alt0, max_hits=k,
+                                                   **fkw, **kw)
+                check(_kernels.RECT_SCAN.launches - before == k3_launches(params),
+                      f"K3 {size} K={k} {form}: not one launch a progress stride")
+                want = rect.tilt0_hits_plain(elev_hw, terr_pad, alt0, max_hits=k, **fkw, **kw)
+                torch.cuda.synchronize()
+                k3_check(f"{size[0]}x{size[1]} K={k} {form}", (key, plh), want)
+                del key, plh, want
+
+
+def k3_ops(windows: int, retests: int, max_hits: int) -> int:
+    """Operations of csrc/rect_scan.cu on the sphere with the Chebyshev
+    l(h), counted from the source as ``k2_ops`` counts (each +, -, *, /,
+    sqrt, min, max, compare, select, conversion one). A window: the RK4
+    step 209 and the two slopes times dx 2; at K = 1 the quadrature of dP/dx
+    31 (four path speeds of 6, the combine 7) and the window test 216 (17
+    Hermite samples of 7, 17 terrain differences, 16 death and 16 NaN tests,
+    16 products with 2 tests each); at K > 1 the exact test. The exact test
+    of a window 452 (17 samples 119, 17 differences, 16 chords of 10, 16
+    double-precision adds with their conversions 64, 16 products and 3
+    tests each 64, 16 death tests, the key and path length 12), once a hit
+    at K = 1."""
+    if max_hits == 1:
+        return windows * (209 + 2 + 31 + 216) + retests * 452
+    return windows * (209 + 2 + 452)
+
+
+def k3_bound(elev_hw, terr_pad, coarse: int, max_hits: int, flags):
+    """K3's bound on this run's data: v0 and the terrain rows read once,
+    keys and path lengths written once, the Hermite basis; the operations
+    of ``k3_ops`` for the windows each pixel ran (``flags``)."""
+    from atm_raytracer_tpu_torch.generators import rectilinear as rect
+
+    h_n, w_n = elev_hw.shape
+    windows = int((flags >> rect.SCAN_WINDOWS_SHIFT).sum())
+    hits = int(((flags >> 1) & 0xFF).sum())
+    n_bytes = 4 * (h_n * w_n + terr_pad.numel() + 2 * h_n * w_n * max_hits
+                   + 4 * (coarse + 1))
+    n_ops = k3_ops(windows, hits if max_hits == 1 else 0, max_hits)
+    return (*bound(n_bytes, n_ops), n_bytes, n_ops, windows)
 
 
 def golden_config(scene: str) -> dict:
@@ -749,6 +905,10 @@ def rect_golden_configs():
     return cases
 
 
+# the launches of one Fast or Interpolating frame (or a sweep): K1 and K2 once
+FAST_LAUNCHES = {"combine.cu": 1, "march.cu": 1, "rect_scan.cu": 0}
+
+
 def kernel_launches():
     from atm_raytracer_tpu_torch import _kernels
 
@@ -809,6 +969,10 @@ def phase_goldens(dev):
         check(ok, f"golden {name}: any={fa:.4f} big={fb:.4f} out of tolerance")
         if "pixelwise" in name:
             check(launches["march.cu"] > 0, f"{name}: the march did not go through K2")
+        if params.view.frame.tilt == 0.0:
+            want = k3_launches(params)
+            check(launches["rect_scan.cu"] == want,
+                  f"{name}: {launches['rect_scan.cu']} K3 launches, not {want}")
         say(f"[goldens] {name}: cuda vs cpu plain any={fa:.4f} big={fb:.4f} "
             f"max={mx} (culled rounds {gpu.culled_rounds}, launches {launches})")
     renders = {"Fast": render_fast, "Rectilinear": render_rectilinear,
@@ -824,7 +988,7 @@ def phase_goldens(dev):
         if generator == "Rectilinear":
             check(launches["march.cu"] > 0, f"{generator} objects: no K2 launch")
         else:
-            check(launches == {"combine.cu": 1, "march.cu": 1},
+            check(launches == FAST_LAUNCHES,
                   f"{generator} objects: launches {launches}")
         cpu = render(params, terrain, "cpu")
         ok, fa, fb, mx = image_tolerance(gpu.image, cpu.image)
@@ -1194,9 +1358,8 @@ def phase_headline(dev, params, terrain, renders=20):
     torch.cuda.synchronize()
     launches = kernel_launches()
     say(f"[headline] launches in one render: {launches}")
-    for src, count in launches.items():
-        check(count > 0, f"{src}: no launch in the headline render")
-    check(launches["march.cu"] == 1, "K2: not one launch in the headline render")
+    check(launches == FAST_LAUNCHES, f"headline render: launches {launches}, not "
+          f"{FAST_LAUNCHES}")
 
     image = result.image
     hits = result.hits
@@ -1282,7 +1445,7 @@ def phase_headline(dev, params, terrain, renders=20):
          "replaces": "atm_raytracer_tpu/experimental/march_pallas.py:18",
          "launches": launches["march.cu"], "library_ms": None, **k2},
     ]
-    return kernels, med
+    return kernels, med, launches
 
 
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
@@ -1394,7 +1557,7 @@ def hits_agree(a, b):
 def trace_busy_ms(fn, name: str):
     """Device busy time (union of the device records of a torch.profiler
     trace of one ``fn()``) in ms, the record count, and ms by record name.
-    One Rectilinear frame is ~2·10^5 records."""
+    One Rectilinear frame through the plain scan is ~2·10^5 records."""
     events = trace_events(fn, name)
     spans = [(float(e["ts"]), float(e["ts"]) + float(e["dur"])) for e in events]
     by_name: dict = {}
@@ -1469,7 +1632,9 @@ def phase_rect_small(dev, terrain):
 
 
 def phase_rect_headline(dev, params, terrain, renders=5):
-    """(b): the 1920x1080 tilt-0 Rectilinear headline."""
+    """(b): the 1920x1080 tilt-0 Rectilinear headline through K3. Returns
+    K3's numbers for the kernels line and the launches of the counted
+    render."""
     import numpy as np
     import torch
 
@@ -1482,8 +1647,11 @@ def phase_rect_headline(dev, params, terrain, renders=5):
     t0 = time.perf_counter()
     result = rect.render_rectilinear(params, terrain, dev)
     torch.cuda.synchronize()
+    launches = kernel_launches()
+    want = {"combine.cu": 0, "march.cu": 0, "rect_scan.cu": k3_launches(params)}
+    check(launches == want, f"rectilinear headline: launches {launches}, not {want}")
     say(f"[rectilinear] first render {time.perf_counter() - t0:.3f} s; kernel "
-        f"launches {kernel_launches()} (the tilt-0 path has no kernel of its own yet)")
+        f"launches {launches} (K3: one a progress stride)")
     image = result.image
     check(image.shape == (out.height, out.width, 3), f"image shape {image.shape}")
     valid = result.hits.valid.cpu().numpy()
@@ -1505,6 +1673,19 @@ def phase_rect_headline(dev, params, terrain, renders=5):
     say(f"[rectilinear] frame wall over {renders} renders after the warm-up: median "
         f"{med * 1e3:.3f} ms (min {min(walls) * 1e3:.3f}, max {max(walls) * 1e3:.3f}; "
         f"all {', '.join(f'{w * 1e3:.3f}' for w in walls)})")
+
+    # the plain path on the card, once: its wall beside K3's, the same image
+    t0 = time.perf_counter()
+    plain = rect.render_rectilinear(params, terrain, dev, plain=True)
+    torch.cuda.synchronize()
+    plain_wall = time.perf_counter() - t0
+    ok, fa, fb, mx = image_tolerance(image, plain.image)
+    vdiff, dk = hits_agree(result, plain)
+    check(ok, f"rectilinear headline K3 vs plain=True: any={fa} big={fb} out of tolerance")
+    say(f"[rectilinear] plain=True on the card: wall {plain_wall * 1e3:.3f} ms against "
+        f"the K3 median {med * 1e3:.3f} ms; images any={fa:.5f} big={fb:.5f} max={mx}; "
+        f"valid differ {vdiff:.6f}, max |dkey| {dk:.3g}")
+    del plain
 
     torch.cuda.reset_peak_memory_stats(dev)
     rect.render_rectilinear(params, terrain, dev)
@@ -1529,37 +1710,41 @@ def phase_rect_headline(dev, params, terrain, renders=5):
           f"K = 1 vs K = 2: {mask_bad} masks and {key_bad} keys differ")
     say(f"[rectilinear] K = 1 keys == first keys of K = 2 on all "
         f"{int(both.sum())} hit pixels; masks equal")
+    del r2
+
+    # K3 at the headline's inputs, beside its plain version and its bound
+    alt0, table, az, elev_hw, terr_pad, stacked, kw = k3_inputs(dev, terrain, params)
+    scan_kw = dict(shape=params.model.to_shape(), table=table, straight=False,
+                   max_hits=1, **kw)
+    key, plh, flags = rect.tilt0_hits_cuda(elev_hw, terr_pad, alt0, **scan_kw)
+    key_p, plh_p = rect.tilt0_hits_plain(elev_hw, terr_pad, alt0, **scan_kw)
+    torch.cuda.synchronize()
+    err = k3_check(f"{out.width}x{out.height} headline", (key, plh), (key_p, plh_p))
+    k3_ms = cuda_ms(lambda: rect.tilt0_hits(elev_hw, terr_pad, alt0, **scan_kw), 5)
+    _, _, by_name = trace_busy_ms(lambda: [rect.tilt0_hits(
+        elev_hw, terr_pad, alt0, **scan_kw) for _ in range(5)], "k3")
+    device_ms = sum(v for k, v in by_name.items() if "rect_scan_kernel" in k) / 5
+    check(device_ms > 0, f"K3's kernel missing from the trace: {list(by_name)}")
+    plain_ms = cuda_ms(lambda: rect.tilt0_hits_plain(elev_hw, terr_pad, alt0, **scan_kw), 1)
+    bound_ms, bound_by, n_bytes, n_ops, windows = k3_bound(
+        elev_hw, terr_pad, kw["coarse"], 1, flags)
+    say(f"[rectilinear] K3 (tilt0_hits: {k3_launches(params)} launches) {k3_ms:.4f} ms by "
+        f"CUDA events, kernel alone {device_ms:.4f} ms (profiler, mean of 5); plain "
+        f"{plain_ms:.3f} ms; {windows} pixel-windows run of {elev_hw.numel()} x "
+        f"{-(-kw['n_seg'] // kw['coarse'])}; bound {bound_ms:.4f} ms by {bound_by} "
+        f"({n_bytes} B, {n_ops} float32 operations): {100.0 * bound_ms / k3_ms:.2f} % of "
+        f"the bound")
 
     # stage times: each stage alone, CUDA-event means
-    pack = terrain.pack(*rect.terrain_bbox(params), dev)
-    alt0 = float(params.view.position.abs_altitude(terrain))
-    table = rect.build_refraction_table(params, alt0, dev)
-    az = torch.from_numpy(rect.camera.rectilinear_column_azimuths(
-        out.width, params.view.frame.fov, params.view.frame.direction
-    ).astype(np.float32)).to(dev)
-    step = float(params.simulation_step)
-    coarse = rect.march_coarse(step)
-    scan_kw = dict(shape=params.model.to_shape(), table=table, straight=False,
-                   step=step, n_seg=n_terr - 1, coarse=coarse)
-    elev_hw, _ = rect.camera.rectilinear_ray_params_device(
-        out.width, out.height, params.view.frame.fov, 0.0, 0.0, dev)
-    terr, normal = rect.terrain_columns(pack, params.model, az, LAT0, LON0, step, n_terr)
-    n_pad = -(-(n_terr - 1) // coarse) * coarse + 1 - n_terr
-    terr_pad = torch.nn.functional.pad(terr, (0, n_pad))
-    stacked = torch.cat([terr[..., None], normal], dim=-1)
-    found = rect.first_window_scan(elev_hw, terr_pad, alt0, **scan_kw)
-    key, plh = rect.first_hit_retest(*found, terr_pad, **scan_kw)
-    hit_kw = dict(model=params.model, lat0=LAT0, lon0=LON0, step=step,
+    hit_kw = dict(model=params.model, lat0=LAT0, lon0=LON0, step=kw["step"],
                   terrain_alpha=float(params.terrain_alpha))
     hits = rect.column_hits(stacked, key, plh, az, **hit_kw)
     image_t = rect._composite_hits(params.coloring, params.view.fog_distance, hits)
     t = {
         "terrain columns": cuda_ms(lambda: rect.terrain_columns(
-            pack, params.model, az, LAT0, LON0, step, n_terr), 3),
-        "scan (march_scan_light + window test)": cuda_ms(
-            lambda: rect.first_window_scan(elev_hw, terr_pad, alt0, **scan_kw), 1),
-        "post-scan re-expansion + exact test": cuda_ms(
-            lambda: rect.first_hit_retest(*found, terr_pad, **scan_kw), 3),
+            terrain.pack(*rect.terrain_bbox(params), dev), params.model, az, LAT0, LON0,
+            kw["step"], n_terr), 3),
+        "scan (K3)": k3_ms,
         "hit reconstruction": cuda_ms(
             lambda: rect.column_hits(stacked, key, plh, az, **hit_kw), 3),
         "composite": cuda_ms(lambda: rect._composite_hits(
@@ -1570,7 +1755,15 @@ def phase_rect_headline(dev, params, terrain, renders=5):
     for name, ms in t.items():
         say(f"[rectilinear] stage {name}: {ms:.3f} ms ({100.0 * ms / total:.1f} % "
             f"of the stages' {total:.3f} ms)")
-    return med
+    k3 = {"name": "K3 rect_scan", "route": "cuda",
+          "source": "atm_raytracer_tpu_torch/csrc/rect_scan.cu",
+          "replaces": "atm_raytracer_tpu/physics/ray.py:422",
+          "max_abs_err": err, "ms": k3_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+          "bound_by": bound_by, "library_ms": None, "device_ms": device_ms,
+          "pixel_windows": windows, "frame_wall_ms": med * 1e3,
+          "plain_frame_wall_ms": plain_wall * 1e3, "busy_ms": busy_ms,
+          "device_records": n_rec}
+    return k3, launches
 
 
 def phase_rect_culled(dev, terrain):
@@ -1667,8 +1860,8 @@ def phase_metadata(dev, terrain, size=(1920, 1080), big=(8192, 2048)):
         result = render_fast(config.into_params(terrain), terrain, dev)
         torch.cuda.synchronize()
         launches = kernel_launches()
-        check(all(n > 0 for n in launches.values()),
-              f"metadata: the render missed a kernel: {launches}")
+        check(launches == FAST_LAUNCHES,
+              f"metadata: the render's launches {launches}, not {FAST_LAUNCHES}")
         say(f"[metadata] {size[0]}x{size[1]} headline render: launches {launches}")
         npz = artifact_round_trip("headline", config, result, dev, tmp, "native")
         artifact_round_trip("headline", config, result, dev, tmp, "reference")
@@ -1800,8 +1993,8 @@ def phase_interpolating(dev, terrain, size=(1920, 1080), max_distance=200_000.0,
     launches = kernel_launches()
     say(f"[interpolating] {out.width}x{out.height}: snapped grid {grid_e.size} x "
         f"{grid_a.size}; first render {first * 1e3:.3f} ms; launches {launches}")
-    check(all(n == 1 for n in launches.values()),
-          f"interpolating headline: not one launch of each kernel: {launches}")
+    check(launches == FAST_LAUNCHES,
+          f"interpolating headline: not one launch of K1 and K2: {launches}")
     hits = result.hits
     check(result.image.shape == (out.height, out.width, 3), f"image {result.image.shape}")
     check(hits.valid.shape == (out.height, out.width, 4), f"hits {hits.valid.shape}")
@@ -2135,7 +2328,7 @@ def phase_objects(dev, terrain, size=(1920, 1080), max_distance=200_000.0,
     torch.cuda.synchronize()
     first = time.perf_counter() - t0
     launches["objects_fast"] = kernel_launches()
-    check(launches["objects_fast"] == {"combine.cu": 1, "march.cu": 1},
+    check(launches["objects_fast"] == FAST_LAUNCHES,
           f"objects fast: launches {launches['objects_fast']}")
     az = fast.camera.fast_ray_azimuths(out.width, out.height, frame.fov, frame.direction)
     objects, wins = fast.build_objects_cached(params, az, n_terr, dev)
@@ -2229,7 +2422,7 @@ def phase_objects(dev, terrain, size=(1920, 1080), max_distance=200_000.0,
     res_i = interp.render_interpolating(params, terrain, dev)
     torch.cuda.synchronize()
     launches["objects_interpolating"] = kernel_launches()
-    check(launches["objects_interpolating"] == {"combine.cu": 1, "march.cu": 1},
+    check(launches["objects_interpolating"] == FAST_LAUNCHES,
           f"objects interpolating: launches {launches['objects_interpolating']}")
     # the pinhole generators' columns have their own azimuths
     az_col = rect.camera.rectilinear_column_azimuths(out.width, frame.fov, frame.direction)
@@ -2401,7 +2594,7 @@ def phase_sweep(dev, terrain, renders=5):
     frames = sweep()
     first = time.perf_counter() - t0
     launches = kernel_launches()
-    check(launches == {"combine.cu": 1, "march.cu": 1},
+    check(launches == FAST_LAUNCHES,
           f"sweep: launches {launches}, want one of each kernel for {f_n} frames")
     check(frames.shape == (f_n, h_n, w_n, 3), f"sweep frames {frames.shape}")
     walls = []
@@ -2495,7 +2688,7 @@ def phase_sweep(dev, terrain, renders=5):
     frames_v = sweep(**varied)
     first_v = time.perf_counter() - t0
     launches_v = kernel_launches()
-    check(launches_v == {"combine.cu": 1, "march.cu": 1},
+    check(launches_v == FAST_LAUNCHES,
           f"varied sweep: launches {launches_v}, want one of each kernel")
     t0 = time.perf_counter()
     again = sweep(**varied)
@@ -2776,7 +2969,7 @@ def phase_transfer(dev, terrain, params):
             fast._stream_bands = real_bands
         torch.cuda.synchronize()
         counted = kernel_launches()
-        check(counted == {"combine.cu": 8, "march.cu": 1},
+        check(counted == {"combine.cu": 8, "march.cu": 1, "rect_scan.cu": 0},
               f"streamed (compact={compact}): launches {counted}, want 8 K1 and 1 K2")
         check(lines == [12, 25, 38, 50, 62, 75, 88, 100],
               f"streamed (compact={compact}): progress {lines}")
@@ -2952,11 +3145,13 @@ def main(argv) -> int:
             f"{time.perf_counter() - t0:.1f} s")
         files_launches = phase_terrain_files(dev, terrain)
         phase_kernels(dev)
+        phase_k3(dev, terrain)
         phase_goldens(dev)
-        kernels, wall_s = phase_headline(dev, params, terrain)
+        kernels, wall_s, fast_launches = phase_headline(dev, params, terrain)
         phase_profile(dev, params, terrain, wall_s)
         phase_rect_small(dev, terrain)
-        phase_rect_headline(dev, params, terrain)
+        k3, rect_launches = phase_rect_headline(dev, params, terrain)
+        kernels.append(k3)
         phase_rect_culled(dev, terrain)
         phase_metadata(dev, terrain)
         interp_launches, at_grid = phase_interpolating(dev, terrain)
@@ -2966,15 +3161,16 @@ def main(argv) -> int:
         streamed_launches = phase_transfer(dev, terrain, params)
         for k in kernels:  # the launches of every counted main-path render
             src = Path(k["source"]).name
-            k["launches_by_path"] = {"fast": k["launches"],
+            k["launches_by_path"] = {"fast": fast_launches[src],
                                      "fast_from_files": files_launches[src],
+                                     "rectilinear": rect_launches[src],
                                      "interpolating": interp_launches[src],
                                      **{path: n[src] for path, n in obj_launches.items()},
                                      "sweep": sweep_launches[src],
                                      "fast_streamed": streamed_launches[src]}
             k["launches"] = sum(k["launches_by_path"].values())
-            k["at_interpolating_grid"] = at_grid[src]
-            k["at_sweep"] = at_sweep[src]
+            k["at_interpolating_grid"] = at_grid.get(src)
+            k["at_sweep"] = at_sweep.get(src)
     except SmokeFailure as e:
         say(f"FAIL: {e}")
         return 1

@@ -179,8 +179,8 @@ VARIANTS = {"first": (), "npoly4": ("-DNPOLY4",), "l_const": ("-DL_CONST",),
             "recip": ("-DRECIP",)}
 
 
-# (name, [(text in csrc/march.cu, its replacement)]): each cuts one part of
-# the step, for the measurement only (the results are wrong)
+# (name, [(text in csrc/march.cu or ray_device.cuh, its replacement)]): each
+# cuts one part of the step, for the measurement only (the results are wrong)
 ABLATIONS = (
     ("as_is", []),
     ("no_clenshaw", [("  return seg[3] + t * b1 - b2;", "  return seg[3] + t * 1e-12f;"),
@@ -202,7 +202,10 @@ def ablated_cycles(dev, alt, v0, table, n_coarse, dx, radius) -> dict:
     from atm_raytracer_tpu_torch import _kernels
     from atm_raytracer_tpu_torch.physics import ray as R
 
-    src = (_kernels.CSRC / "march.cu").read_text()
+    # the header inlined, so the copy builds outside csrc/ and its l(h) and
+    # step code can be cut like the rest
+    src = (_kernels.CSRC / "march.cu").read_text().replace(
+        '#include "ray_device.cuh"', (_kernels.CSRC / "ray_device.cuh").read_text())
     out = ROOT / "build" / "k2_probe"
     out.mkdir(parents=True, exist_ok=True)
     real = _kernels.MARCH
@@ -212,7 +215,8 @@ def ablated_cycles(dev, alt, v0, table, n_coarse, dx, radius) -> dict:
             text = src
             for old, new in subs:
                 if old not in text:
-                    raise RuntimeError(f"ablation {name}: {old!r} is not in march.cu")
+                    raise RuntimeError(f"ablation {name}: {old!r} is not in march.cu "
+                                       "or ray_device.cuh")
                 text = text.replace(old, new)
             path = out / f"march_{name}.cu"
             path.write_text(text)

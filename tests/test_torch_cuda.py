@@ -208,6 +208,12 @@ def _hills(n=121):
                     + 120.0 * np.sin(2 * np.pi * (7 * lat + 5 * lon))).astype(np.float32)
 
 
+def _fast_launches():
+    """The launches of K1, K2 and K3 so far: a Fast frame adds one each to
+    K1 and K2 and none to K3."""
+    return [_kernels.COMBINE.launches, _kernels.MARCH.launches, _kernels.RECT_SCAN.launches]
+
+
 @pytest.mark.parametrize("alpha", [1.0, 0.65])
 def test_render_on_card_matches_cpu(alpha, cuda_device):
     terrain = Terrain()
@@ -220,9 +226,9 @@ def test_render_on_card_matches_cpu(alpha, cuda_device):
         "simulation_step": 100.0,
         "output": {"width": 96, "height": 64},
     }).into_params(terrain)
-    before = [k.launches for k in _kernels.KERNELS]
+    before = _fast_launches()
     gpu = render_fast(params, terrain, cuda_device)
-    assert [k.launches for k in _kernels.KERNELS] == [b + 1 for b in before]
+    assert _fast_launches() == [b + 1 for b in before[:2]] + before[2:]
     cpu = render_fast(params, terrain, "cpu")
     ok, frac_any, frac_big = verify_tolerance(gpu.image, cpu.image)
     assert ok, (frac_any, frac_big)
@@ -257,9 +263,9 @@ def test_pack_from_files_on_card(cuda_device, tmp_path):
         "simulation_step": 100.0,
         "output": {"width": 96, "height": 64},
     }).into_params(terrain)
-    before = [k.launches for k in _kernels.KERNELS]
+    before = _fast_launches()
     render_fast(params, terrain, cuda_device)
-    assert [k.launches for k in _kernels.KERNELS] == [b + 1 for b in before]
+    assert _fast_launches() == [b + 1 for b in before[:2]] + before[2:]
 
 
 def _rect_scene(tilt=0.0, alpha=1.0):
@@ -714,3 +720,115 @@ def test_banded_render_equals_render_fast(alpha, compact, cuda_device):
     np.testing.assert_array_equal(got.image, plain.image)
     for f in dataclasses.fields(got.hits):
         assert torch.equal(getattr(got.hits, f.name), getattr(plain.hits, f.name)), f.name
+
+
+K3_FORMS = ("poly sphere", "table sphere", "straight sphere", "poly flat")
+
+
+def _k3_inputs(device, terrain, params, rows=None):
+    """The tilt-0 scan's inputs of ``params`` on ``device`` and its keywords,
+    the l(h) form and shape left to the caller."""
+    from atm_raytracer_tpu_torch.generators import rectilinear as rect
+
+    out, frame = params.output, params.view.frame
+    alt0 = float(params.view.position.abs_altitude(terrain))
+    n_terr = int(np.ceil(frame.max_distance / params.simulation_step))
+    az = torch.from_numpy(rect.camera.rectilinear_column_azimuths(
+        out.width, frame.fov, frame.direction).astype(np.float32)).to(device)
+    elev_hw, terr_pad, _, coarse = rect.tilt0_inputs(
+        terrain.pack(*rect.terrain_bbox(params), device), az,
+        cam=(out.width, out.height, float(frame.fov)), model=params.model,
+        step=float(params.simulation_step), n_terr=n_terr, lat0=49.5, lon0=21.5, rows=rows)
+    table = rect.build_refraction_table(params, alt0, device)
+    return (elev_hw, terr_pad, alt0), table, dict(step=float(params.simulation_step),
+                                                  n_seg=n_terr - 1, coarse=coarse)
+
+
+def _k3_form(form, table):
+    l_form, shape = form.split()
+    return dict(shape=R.FLAT if shape == "flat" else R.EarthShape(6_371_000.0),
+                table=dataclasses.replace(table, poly=None) if l_form == "table" else table,
+                straight=l_form == "straight")
+
+
+def _k3_contract(got, want):
+    """chip_smoke's K3 contract: valid flags equal on >= 99.99 % of pixels;
+    where both hit, keys within 1e-3 of a step and path lengths within
+    rtol 1e-6 / atol 1e-3 m."""
+    (key, plh), (key_p, plh_p) = got, want
+    v, vp = torch.isfinite(key), torch.isfinite(key_p)
+    assert int((v != vp).any(-1).sum()) <= 1e-4 * v.shape[0] * v.shape[1]
+    both = v & vp
+    assert both.any()
+    assert float((key - key_p).abs()[both].max()) <= 1e-3
+    assert torch.allclose(plh[both], plh_p[both], rtol=1e-6, atol=1e-3)
+
+
+@pytest.mark.parametrize("max_hits", [1, 4])
+@pytest.mark.parametrize("form", K3_FORMS)
+def test_rect_scan_kernel_matches_plain(form, max_hits, cuda_device):
+    from atm_raytracer_tpu_torch.generators import rectilinear as rect
+
+    terrain, params = _rect_scene()
+    args, table, kw = _k3_inputs(cuda_device, terrain, params)
+    fkw = _k3_form(form, table)
+    before = _kernels.RECT_SCAN.launches
+    key, plh, flags = rect.tilt0_hits_cuda(*args, max_hits=max_hits, **fkw, **kw)
+    n_coarse = -(-kw["n_seg"] // kw["coarse"])
+    assert _kernels.RECT_SCAN.launches == before + len(rect.scan_launches(n_coarse))
+    want = rect.tilt0_hits_plain(*args, max_hits=max_hits, **fkw, **kw)
+    torch.cuda.synchronize()
+    _k3_contract((key, plh), want)
+    # every pixel stopped or ran every window; the hits it counted are its slots
+    windows = flags >> rect.SCAN_WINDOWS_SHIFT
+    assert bool((((flags & 1) == 1) | (windows == n_coarse)).all())
+    assert torch.equal((flags >> 1) & 0xFF, torch.isfinite(key).sum(-1).to(torch.int32))
+
+
+def test_rect_scan_kernel_on_a_row_subset(cuda_device):
+    """A row shard (rows given, as parallel.mesh passes them) gives those
+    rows of the full frame, bit for bit."""
+    from atm_raytracer_tpu_torch.generators import rectilinear as rect
+
+    terrain, params = _rect_scene(alpha=0.65)
+    rows = torch.tensor([0, 5, 6, 31, 63], device=cuda_device)
+    full, tb, kw = _k3_inputs(cuda_device, terrain, params)
+    part, _, _ = _k3_inputs(cuda_device, terrain, params, rows=rows)
+    for k in (1, 4):
+        fkw = _k3_form("poly sphere", tb)
+        key_f, plh_f, _ = rect.tilt0_hits_cuda(*full, max_hits=k, **fkw, **kw)
+        key_r, plh_r, _ = rect.tilt0_hits_cuda(*part, max_hits=k, **fkw, **kw)
+        assert torch.equal(key_r, key_f[rows]) and torch.equal(plh_r, plh_f[rows])
+
+
+def test_rect_scan_kernel_short_march(cuda_device):
+    """A march shorter than one coarse window (n_seg = 6 < 8): the window
+    is clamped to it, and K3 agrees with the plain scan."""
+    from atm_raytracer_tpu_torch.generators import rectilinear as rect
+
+    terrain, params = _rect_scene()
+    params.view.frame.max_distance = 700.0
+    args, table, kw = _k3_inputs(cuda_device, terrain, params)
+    assert kw["coarse"] == kw["n_seg"] == 6
+    for k in (1, 2):
+        fkw = _k3_form("poly sphere", table)
+        key, plh, _ = rect.tilt0_hits_cuda(*args, max_hits=k, **fkw, **kw)
+        _k3_contract((key, plh), rect.tilt0_hits_plain(*args, max_hits=k, **fkw, **kw))
+
+
+@pytest.mark.parametrize("alpha", [1.0, 0.65])
+def test_rectilinear_tilt0_scans_through_the_kernel(alpha, cuda_device):
+    """The tilt-0 frame's scan is K3 on the card (its launches counted), and
+    ``plain=True`` renders the same image through the plain scan."""
+    from atm_raytracer_tpu_torch.generators import rectilinear as rect
+
+    terrain, params = _rect_scene(alpha=alpha)
+    before = _fast_launches()
+    gpu = render_rectilinear(params, terrain, cuda_device)
+    n_coarse = -(-(250 - 1) // 8)  # 25 km in 100 m steps, windows of 8
+    assert _fast_launches() == before[:2] + [before[2] + len(rect.scan_launches(n_coarse))]
+    plain = render_rectilinear(params, terrain, cuda_device, plain=True)
+    assert _fast_launches()[2] == before[2] + len(rect.scan_launches(n_coarse))
+    ok, frac_any, frac_big = verify_tolerance(gpu.image, plain.image)
+    assert ok, (frac_any, frac_big)
+    _first_hits_close(gpu, plain, 1e-3)

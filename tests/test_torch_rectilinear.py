@@ -364,11 +364,11 @@ def test_culled_finds_the_dense_hits(golden_dir, terrains):
 
 # -- analogs of tests/test_rectilinear.py --------------------------------------
 
-@pytest.fixture(scope="module")
-def small_scene(tmp_path_factory):
-    d = tmp_path_factory.mktemp("torch_rect_small")
-    make_terrain_folder(d, tiles=((49, 21),), n=241)
-    cfg = {
+def small_scene_setup(folder):
+    """The small tilt-0 scene: its one-tile terrain folder written into
+    ``folder`` and its config dict (48x32, fov 6, 12 km in 50 m steps)."""
+    make_terrain_folder(folder, tiles=((49, 21),), n=241)
+    return {
         "view": {"position": {"latitude": 49.5, "longitude": 21.5,
                               "altitude": {"Relative": 40.0}},
                  "frame": {"direction": 50.0, "fov": 6.0, "max_distance": 12000.0,
@@ -376,6 +376,12 @@ def small_scene(tmp_path_factory):
         "simulation_step": 50.0,
         "output": {"width": 48, "height": 32},
     }
+
+
+@pytest.fixture(scope="module")
+def small_scene(tmp_path_factory):
+    d = tmp_path_factory.mktemp("torch_rect_small")
+    cfg = small_scene_setup(d)
     terrain = TTerrain.from_folder(d)
     return terrain, TConfig.from_dict(cfg).into_params(terrain)
 
