@@ -190,11 +190,12 @@ MARCH = CudaKernel(
 )
 
 # K3: the tilt-0 Rectilinear scan (generators/rectilinear.py::tilt0_hits),
-# one launch per progress stride of coarse windows, state carried between
+# one launch per progress stride of coarse windows, state carried between;
+# its exit and window-cull rules' inputs last
 RECT_SCAN = CudaKernel(
     "rect_scan.cu", "rect_scan",
     [_P, _I, _I, _I, _F, _P, _I, _I, _I, _I, _I, _F, _P, _I, _P, _I, _F, _F, _I, _F, _F,
-     _I, _F, _F, _P, _I, _P, _P, _P, _P, _P],
+     _I, _F, _F, _P, _I, _P, _P, _P, _P, _P, _P, _F, _F, _F, _F, _P],
 )
 
 KERNELS = (COMBINE, MARCH, RECT_SCAN)

@@ -32,7 +32,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -137,7 +137,8 @@ def _window_progress(emit, k0: int, coarse: int, n_coarse: int) -> None:
 
 def first_window_scan(elev_hw, terr_pad, alt0, *, shape: EarthShape,
                       table: Optional[RefractionTable], straight: bool,
-                      step: float, n_seg: int, coarse: int, emit=None):
+                      step: float, n_seg: int, coarse: int, emit=None,
+                      rules: Optional["ScanRules"] = None):
     """K = 1, the scan: each pixel's FIRST window holding a sign change of
     ray − terrain, and the ODE state at its start.
 
@@ -145,7 +146,10 @@ def first_window_scan(elev_hw, terr_pad, alt0, *, shape: EarthShape,
     [H, W]: altitude, slope and path length at that window's start).
     ``terr_pad`` [W, n_coarse·C + 1] is each column's terrain, zero-padded
     past the march. ``first_hit_retest`` resolves the flagged windows.
-    ``emit`` (``percent_reporter``) receives the scan's progress.
+    ``emit`` (``percent_reporter``) receives the scan's progress. Without
+    ``rules`` this is the oracle K3 is held to; with them
+    (``tilt0_hits_ruled``) K3's two rules mask the windows they prove idle
+    and the returned tuple gains ``_RuleTally``'s fields.
     """
     h_n, w_n = elev_hw.shape
     n_coarse = -(-n_seg // coarse)
@@ -153,9 +157,10 @@ def first_window_scan(elev_hw, terr_pad, alt0, *, shape: EarthShape,
     coeffs = hermite_coeffs(coarse)
     dxw = _f32(step * coarse)
     terr_rows = terr_pad.t().contiguous()  # [n_coarse·C + 1, W]
+    inv_r = 0.0 if shape.radius is None else _f32(1.0 / shape.radius)
 
     def consumer(carry, k0, nodes, alive0):
-        best_w, s_h, s_v, s_p = carry
+        best_w, s_h, s_v, s_p, *tally = carry
         h0, v0, h1, v1, p0 = nodes
         vdx = v0 * dxw
         v1dx = v1 * dxw
@@ -174,22 +179,31 @@ def first_window_scan(elev_hw, terr_pad, alt0, *, shape: EarthShape,
         # death inside the window or the padded tail can make this a false
         # positive; the exact re-test below resolves both
         has = (mn < 0.0) & alive0 & (best_w >= big_w)
+        if rules is not None:
+            live = alive0 & (best_w >= big_w)
+            go, clear, tally = _RuleTally(*tally).window(
+                rules, k0 // coarse, live, h0, v0, vdx, h1, v1dx, dxw, inv_r)
+            test = go & ~clear
+            has = has & test
+            win_min = torch.where(test, win_min, float("inf"))  # K3 ran no samples
+            tally = tally.dying(test & ~has & (win_min < DEATH_ALTITUDE))
         carry = (
             best_w.masked_fill(has, k0 // coarse),
             torch.where(has, h0, s_h),
             torch.where(has, v0, s_v),
             torch.where(has, p0, s_p),
+            *tally,
         )
         _window_progress(emit, k0, coarse, n_coarse)
         return carry, win_min
 
     z2 = torch.zeros((h_n, w_n), dtype=torch.float32, device=elev_hw.device)
-    return march_scan_light(
-        alt0, elev_hw, step, n_seg, shape, table, straight, consumer,
-        (torch.full((h_n, w_n), big_w, dtype=torch.int32, device=elev_hw.device),
-         z2, z2, z2),
-        coarse=coarse,
-    )
+    init = (torch.full((h_n, w_n), big_w, dtype=torch.int32, device=elev_hw.device),
+            z2, z2, z2)
+    if rules is not None:
+        init = init + tuple(_RuleTally.zeros((h_n, w_n), elev_hw.device))
+    return march_scan_light(alt0, elev_hw, step, n_seg, shape, table, straight, consumer,
+                            init, coarse=coarse)
 
 
 def first_hit_retest(best_w, s_h, s_v, s_p, terr_pad, *, shape: EarthShape,
@@ -246,21 +260,35 @@ def first_hit_retest(best_w, s_h, s_v, s_p, terr_pad, *, shape: EarthShape,
 
 def _multi_hit_scan(elev_hw, terr_pad, alt0, *, shape: EarthShape,
                     table: Optional[RefractionTable], straight: bool,
-                    step: float, n_seg: int, coarse: int, max_hits: int, emit=None):
+                    step: float, n_seg: int, coarse: int, max_hits: int, emit=None,
+                    rules: Optional["ScanRules"] = None):
     """K > 1: the first ``max_hits`` crossing keys and path lengths
-    ([H, W, K], ascending; +inf = empty slot, path length 0 there)."""
+    ([H, W, K], ascending; +inf = empty slot, path length 0 there). Without
+    ``rules`` the oracle; with them as in ``first_window_scan``: (key, plh,
+    *_RuleTally)."""
     h_n, w_n = elev_hw.shape
     dev = elev_hw.device
     n_coarse = -(-n_seg // coarse)
+    dxw = _f32(step * max(1, min(int(coarse), n_seg)))
+    inv_r = 0.0 if shape.radius is None else _f32(1.0 / shape.radius)
 
-    def consumer(carry, k0, h_f, plen_f, alive):
-        key, plh = carry
+    def consumer(carry, k0, h_f, plen_f, alive, *slope):
+        key, plh, *tally = carry
         c = h_f.shape[-1] - 1
         d = h_f - terr_pad[:, k0:k0 + c + 1]  # [H, W, C+1]
         d1 = d[..., :-1]
         d2 = d[..., 1:]
         seg = torch.arange(k0, k0 + c, dtype=torch.int32, device=dev)
         crossing = (d1 * d2 < 0.0) & alive & (seg < n_seg)
+        if rules is not None:
+            v0, h1, v1 = slope
+            h0 = h_f[..., 0]
+            live = alive[..., 0] & (torch.isfinite(key).sum(-1) < max_hits)
+            go, clear, tally = _RuleTally(*tally).window(
+                rules, k0 // c, live, h0, v0, v0 * dxw, h1, v1 * dxw, dxw, inv_r)
+            test = go & ~clear
+            crossing = crossing & test[..., None]
+            tally = tally.dying(test & (h_f[..., :-1] < DEATH_ALTITUDE).any(-1))
         cmin = combine.k_smallest(torch.where(crossing, seg, combine.NO_HIT_SEG),
                                   max_hits)  # [H, W, K]
         found = cmin < combine.NO_HIT_SEG
@@ -278,12 +306,180 @@ def _multi_hit_scan(elev_hw, terr_pad, alt0, *, shape: EarthShape,
         key, order = torch.topk(torch.cat([key, keyc], dim=-1), max_hits,
                                 dim=-1, largest=False, sorted=True)
         _window_progress(emit, k0, coarse, n_coarse)
-        return key, torch.cat([plh, plc], dim=-1).gather(-1, order)
+        return (key, torch.cat([plh, plc], dim=-1).gather(-1, order), *tally)
 
     key0 = torch.full((h_n, w_n, max_hits), combine.NO_HIT, dtype=torch.float32,
                       device=dev)
+    init = (key0, torch.zeros_like(key0))
+    if rules is not None:
+        init = init + tuple(_RuleTally.zeros((h_n, w_n), dev))
     return march_scan(alt0, elev_hw, step, n_seg, shape, table, straight,
-                      consumer, (key0, torch.zeros_like(key0)), coarse=coarse)
+                      consumer, init, coarse=coarse, with_slope=rules is not None)
+
+
+# K3's two exact rules (csrc/ray_device.cuh, where they are argued)
+RULE_U_TOP = 1.5  # the band's highest u = 1 + h/R (sphere)
+RULE_DELTA = 1e-3  # the share of the geometric term h'' keeps on the band
+RULE_L_UP = 1e-2  # the band's highest l, times R (sphere): rays bend up <= R/100
+RULE_U_EXIT = 1.1  # the exit's highest u
+RULE_TAN_CAP = 0.1  # the exit's cap: v sin(T) <= 0.1 u, T the march's arc
+RULE_THETA_MAX = 0.5  # the longest march (arc / R) the cap covers
+RULE_M_ABS = 1e-3  # meters, the exit margin's floor
+RULE_M_REL = 2.0 ** -19  # the hull's rounding margin, of |h0| + |h1| + |vdx| + |v1dx|
+RULE_M_EXIT = 2.0 ** -18  # the exit's rounding margin, of |h| + v dx
+RULE_THIRD = _f32(1.0 / 3.0)
+
+
+def _f32_up(x: float) -> float:
+    """The least float32 >= x."""
+    y = np.float32(x)
+    return float(y if y >= x else np.nextafter(y, np.float32(np.inf)))
+
+
+def _f32_down(x: float) -> float:
+    """The greatest float32 <= x."""
+    y = np.float32(x)
+    return float(y if y <= x else np.nextafter(y, np.float32(-np.inf)))
+
+
+@dataclasses.dataclass(frozen=True)
+class ScanRules:
+    """The inputs of K3's two rules for one scan (``scan_rules``): each
+    window's terrain maximum ``tmax`` and its suffix maximum ``smax``
+    [n_coarse, W] (the highest terrain of this and every later window,
+    +inf where a window's terrain holds a NaN), and the exit's band
+    (``h_safe``), cap (``h_top``, ``k_cap``) and margin floor ``m_abs``, as
+    float32 values rounded the safe way."""
+
+    tmax: torch.Tensor
+    smax: torch.Tensor
+    h_safe: float
+    h_top: float
+    k_cap: float
+    m_abs: float
+
+
+def scan_rules(terr_rows, *, coarse: int, n_coarse: int, shape: EarthShape,
+               table: Optional[RefractionTable], straight: bool, step: float) -> ScanRules:
+    """K3's rule inputs for ``terr_rows`` [n_coarse·C + 1, W] (zero past the
+    march) on its device; the wrapper passes them to the kernel and
+    ``tilt0_hits_ruled`` to the plain predicates. ``h_safe`` is the lowest
+    altitude above which l, as the launch evaluates it, keeps every ray with
+    h' >= 0 climbing: -(1 - RULE_DELTA)/(RULE_U_TOP·R) <= l <=
+    RULE_L_UP / R on the sphere, l = 0 on the flat shape
+    (``RefractionTable.band_altitude``), and
+    never below DEATH_ALTITUDE; straight rays drop l, so it is
+    DEATH_ALTITUDE. On the sphere a march longer than RULE_THETA_MAX·R
+    turns the exit off."""
+    windows = terr_rows[: n_coarse * coarse + 1].unfold(0, coarse + 1, coarse)
+    tmax = windows.amax(-1)  # [n_coarse, W]
+    tmax = tmax.masked_fill(torch.isnan(tmax), float("inf"))
+    smax = tmax.flip(0).cummax(0).values.flip(0)
+    refract = not straight and table is not None
+    if shape.is_flat:
+        floor = ceil = 0.0
+    else:
+        floor = -(1.0 - RULE_DELTA) / (RULE_U_TOP * shape.radius)
+        ceil = RULE_L_UP / shape.radius
+    h_safe = max(table.band_altitude(floor, ceil) if refract else -np.inf, DEATH_ALTITUDE)
+    dx = _f32(step * coarse)
+    if shape.is_flat:
+        h_top, k_cap, m_abs = np.inf, 0.0, RULE_M_ABS
+    else:
+        theta = n_coarse * dx / shape.radius
+        if theta > RULE_THETA_MAX:
+            h_safe = np.inf
+        h_top = (RULE_U_EXIT - 1.0) * shape.radius
+        k_cap = math.sin(theta) / RULE_TAN_CAP
+        m_abs = dx * dx / (4.0 * shape.radius) + RULE_M_ABS
+    return ScanRules(tmax.contiguous(), smax.contiguous(), _f32_up(h_safe),
+                     _f32_down(h_top), _f32_up(k_cap), _f32_up(m_abs))
+
+
+def rule_exit(rules: ScanRules, h, v, dx: float, inv_r: float, s):
+    """K3's terrain-clear exit (``ray_device.cuh::terrain_clear_exit``) in
+    PyTorch, the same float32 operations: (h, v) at a window start, ``s``
+    that window's ``smax``; ``inv_r`` 0 on the flat shape."""
+    lo = h - (rules.m_abs + RULE_M_EXIT * (h.abs() + v * dx))
+    return ((v >= 0.0) & (h >= rules.h_safe) & (h <= rules.h_top)
+            & (v * rules.k_cap <= 1.0 + h * inv_r) & (lo > s) & (lo > DEATH_ALTITUDE))
+
+
+def rule_hull_clear(h0, vdx, h1, v1dx, t):
+    """K3's window cull (``ray_device.cuh::hull_clear``) in PyTorch: the
+    window's samples, bounded from below by its Bezier control points less
+    the rounding margin, all above its terrain maximum ``t`` and above
+    DEATH_ALTITUDE. NaN anywhere gives False, as on the card."""
+    lo = (torch.minimum(torch.minimum(h0, h0 + vdx * RULE_THIRD),
+                        torch.minimum(h1 - v1dx * RULE_THIRD, h1))
+          - RULE_M_REL * (h0.abs() + h1.abs() + vdx.abs() + v1dx.abs()))
+    return (lo > t) & (lo > DEATH_ALTITUDE)
+
+
+class _RuleTally(NamedTuple):
+    """What the rules did to each pixel of a plain scan run with them
+    (``first_window_scan`` / ``_multi_hit_scan`` with ``rules``), [H, W]."""
+
+    exited: torch.Tensor  # bool: stopped by the exit
+    marched: torch.Tensor  # int32: windows marched, K3's count
+    plain: torch.Tensor  # int32: windows the scan runs without the rules
+    skipped: torch.Tensor  # int32: windows marched whose test the hull cleared
+    died: torch.Tensor  # bool: stopped by a death in a tested window
+
+    @staticmethod
+    def zeros(shape, device) -> "_RuleTally":
+        b = torch.zeros(shape, dtype=torch.bool, device=device)
+        i = torch.zeros(shape, dtype=torch.int32, device=device)
+        return _RuleTally(b, i, i, i, b)
+
+    def window(self, rules: ScanRules, i: int, live, h0, v0, vdx, h1, v1dx, dx: float,
+               inv_r: float):
+        """Window ``i`` for the pixels ``live`` without the rules: (marched,
+        cleared by the hull, the tally after it)."""
+        run = live & ~self.exited
+        leave = run & rule_exit(rules, h0, v0, dx, inv_r, rules.smax[i])
+        go = run & ~leave
+        clear = go & rule_hull_clear(h0, vdx, h1, v1dx, rules.tmax[i])
+        return go, clear, _RuleTally(self.exited | leave, self.marched + go.int(),
+                                     self.plain + live.int(), self.skipped + clear.int(),
+                                     self.died)
+
+    def dying(self, dies) -> "_RuleTally":
+        return self._replace(died=self.died | dies)
+
+
+def tilt0_hits_ruled(elev_hw, terr_pad, alt0, *, shape: EarthShape,
+                     table: Optional[RefractionTable], straight: bool, step: float,
+                     n_seg: int, coarse: int, max_hits: int, emit=None):
+    """The plain scan with K3's two rules applied, in PyTorch on any device:
+    (key, path length [H, W, K], flags [H, W] int32 as K3 writes them,
+    ``_RuleTally``). A pixel the exit stops tests no later window; a window
+    the hull clears runs no test and no death check. Where the rules are
+    exact, key and path length are ``torch.equal`` to ``tilt0_hits_plain``'s;
+    the tally counts the windows each pixel marches with the rules
+    (``marched``, K3's work) and without them (``plain``)."""
+    coarse = max(1, min(int(coarse), n_seg))
+    n_coarse = -(-n_seg // coarse)
+    terr_rows = terr_pad.to(torch.float32).t().contiguous()
+    rules = scan_rules(terr_rows, coarse=coarse, n_coarse=n_coarse, shape=shape,
+                       table=table, straight=straight, step=step)
+    scan_kw = dict(shape=shape, table=table, straight=straight, step=step, n_seg=n_seg,
+                   coarse=coarse)
+    if max_hits == 1:
+        best_w, s_h, s_v, s_p, *tally = first_window_scan(
+            elev_hw, terr_pad, alt0, emit=emit, rules=rules, **scan_kw)
+        key, plh = first_hit_retest(best_w, s_h, s_v, s_p, terr_pad, **scan_kw)
+        tally = _RuleTally(*tally)
+        stopped = best_w <= n_coarse
+    else:
+        key, plh, *tally = _multi_hit_scan(elev_hw, terr_pad, alt0, max_hits=max_hits,
+                                           emit=emit, rules=rules, **scan_kw)
+        tally = _RuleTally(*tally)
+        stopped = torch.isfinite(key).sum(-1) == max_hits
+    hits = torch.isfinite(key).sum(-1).to(torch.int32)
+    done = (stopped | tally.died | tally.exited).to(torch.int32)
+    flags = (tally.marched << SCAN_WINDOWS_SHIFT) | (hits << 1) | done
+    return key, plh, flags, tally
 
 
 def tilt0_hits_plain(elev_hw, terr_pad, alt0, *, shape: EarthShape,
@@ -340,14 +536,15 @@ def tilt0_hits_cuda(elev_hw, terr_pad, alt0, *, shape: EarthShape,
                     n_seg: int, coarse: int, max_hits: int, emit=None):
     """Launch K3 (``csrc/rect_scan.cu``) on the device of ``elev_hw``:
     (key, path length [H, W, K], flags [H, W] int32). ``flags >>
-    SCAN_WINDOWS_SHIFT`` is the number of windows each pixel ran before it
-    stopped (the scan's work).
+    SCAN_WINDOWS_SHIFT`` is the number of windows each pixel marched before
+    it stopped (the scan's work); it marched windows 0 .. that count - 1.
 
     One launch a progress stride (``scan_launches``), the pixels' state kept
     on the device between launches and ``emit`` called on the host between
     them, with no synchronisation. The start slopes are the plain version's
     (``_scan_start``); l(h) comes from ``table.poly`` when it exists, else
     from the table; ``straight`` or no table marches without refraction.
+    The two rules' inputs come from ``scan_rules``.
     """
     dev = elev_hw.device
     h_n, w_n = elev_hw.shape
@@ -371,6 +568,8 @@ def tilt0_hits_cuda(elev_hw, terr_pad, alt0, *, shape: EarthShape,
                              "different devices")
     radius = shape.radius
     basis = _hermite_basis(coarse, dev)
+    rules = scan_rules(terr_rows, coarse=coarse, n_coarse=n_coarse, shape=shape,
+                       table=table, straight=straight, step=step)
     p_n = h_n * w_n
     key = torch.empty((h_n, w_n, max_hits), dtype=torch.float32, device=dev)
     plh = torch.empty_like(key)
@@ -383,17 +582,22 @@ def tilt0_hits_cuda(elev_hw, terr_pad, alt0, *, shape: EarthShape,
     def ptr(t):
         return None if t is None else t.data_ptr()
 
+    # the arguments once; a launch sets its windows [w0, w1) (args[9:11])
+    args = [
+        v0.data_ptr(), h_n, w_n, v0.stride(0), _f32(alt0), terr_rows.data_ptr(),
+        terr_rows.stride(0), int(n_seg), int(coarse), 0, 0, _f32(step * coarse),
+        ptr(poly), n_poly, ptr(pairs), int(table.values.shape[-1]) if refract else 0,
+        table.h0 if refract else 0.0, table.inv_dh if refract else 0.0, int(refract),
+        0.0 if radius is None else _f32(1.0 / radius),
+        0.0 if radius is None else _f32(radius), 0 if radius is None else 1, fstep,
+        _f32(np.float32(fstep) * np.float32(fstep)), basis.data_ptr(), int(max_hits),
+        state.data_ptr(), flags.data_ptr(), key.data_ptr(), plh.data_ptr(),
+        rules.tmax.data_ptr(), rules.smax.data_ptr(), rules.h_safe, rules.h_top,
+        rules.k_cap, rules.m_abs,
+    ]
     for w0, w1 in scan_launches(n_coarse):
-        _kernels.RECT_SCAN.call(
-            dev, v0.data_ptr(), h_n, w_n, v0.stride(0), _f32(alt0), terr_rows.data_ptr(),
-            terr_rows.stride(0), int(n_seg), int(coarse), w0, w1, _f32(step * coarse),
-            ptr(poly), n_poly, ptr(pairs), int(table.values.shape[-1]) if refract else 0,
-            table.h0 if refract else 0.0, table.inv_dh if refract else 0.0, int(refract),
-            0.0 if radius is None else _f32(1.0 / radius),
-            0.0 if radius is None else _f32(radius), 0 if radius is None else 1, fstep,
-            _f32(np.float32(fstep) * np.float32(fstep)), basis.data_ptr(), int(max_hits),
-            state.data_ptr(), flags.data_ptr(), key.data_ptr(), plh.data_ptr(),
-        )
+        args[9:11] = w0, w1
+        _kernels.RECT_SCAN.call(dev, *args)
         for w in range(w0, w1):
             _window_progress(emit, w * coarse, coarse, n_coarse)
     return key, plh, flags
@@ -635,7 +839,7 @@ def fused_culled_core(pack: TerrainPack, table: Optional[RefractionTable], alt0,
     def capture_round(skip: int):
         """One march: capture candidate blocks skip..skip+M_CAND-1."""
 
-        def consumer(user, k0, h_f, plen_f, alive, v):
+        def consumer(user, k0, h_f, plen_f, alive, v, _h1, _v1):
             bh, bv, bp, bd, rmin, rmax, cnt, s_h, s_v, s_p, s_d, s_b = user
             w_idx = k0 // coarse
             wmin = h_f.amin(-1)

@@ -73,6 +73,10 @@ class RefractionTable:
     # poly_rows by device, built on first use (callers must not write to them)
     _rows: dict = dataclasses.field(default_factory=dict, init=False, repr=False,
                                     compare=False)
+    # host-side data derived once: the values on the host ("values", set by
+    # from_values), l_bounds ("bounds") and the scan rules' altitudes
+    _host: dict = dataclasses.field(default_factory=dict, init=False, repr=False,
+                                    compare=False)
 
     @staticmethod
     def build(atm: Atmosphere, wavelength: float, h_lo: float = -2000.0,
@@ -89,13 +93,15 @@ class RefractionTable:
                     device) -> "RefractionTable":
         vals = np.asarray(values, np.float32)
         pairs = np.stack([vals[:-1], vals[1:]], axis=-1)
-        return RefractionTable(
+        table = RefractionTable(
             h0=float(np.float32(h0)),
             inv_dh=float(np.float32(inv_dh)),
             values=torch.tensor(vals, device=device),
             pairs=torch.tensor(pairs, device=device),
             poly=poly,
         )
+        table._host["values"] = vals
+        return table
 
     @property
     def stacked(self) -> bool:
@@ -124,6 +130,65 @@ class RefractionTable:
         f = t - i.to(t.dtype)
         row = self.pairs[i] if frame is None else self.pairs[frame, i]  # [..., 2]
         return row[..., 0] * (1.0 - f) + row[..., 1] * f
+
+    def l_bounds(self):
+        """l(h) as the kernels evaluate it (the fit when there is one, else
+        the table), bounded on consecutive pieces of altitude: (starts [P],
+        low [P], high [P]) float64 host arrays, piece i covering
+        [starts[i], starts[i+1]) and the last one everything above, the
+        clamped value included. A fit segment is cut into 64 pieces in its t,
+        each bounded by its end values and the derivative bound sum k^2 |c_k|
+        of its float32 coefficients, widened by 2^-16 sum |c_k| for the
+        float32 Clenshaw evaluation; a table cell by its two entries, widened
+        by 2^-21 of the larger. Computed once a table, on the host."""
+        if "bounds" in self._host:
+            return self._host["bounds"]
+        if self.stacked:
+            raise ValueError("l_bounds: one table, not a stack")
+        if self.poly is not None:
+            m = 64
+            ts = np.linspace(-1.0, 1.0, m + 1)
+            starts, low, high = [], [], []
+            for lo, hi, coeffs in self.poly:
+                c = np.asarray(coeffs, np.float32).astype(np.float64)
+                width = float(np.float32(max(hi - lo, 1e-30)))
+                p = np.polynomial.chebyshev.chebval(ts, c)
+                k2 = np.arange(len(c), dtype=np.float64) ** 2
+                slack = float(np.abs(c) @ k2) / m + 2.0 ** -16 * float(np.abs(c).sum())
+                starts.append(float(np.float32(lo)) + width * (ts[:-1] + 1.0) / 2.0)
+                low.append(np.minimum(p[:-1], p[1:]) - slack)
+                high.append(np.maximum(p[:-1], p[1:]) + slack)
+            bounds = tuple(np.concatenate(x) for x in (starts, low, high))
+        else:
+            vals = self._host.get("values")
+            if vals is None:
+                vals = self.values.cpu().numpy()
+            v = np.asarray(vals, np.float64)
+            a, b = v[:-1], v[1:]
+            slack = 2.0 ** -21 * np.maximum(np.abs(a), np.abs(b))
+            starts = self.h0 + np.arange(len(a), dtype=np.float64) / self.inv_dh
+            bounds = (starts, np.minimum(a, b) - slack, np.maximum(a, b) + slack)
+        self._host["bounds"] = bounds
+        return bounds
+
+    def band_altitude(self, floor: float, ceil: float) -> float:
+        """The lowest altitude from which up ``floor`` <= l <= ``ceil`` holds
+        on every piece of ``l_bounds``: one piece above the highest piece
+        that fails (a height near a piece's edge may round into its
+        neighbour), -inf when none fails, +inf when the top piece or the one
+        below it fails. Memoized by (floor, ceil)."""
+        key = ("band", floor, ceil)
+        if key not in self._host:
+            starts, low, high = self.l_bounds()
+            bad = np.flatnonzero((low < floor) | (high > ceil))
+            if bad.size == 0:
+                alt = -np.inf
+            elif bad[-1] + 2 < len(starts):
+                alt = float(starts[bad[-1] + 2])
+            else:
+                alt = np.inf
+            self._host[key] = float(alt)
+        return self._host[key]
 
     def poly_rows(self) -> torch.Tensor:
         """The fit as the march kernel's data: [S, 10] f32 rows of
@@ -441,15 +506,16 @@ def march_scan(alt, elev_rad: torch.Tensor, step: float, n_steps: int,
     """Fused march that streams each coarse window's fine samples to a
     consumer without forming the [..., N] altitude grid:
 
-        carry = consumer(carry, k0, h_f, plen_f, alive[, v])
+        carry = consumer(carry, k0, h_f, plen_f, alive[, v, h1, v1])
 
     * ``h_f`` / ``plen_f`` — [..., C+1] fine altitudes / cumulative chord
       path lengths at k0..k0+C (``rk4_window``; windows share their ends);
     * ``alive`` — [..., C]: segment j is marched iff no sample before
       k0 + j fell below DEATH_ALTITUDE (the path-death rule, utils.rs:
       159-171, as ``ops.combine.ray_alive_mask``);
-    * ``v`` — with ``with_slope``, the window-start slope: with h_f[..., 0]
-      and plen_f[..., 0] enough to re-integrate the window later.
+    * ``v``, ``h1``, ``v1`` — with ``with_slope``, the window-start slope
+      (with h_f[..., 0] and plen_f[..., 0] enough to re-integrate the window
+      later) and the window-end node.
 
     Integrates ceil(n_steps/C)·C steps; the consumer masks the tail
     (k0 + j >= n_steps). Returns the final carry.
@@ -465,7 +531,7 @@ def march_scan(alt, elev_rad: torch.Tensor, step: float, n_steps: int,
         no_prior = torch.cat([torch.zeros_like(pref[..., :1]), pref[..., :-1]], dim=-1)
         alive = (~dead)[..., None] & (no_prior == 0)
         if with_slope:
-            user = consumer(user, i * coarse, h_f, plen_f, alive, v)
+            user = consumer(user, i * coarse, h_f, plen_f, alive, v, h1, v1)
         else:
             user = consumer(user, i * coarse, h_f, plen_f, alive)
         dead = dead | (pref[..., -1] > 0)

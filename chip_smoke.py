@@ -53,10 +53,16 @@ before the result line:
               K3 (the tilt-0 Rectilinear scan) against ``tilt0_hits_plain``
               on the headline scene at 192x108 and 1920x1080, K = 1 and 4,
               for the poly and table l(h) on the sphere, straight rays on
-              the sphere and the poly l(h) on the flat Earth: one launch a
-              progress stride; valid flags equal on >= 99.99 % of pixels,
-              keys within 1e-3 of a step and path lengths within rtol 1e-6 /
-              atol 1e-3 m where both hit, the worst pixel printed;
+              the sphere, the poly l(h) on the flat Earth and the table of
+              an inversion (a duct around the observer) on the sphere: one
+              launch a progress stride; valid flags equal on >= 99.99 % of
+              pixels, keys within 1e-3 of a step and path lengths within
+              rtol 1e-6 / atol 1e-3 m where both hit, the worst pixel and
+              any flipped pixel printed; the plain scan with K3's two rules
+              applied (``tilt0_hits_ruled``) torch.equal to the plain scan,
+              K3's marched pixel-windows against the plain scan's, the tests
+              the hull skipped, the pixels that exited, and K3's flags
+              against the ruled scan's;
 4. goldens  — the three golden Fast scenes, the three golden Interpolating
               scenes (their grids through K1, and K2 where the rays are
               refracted, counted) and the three
@@ -95,10 +101,15 @@ before the result line:
               and image (within the verify tolerance), peak device memory,
               device busy time, idle share and record count from a
               torch.profiler trace of one render, the K = 1 keys equal to
-              the first keys of a K = 2 render, K3 at the headline's inputs
-              against ``tilt0_hits_plain`` (its CUDA-event time, its kernel
-              alone by the profiler, the plain version's time, its bound on
-              the windows the pixels ran), CUDA-event stage times; (c) at
+              the first keys of a K = 2 render, the profiled render's top
+              host-side ops, K3 at the headline's inputs at K = 1 and 4
+              against ``tilt0_hits_plain`` and the ruled plain scan (its
+              CUDA-event time, its kernel alone by the profiler, the plain
+              version's time, its bound on the windows the pixels marched
+              and the tests the hull skipped, the plain scan's
+              pixel-windows and their bound; at K = 1 each launch's live
+              pixels, live warps, pixel-windows and kernel time),
+              CUDA-event stage times; (c) at
               tilt 1 degree through the culled path:
               one timed render after a warm-up with its round count, and at
               192x108 the culled keys equal to the dense path's (plain
@@ -703,10 +714,24 @@ def scalar_division_probe(dev):
             f"{torch.equal(card, cpu)} ({int((card != cpu).sum())} of {x.numel()} differ)")
 
 
-# K3's cases on the card: the l(h) form and the Earth shape of the ray ODE
-K3_FORMS = ("poly sphere", "table sphere", "straight sphere", "poly flat")
+# K3's cases on the card: the l(h) form and the Earth shape of the ray ODE;
+# "inversion": the table of INVERSION_ATMOSPHERE, a duct around the observer
+K3_FORMS = ("poly sphere", "table sphere", "straight sphere", "poly flat",
+            "inversion sphere")
 # the frame sizes at which phase 3 holds K3 to its plain version
 K3_SIZES = ((192, 108), (1920, 1080))
+
+
+def inversion_atmosphere():
+    """A 200 m layer warming by 0.15 K/m around the headline's observer
+    (400 m): it bends rays down harder than the Earth curves, so K3's exit
+    rule may not fire below its top (its band starts at ~501 m)."""
+    from atm_raytracer_tpu_torch.physics.atmosphere import AtmosphereDef, LinearFunction
+
+    return AtmosphereDef(
+        first_temperature_function=LinearFunction(-0.0065),
+        next_functions=((300.0, LinearFunction(0.15)), (500.0, LinearFunction(-0.0065))),
+        temperature_fixed_point=(0.0, 288.15))
 
 
 def k3_launches(params) -> int:
@@ -742,11 +767,15 @@ def k3_inputs(dev, terrain, params):
                                                              coarse=coarse)
 
 
-def k3_form(form: str, table, params) -> dict:
+def k3_form(form: str, table, params, alt0: float) -> dict:
     """The shape, table and straight keywords of one of K3_FORMS."""
+    from atm_raytracer_tpu_torch.generators import rectilinear as rect
     from atm_raytracer_tpu_torch.physics import ray as R
 
     l_form, shape = form.split()
+    if l_form == "inversion":
+        table = rect.build_refraction_table(params, alt0, table.values.device,
+                                            atmosphere_def=inversion_atmosphere())
     return dict(shape=R.FLAT if shape == "flat" else params.model.to_shape(),
                 table=dataclasses.replace(table, poly=None) if l_form == "table" else table,
                 straight=l_form == "straight")
@@ -756,14 +785,18 @@ def k3_check(tag, got, want):
     """K3's contract against ``tilt0_hits_plain`` on the same inputs: the
     valid flags of every slot equal on >= 99.99 % of pixels; where both hold
     a hit, keys within 1e-3 of a step and path lengths within rtol 1e-6 /
-    atol 1e-3 m. Prints the worst pixel; returns the largest key difference."""
+    atol 1e-3 m. Prints the worst pixel, and the first pixel whose flags
+    differ (the kernel before its two rules read none: with the exact
+    rules any is a rule's fault);
+    returns the largest key difference."""
     import numpy as np
     import torch
 
     (key_k, plh_k), (key_p, plh_p) = got, want
     vk, vp = torch.isfinite(key_k), torch.isfinite(key_p)
     n_pix = vk.shape[0] * vk.shape[1]
-    flips = int((vk != vp).any(-1).sum())
+    flipped = (vk != vp).any(-1)
+    flips = int(flipped.sum())
     both = vk & vp
     dk = torch.where(both, (key_k - key_p).abs(), 0.0)
     over = torch.where(both, (plh_k - plh_p).abs() - (1e-3 + 1e-6 * plh_p.abs()), -1.0)
@@ -775,6 +808,10 @@ def k3_check(tag, got, want):
         f"{tuple(int(i) for i in at)} (K3 {float(key_k[at]):.6f}, plain "
         f"{float(key_p[at]):.6f}); path length worst at {tuple(int(i) for i in at_p)}: "
         f"K3 {float(plh_k[at_p]):.4f} m, plain {float(plh_p[at_p]):.4f} m")
+    if flips:
+        r, c = (int(i) for i in torch.nonzero(flipped)[0])
+        say(f"[kernels] K3 {tag}: first flipped pixel (row, col) ({r}, {c}): K3 keys "
+            f"{key_k[r, c].tolist()}, plain {key_p[r, c].tolist()}")
     check(flips <= 1e-4 * n_pix, f"K3 {tag}: valid flags differ on {flips} of {n_pix} pixels")
     check(dk_max <= 1e-3, f"K3 {tag}: keys differ by {dk_max} of a step")
     check(over_max <= 0.0, f"K3 {tag}: a path length is out of rtol 1e-6 / atol 1e-3 m "
@@ -782,10 +819,48 @@ def k3_check(tag, got, want):
     return dk_max
 
 
+def k3_rules_line(tag, flags, ruled, want):
+    """The rules' work beside the plain scan's for one case: K3's marched
+    pixel-windows (``flags``) against the windows the scan runs without the
+    rules (the ruled plain scan's tally), the tests the hull skipped and the
+    pixels that exited. Fails unless the ruled plain scan is ``torch.equal``
+    to the plain scan ``want`` and K3's flags word is the ruled scan's on
+    every pixel (the windows marched, the hits, the stop: a pixel where they
+    differ is a rule that K3 and its mirror apply differently, and is
+    printed). Returns (marched, plain, skipped, exits)."""
+    import torch
+
+    from atm_raytracer_tpu_torch.generators import rectilinear as rect
+
+    key_r, plh_r, flags_r, tally = ruled
+    same = torch.equal(key_r, want[0]) and torch.equal(plh_r, want[1])
+    marched = int((flags >> rect.SCAN_WINDOWS_SHIFT).sum())
+    plain, skipped = int(tally.plain.sum()), int(tally.skipped.sum())
+    exits = int(tally.exited.sum())
+    differ = flags != flags_r
+    n_differ = int(differ.sum())
+    first = tuple(int(i) for i in torch.nonzero(differ)[0]) if n_differ else None
+    say(f"[kernels] K3 {tag} rules: {marched} pixel-windows marched against the plain "
+        f"scan's {plain} ({100.0 * marched / max(plain, 1):.2f} %); tests skipped by the "
+        f"hull {skipped}; pixels exited {exits} of {flags.numel()}; ruled plain scan "
+        f"torch.equal to the plain scan: {same}; K3 flags differ from the ruled scan's on "
+        f"{n_differ} pixels" + (f" (first {first})" if first else ""))
+    check(same, f"K3 {tag}: the plain scan with the rules differs from the plain scan")
+    if n_differ:
+        r, c = first
+        say(f"[kernels] K3 {tag}: flags at (row, col) {first}: K3 {int(flags[r, c])}, "
+            f"the ruled scan {int(flags_r[r, c])}")
+    check(n_differ == 0, f"K3 {tag}: K3's flags differ from the ruled scan's on "
+          f"{n_differ} pixels, first {first}")
+    return marched, plain, skipped, exits
+
+
 def phase_k3(dev, terrain, sizes=K3_SIZES):
     """K3 against ``tilt0_hits_plain`` on the card, on the headline scene at
     each of ``sizes``: K = 1 and 4, every one of K3_FORMS, one launch a
-    progress stride."""
+    progress stride; beside it the plain scan with K3's rules applied
+    (``tilt0_hits_ruled``), ``torch.equal`` to the plain scan, K3's flags
+    equal to its flags on every pixel, and the work the rules removed."""
     import torch
 
     from atm_raytracer_tpu_torch import _kernels
@@ -796,48 +871,93 @@ def phase_k3(dev, terrain, sizes=K3_SIZES):
         alt0, table, _, elev_hw, terr_pad, _, kw = k3_inputs(dev, terrain, params)
         for k in (1, 4):
             for form in K3_FORMS:
-                fkw = k3_form(form, table, params)
+                fkw = k3_form(form, table, params, alt0)
                 before = _kernels.RECT_SCAN.launches
-                key, plh, _ = rect.tilt0_hits_cuda(elev_hw, terr_pad, alt0, max_hits=k,
-                                                   **fkw, **kw)
+                key, plh, flags = rect.tilt0_hits_cuda(elev_hw, terr_pad, alt0, max_hits=k,
+                                                       **fkw, **kw)
                 check(_kernels.RECT_SCAN.launches - before == k3_launches(params),
                       f"K3 {size} K={k} {form}: not one launch a progress stride")
                 want = rect.tilt0_hits_plain(elev_hw, terr_pad, alt0, max_hits=k, **fkw, **kw)
+                ruled = rect.tilt0_hits_ruled(elev_hw, terr_pad, alt0, max_hits=k, **fkw,
+                                              **kw)
                 torch.cuda.synchronize()
-                k3_check(f"{size[0]}x{size[1]} K={k} {form}", (key, plh), want)
-                del key, plh, want
+                tag = f"{size[0]}x{size[1]} K={k} {form}"
+                k3_check(tag, (key, plh), want)
+                k3_rules_line(tag, flags, ruled, want)
+                del key, plh, want, ruled
 
 
-def k3_ops(windows: int, retests: int, max_hits: int) -> int:
+# operations of a window marched by csrc/rect_scan.cu, counted from the
+# source as k2_ops counts (each +, -, *, /, sqrt, min, max, abs, compare,
+# select, conversion one): the RK4 step 209, the two slopes times dx 2, the
+# exit test 15, the hull test 19
+K3_WINDOW = 209 + 2 + 15 + 19
+
+
+def k3_ops(windows: int, skipped: int, exits: int, retests: int, max_hits: int) -> int:
     """Operations of csrc/rect_scan.cu on the sphere with the Chebyshev
-    l(h), counted from the source as ``k2_ops`` counts (each +, -, *, /,
-    sqrt, min, max, compare, select, conversion one). A window: the RK4
-    step 209 and the two slopes times dx 2; at K = 1 the quadrature of dP/dx
-    31 (four path speeds of 6, the combine 7) and the window test 216 (17
-    Hermite samples of 7, 17 terrain differences, 16 death and 16 NaN tests,
-    16 products with 2 tests each); at K > 1 the exact test. The exact test
-    of a window 452 (17 samples 119, 17 differences, 16 chords of 10, 16
-    double-precision adds with their conversions 64, 16 products and 3
-    tests each 64, 16 death tests, the key and path length 12), once a hit
-    at K = 1."""
+    l(h), for ``windows`` marched of which the hull cleared ``skipped``,
+    ``exits`` exit tests that fired (15 each) and ``retests`` re-tests at
+    K = 1. A window marched: K3_WINDOW; at K = 1 the quadrature of dP/dx 31
+    (four path speeds of 6, the combine 7) and, unless skipped, the window
+    test 216 (17 Hermite samples of 7, 17 terrain differences, 16 death and
+    16 NaN tests, 16 products with 2 tests each); at K > 1 the samples and
+    chords 343 (17 samples 119, 16 chords of 10, 16 double-precision adds
+    with their conversions 64) and, unless skipped, the rest of the exact
+    test 109 (17 differences, 16 products and 3 tests each 64, 16 death
+    tests, the key and path length 12). The exact test of a window 452, once
+    a hit at K = 1. With ``skipped`` and ``exits`` 0 and no K3_WINDOW rule
+    tests, the count of the kernel before its rules."""
+    tested = windows - skipped
     if max_hits == 1:
-        return windows * (209 + 2 + 31 + 216) + retests * 452
-    return windows * (209 + 2 + 452)
+        return windows * (K3_WINDOW + 31) + tested * 216 + exits * 15 + retests * 452
+    return windows * (K3_WINDOW + 343) + tested * 109 + exits * 15
 
 
-def k3_bound(elev_hw, terr_pad, coarse: int, max_hits: int, flags):
-    """K3's bound on this run's data: v0 and the terrain rows read once,
-    keys and path lengths written once, the Hermite basis; the operations
-    of ``k3_ops`` for the windows each pixel ran (``flags``)."""
+def k3_bound(elev_hw, terr_pad, coarse: int, max_hits: int, flags, skipped: int,
+             exits: int):
+    """K3's bound on this run's data: v0, the terrain rows, tmax and smax
+    read once, keys and path lengths written once, the Hermite basis; the
+    operations of ``k3_ops`` for the windows each pixel marched (``flags``),
+    ``skipped`` of them without their test, and ``exits``."""
     from atm_raytracer_tpu_torch.generators import rectilinear as rect
 
     h_n, w_n = elev_hw.shape
+    n_coarse = (terr_pad.shape[1] - 1) // coarse
     windows = int((flags >> rect.SCAN_WINDOWS_SHIFT).sum())
     hits = int(((flags >> 1) & 0xFF).sum())
-    n_bytes = 4 * (h_n * w_n + terr_pad.numel() + 2 * h_n * w_n * max_hits
-                   + 4 * (coarse + 1))
-    n_ops = k3_ops(windows, hits if max_hits == 1 else 0, max_hits)
+    n_bytes = 4 * (h_n * w_n + terr_pad.numel() + 2 * n_coarse * w_n
+                   + 2 * h_n * w_n * max_hits + 4 * (coarse + 1))
+    n_ops = k3_ops(windows, skipped, exits, hits if max_hits == 1 else 0, max_hits)
     return (*bound(n_bytes, n_ops), n_bytes, n_ops, windows)
+
+
+def k3_launch_profile(flags, launches, kernel_ms):
+    """What each of K3's launches had to do, from ``flags`` (a pixel marches
+    windows 0 .. its count - 1): live pixels, live warps (32 adjacent
+    columns of one row with any live pixel), pixel-windows, and the
+    launch's kernel time from the profiler (``kernel_ms``, in launch order).
+    Prints a line a launch; returns the rows."""
+    import torch
+
+    from atm_raytracer_tpu_torch.generators import rectilinear as rect
+
+    windows = (flags >> rect.SCAN_WINDOWS_SHIFT).reshape(-1)
+    pad = (-windows.numel()) % 32
+    warp_max = torch.nn.functional.pad(windows, (0, pad)).reshape(-1, 32).amax(-1)
+    rows = []
+    for i, (w0, w1) in enumerate(launches):
+        live = int((windows > w0).sum())
+        warps = int((warp_max > w0).sum())
+        work = int((windows - w0).clamp(0, w1 - w0).sum())
+        warp_work = int((warp_max - w0).clamp(0, w1 - w0).sum()) * 32
+        ms = kernel_ms[i] if i < len(kernel_ms) else float("nan")
+        rows.append(dict(w0=w0, w1=w1, live=live, warps=warps, pixel_windows=work,
+                         warp_windows=warp_work, ms=ms))
+        say(f"[rectilinear] K3 launch {i:2d} windows [{w0:3d}, {w1:3d}): live pixels "
+            f"{live}, live warps {warps}, pixel-windows {work}, warp-windows {warp_work} "
+            f"(lanes x the warp's longest), kernel {ms:.4f} ms")
+    return rows
 
 
 def golden_config(scene: str) -> dict:
@@ -1587,6 +1707,44 @@ def trace_events(fn, name: str):
     return events
 
 
+def enqueue_ms(fn, reps: int = 10) -> float:
+    """Median host milliseconds ``fn()`` takes to return, the device idle
+    before each run: what the host spends enqueueing it."""
+    import torch
+
+    walls = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return statistics.median(walls)
+
+
+def host_top_ops(fn, tag: str, n: int = 12):
+    """The host side of one ``fn()``: a torch.profiler trace with CPU and CUDA
+    activity, its ops by self CPU time (the top ``n``, with their calls) and
+    the CPU time of the whole trace."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    rows = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
+    total = sum(e.self_cpu_time_total for e in rows) / 1e3
+    say(f"[{tag}] host side of one profiled render: {total:.3f} ms of self CPU time in "
+        f"{sum(e.count for e in rows)} op calls, {wall * 1e3:.3f} ms wall under the "
+        f"profiler; the top {n} ops by self CPU time:")
+    for e in rows[:n]:
+        say(f"[{tag}]   {e.self_cpu_time_total / 1e3:9.3f} ms  {e.count:5d} calls  "
+            f"{e.key[:80]}")
+
+
 def phase_rect_small(dev, terrain):
     """(a) and the small half of (c): the 192x108 headline on the card
     against the CPU, and the culled path against the dense one."""
@@ -1699,6 +1857,7 @@ def phase_rect_headline(dev, params, terrain, renders=5):
         f"frame wall: {1.0 - busy_ms / (med * 1e3):.4f}")
     for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]:
         say(f"[rectilinear]   {ms:9.3f} ms  {name[:90]}")
+    host_top_ops(lambda: rect.render_rectilinear(params, terrain, dev), "rectilinear")
 
     # K = 1 against the first slot of K = 2 (tests/test_rectilinear.py:224-229)
     r2 = rect.render_rectilinear(params, terrain, dev, max_hits=2)
@@ -1712,28 +1871,87 @@ def phase_rect_headline(dev, params, terrain, renders=5):
         f"{int(both.sum())} hit pixels; masks equal")
     del r2
 
-    # K3 at the headline's inputs, beside its plain version and its bound
-    alt0, table, az, elev_hw, terr_pad, stacked, kw = k3_inputs(dev, terrain, params)
-    scan_kw = dict(shape=params.model.to_shape(), table=table, straight=False,
-                   max_hits=1, **kw)
-    key, plh, flags = rect.tilt0_hits_cuda(elev_hw, terr_pad, alt0, **scan_kw)
-    key_p, plh_p = rect.tilt0_hits_plain(elev_hw, terr_pad, alt0, **scan_kw)
+    # the translucent tilt-0 frame (alpha 0.65: K = 4 through K3), timed
+    config = headline_config(out.width, out.height)
+    config.scene.terrain_alpha = 0.65
+    params_t = config.into_params(None)
+    rect.render_rectilinear(params_t, terrain, dev)
     torch.cuda.synchronize()
-    err = k3_check(f"{out.width}x{out.height} headline", (key, plh), (key_p, plh_p))
-    k3_ms = cuda_ms(lambda: rect.tilt0_hits(elev_hw, terr_pad, alt0, **scan_kw), 5)
-    _, _, by_name = trace_busy_ms(lambda: [rect.tilt0_hits(
-        elev_hw, terr_pad, alt0, **scan_kw) for _ in range(5)], "k3")
-    device_ms = sum(v for k, v in by_name.items() if "rect_scan_kernel" in k) / 5
-    check(device_ms > 0, f"K3's kernel missing from the trace: {list(by_name)}")
-    plain_ms = cuda_ms(lambda: rect.tilt0_hits_plain(elev_hw, terr_pad, alt0, **scan_kw), 1)
-    bound_ms, bound_by, n_bytes, n_ops, windows = k3_bound(
-        elev_hw, terr_pad, kw["coarse"], 1, flags)
-    say(f"[rectilinear] K3 (tilt0_hits: {k3_launches(params)} launches) {k3_ms:.4f} ms by "
-        f"CUDA events, kernel alone {device_ms:.4f} ms (profiler, mean of 5); plain "
-        f"{plain_ms:.3f} ms; {windows} pixel-windows run of {elev_hw.numel()} x "
-        f"{-(-kw['n_seg'] // kw['coarse'])}; bound {bound_ms:.4f} ms by {bound_by} "
-        f"({n_bytes} B, {n_ops} float32 operations): {100.0 * bound_ms / k3_ms:.2f} % of "
-        f"the bound")
+    reset_launches()
+    walls_t = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        res_t = rect.render_rectilinear(params_t, terrain, dev)
+        torch.cuda.synchronize()
+        walls_t.append(time.perf_counter() - t0)
+    launches_t = kernel_launches()
+    check(res_t.hits.valid.shape[-1] == 4 and launches_t["rect_scan.cu"]
+          == 3 * k3_launches(params_t), f"translucent tilt 0: K {res_t.hits.valid.shape[-1]}, "
+          f"launches {launches_t}")
+    translucent_ms = statistics.median(walls_t) * 1e3
+    say(f"[rectilinear] translucent (K = 4) tilt-0 frame: median {translucent_ms:.3f} ms of "
+        f"3 after a warm-up (all {', '.join(f'{w * 1e3:.3f}' for w in walls_t)}); "
+        f"{k3_launches(params_t)} K3 launches a frame")
+    del res_t
+
+    # K3 at the headline's inputs, beside its plain version and its bound, at
+    # K = 1 (the opaque frame) and K = 4 (the translucent frame)
+    alt0, table, az, elev_hw, terr_pad, stacked, kw = k3_inputs(dev, terrain, params)
+    launches_k3 = rect.scan_launches(-(-kw["n_seg"] // kw["coarse"]))
+    per_k = {}
+    for k in (1, 4):
+        scan_kw = dict(shape=params.model.to_shape(), table=table, straight=False,
+                       max_hits=k, **kw)
+        key_k, plh_k, flags = rect.tilt0_hits_cuda(elev_hw, terr_pad, alt0, **scan_kw)
+        want = rect.tilt0_hits_plain(elev_hw, terr_pad, alt0, **scan_kw)
+        ruled = rect.tilt0_hits_ruled(elev_hw, terr_pad, alt0, **scan_kw)
+        torch.cuda.synchronize()
+        tag = f"{out.width}x{out.height} headline K={k}"
+        err = k3_check(tag, (key_k, plh_k), want)
+        marched, plain_windows, skipped, exits = k3_rules_line(tag, flags, ruled, want)
+        del want, ruled
+        k3_ms = cuda_ms(lambda: rect.tilt0_hits(elev_hw, terr_pad, alt0, **scan_kw), 5)
+        events = sorted((e for e in trace_events(lambda: [rect.tilt0_hits(
+            elev_hw, terr_pad, alt0, **scan_kw) for _ in range(5)], f"k3_k{k}")
+            if "rect_scan_kernel" in e["name"]), key=lambda e: float(e["ts"]))
+        check(len(events) == 5 * len(launches_k3),
+              f"K3 K={k}: {len(events)} kernel records in the trace of 5 scans, not "
+              f"{5 * len(launches_k3)}")
+        device_ms = sum(float(e["dur"]) for e in events) / 5e3
+        per_launch = [sum(float(events[r * len(launches_k3) + i]["dur"]) for r in range(5))
+                      / 5e3 for i in range(len(launches_k3))]
+        enqueue = enqueue_ms(lambda: rect.tilt0_hits(elev_hw, terr_pad, alt0, **scan_kw))
+        plain_ms = cuda_ms(lambda: rect.tilt0_hits_plain(elev_hw, terr_pad, alt0, **scan_kw),
+                           1)
+        bound_ms, bound_by, n_bytes, n_ops, windows = k3_bound(
+            elev_hw, terr_pad, kw["coarse"], k, flags, skipped, exits)
+        hits = int(((flags >> 1) & 0xFF).sum())
+        plain_ops = (plain_windows * (209 + 2 + 31 + 216) + hits * 452 if k == 1
+                     else plain_windows * (209 + 2 + 452))
+        plain_bound_ms, _ = bound(n_bytes, plain_ops)
+        say(f"[rectilinear] K3 K={k} (tilt0_hits: {len(launches_k3)} launches) {k3_ms:.4f} "
+            f"ms by CUDA events, kernel alone {device_ms:.4f} ms (profiler, mean of 5), "
+            f"host enqueue {enqueue:.4f} ms (median of 10); plain "
+            f"{plain_ms:.3f} ms; {windows} pixel-windows marched ({skipped} of them without "
+            f"their test, {exits} exits) of the plain scan's {plain_windows} (of "
+            f"{elev_hw.numel()} x {len(range(0, kw['n_seg'], kw['coarse']))}); bound "
+            f"{bound_ms:.4f} ms by {bound_by} ({n_bytes} B, {n_ops} float32 operations): "
+            f"{100.0 * bound_ms / k3_ms:.2f} % of the bound; the plain scan's "
+            f"pixel-windows would bound it at {plain_bound_ms:.4f} ms ({plain_ops} "
+            f"operations, the count without the rules)")
+        rows = k3_launch_profile(flags, launches_k3, per_launch) if k == 1 else []
+        last = per_launch[len(per_launch) // 2:]
+        say(f"[rectilinear] K3 K={k}: the first launch {per_launch[0]:.4f} ms, the later "
+            f"half of the launches {sum(last):.4f} ms of {sum(per_launch):.4f}")
+        per_k[k] = dict(ms=k3_ms, device_ms=device_ms, enqueue_ms=enqueue,
+                        plain_ms=plain_ms, bound_ms=bound_ms,
+                        bound_by=bound_by, max_abs_err=err, pixel_windows=windows,
+                        plain_pixel_windows=plain_windows, tests_skipped=skipped,
+                        exits=exits, plain_bound_ms=plain_bound_ms,
+                        launch_ms=per_launch, launch_live_warps=[r["warps"] for r in rows])
+        if k == 1:
+            key, plh = key_k, plh_k
+        del key_k, plh_k, flags
 
     # stage times: each stage alone, CUDA-event means
     hit_kw = dict(model=params.model, lat0=LAT0, lon0=LON0, step=kw["step"],
@@ -1744,7 +1962,7 @@ def phase_rect_headline(dev, params, terrain, renders=5):
         "terrain columns": cuda_ms(lambda: rect.terrain_columns(
             terrain.pack(*rect.terrain_bbox(params), dev), params.model, az, LAT0, LON0,
             kw["step"], n_terr), 3),
-        "scan (K3)": k3_ms,
+        "scan (K3)": per_k[1]["ms"],
         "hit reconstruction": cuda_ms(
             lambda: rect.column_hits(stacked, key, plh, az, **hit_kw), 3),
         "composite": cuda_ms(lambda: rect._composite_hits(
@@ -1755,14 +1973,22 @@ def phase_rect_headline(dev, params, terrain, renders=5):
     for name, ms in t.items():
         say(f"[rectilinear] stage {name}: {ms:.3f} ms ({100.0 * ms / total:.1f} % "
             f"of the stages' {total:.3f} ms)")
+    k1 = per_k[1]
     k3 = {"name": "K3 rect_scan", "route": "cuda",
           "source": "atm_raytracer_tpu_torch/csrc/rect_scan.cu",
           "replaces": "atm_raytracer_tpu/physics/ray.py:422",
-          "max_abs_err": err, "ms": k3_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-          "bound_by": bound_by, "library_ms": None, "device_ms": device_ms,
-          "pixel_windows": windows, "frame_wall_ms": med * 1e3,
-          "plain_frame_wall_ms": plain_wall * 1e3, "busy_ms": busy_ms,
-          "device_records": n_rec}
+          "max_abs_err": k1["max_abs_err"], "ms": k1["ms"], "plain_ms": k1["plain_ms"],
+          "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"], "library_ms": None,
+          "device_ms": k1["device_ms"], "enqueue_ms": k1["enqueue_ms"],
+          "pixel_windows": k1["pixel_windows"],
+          "plain_pixel_windows": k1["plain_pixel_windows"],
+          "tests_skipped": k1["tests_skipped"], "exits": k1["exits"],
+          "plain_bound_ms": k1["plain_bound_ms"],
+          "k4": {name: v for name, v in per_k[4].items()
+                 if name not in ("launch_ms", "launch_live_warps")},
+          "frame_wall_ms": med * 1e3, "plain_frame_wall_ms": plain_wall * 1e3,
+          "translucent_frame_wall_ms": translucent_ms,
+          "busy_ms": busy_ms, "device_records": n_rec}
     return k3, launches
 
 

@@ -783,6 +783,13 @@ def test_rect_scan_kernel_matches_plain(form, max_hits, cuda_device):
     windows = flags >> rect.SCAN_WINDOWS_SHIFT
     assert bool((((flags & 1) == 1) | (windows == n_coarse)).all())
     assert torch.equal((flags >> 1) & 0xFF, torch.isfinite(key).sum(-1).to(torch.int32))
+    # the plain scan with K3's rules: the plain scan's values, and K3's flags
+    # (the windows each pixel marched, its hits, whether it stopped)
+    key_r, plh_r, flags_r, tally = rect.tilt0_hits_ruled(*args, max_hits=max_hits, **fkw,
+                                                         **kw)
+    assert torch.equal(key_r, want[0]) and torch.equal(plh_r, want[1])
+    assert torch.equal(flags, flags_r)
+    assert int(windows.sum()) <= int(tally.plain.sum())  # the flat fit never exits
 
 
 def test_rect_scan_kernel_on_a_row_subset(cuda_device):

@@ -4,10 +4,14 @@ rectilinear.py::tilt0_hits``) on the CPU, where it runs its plain version.
 K3, the CUDA kernel it launches on the card (``csrc/rect_scan.cu``), builds
 and runs only there (tests/test_torch_cuda.py, chip_smoke.py phases 3, 4 and
 7). Here: the plain version against the JAX package's ``fused_shared_core``
-on the same scenes, the first-flagged-window rule K3 keeps, the launch
-stride and its progress lines, the launcher's arguments against the C
-signature in ``rect_scan.cu``, and the rebuild of a library when a header it
-includes changes.
+on the same scenes, the first-flagged-window rule K3 keeps, K3's two exact
+rules (the terrain-clear exit and the window cull, ``ray_device.cuh``)
+through their PyTorch mirrors (``scan_rules``, ``rule_exit``,
+``rule_hull_clear``, ``tilt0_hits_ruled``; the hull's property test is in
+test_torch_rect_hull.py), the launch stride and its
+progress lines, the launcher's arguments against the C signature in
+``rect_scan.cu``, and the rebuild of a library when a header it includes
+changes.
 """
 
 import ctypes
@@ -33,12 +37,25 @@ from atm_raytracer_tpu_torch.generators import fast as TFast  # noqa: E402
 from atm_raytracer_tpu_torch.generators import rectilinear as TRect  # noqa: E402
 from atm_raytracer_tpu_torch.models import camera as TCam  # noqa: E402
 from atm_raytracer_tpu_torch.physics import ray as TR  # noqa: E402
+from atm_raytracer_tpu_torch.physics.atmosphere import (  # noqa: E402
+    AtmosphereDef, LinearFunction, atmosphere_def_to_dict)
 from atm_raytracer_tpu_torch.terrain.store import Terrain as TTerrain  # noqa: E402
 from atm_raytracer_tpu_torch.terrain.store import Tile as TTile  # noqa: E402
 from test_torch_rectilinear import small_scene_setup  # noqa: E402
 
 # the flat-Earth, straight-ray flavour of the golden scenes (test_golden.py)
 FLAT_STRAIGHT = {"earth_shape": "FlatDistorted", "straight_rays": True}
+# a 200 m layer warming by 0.15 K/m around the small scene's observer (340 m):
+# a duct, bending rays down harder than the Earth curves, so the exit rule's
+# band starts above it (chip_smoke.py's inversion at the headline's 400 m)
+INVERSION = AtmosphereDef(
+    first_temperature_function=LinearFunction(-0.0065),
+    next_functions=((300.0, LinearFunction(0.15)), (500.0, LinearFunction(-0.0065))),
+    temperature_fixed_point=(0.0, 288.15))
+# tests/test_torch_parallel.py's inversion: 0.02 K/m from the ground up,
+# which bends rays by at most 0.46 of the Earth's curvature above -1000 m
+WARM = AtmosphereDef(first_temperature_function=LinearFunction(0.02),
+                     temperature_fixed_point=(0.0, 283.15))
 
 
 def _scene(cfg, jterrain, tterrain):
@@ -81,7 +98,9 @@ def scenes(tmp_path_factory):
     small = small_scene_setup(d)
     flat = {**small, **FLAT_STRAIGHT}
     jt, tt = JTerrain.from_folder(d), TTerrain.from_folder(d)
-    return {"small": (small, jt, tt), "flat_straight": (flat, jt, tt)}
+    return {"small": (small, jt, tt), "flat_straight": (flat, jt, tt),
+            "inversion": ({**small, "atmosphere": atmosphere_def_to_dict(INVERSION)}, jt, tt),
+            "warm": ({**small, "atmosphere": atmosphere_def_to_dict(WARM)}, jt, tt)}
 
 
 def _assert_close_to_jax(key, plh, jkey, jplh):
@@ -110,6 +129,105 @@ def test_tilt0_hits_equal_plain_and_match_jax(scenes, scene, max_hits):
     if max_hits > 1:  # empty slots hold path length 0
         assert (plh[torch.isinf(key)] == 0.0).all()
     _assert_close_to_jax(key.numpy(), plh.numpy(), *jax_hits(max_hits))
+
+
+@pytest.mark.parametrize("max_hits", [1, 2])
+@pytest.mark.parametrize("scene", ["small", "flat_straight", "inversion"])
+def test_rules_leave_the_plain_scan_unchanged(scenes, scene, max_hits):
+    """The plain scan with K3's two rules applied (``tilt0_hits_ruled``: an
+    exited pixel tests no later window, a cleared window runs no test) is
+    ``torch.equal`` to ``tilt0_hits_plain`` and within the parity tolerances
+    of JAX's fused_shared_core, while marching a fraction of its windows;
+    its flags word is K3's."""
+    jax_hits, args, scan_kw = _scene(*scenes[scene])
+    key_p, plh_p = TRect.tilt0_hits_plain(*args, max_hits=max_hits, **scan_kw)
+    key, plh, flags, tally = TRect.tilt0_hits_ruled(*args, max_hits=max_hits, **scan_kw)
+    assert torch.equal(key, key_p) and torch.equal(plh, plh_p)
+    _assert_close_to_jax(key.numpy(), plh.numpy(), *jax_hits(max_hits))
+    n_coarse = -(-scan_kw["n_seg"] // scan_kw["coarse"])
+    marched, plain = int(tally.marched.sum()), int(tally.plain.sum())
+    print(f"{scene} K={max_hits}: {marched} of {plain} pixel-windows marched, "
+          f"{int(tally.skipped.sum())} tests skipped, {int(tally.exited.sum())} exits")
+    assert bool(tally.exited.any()) and bool((tally.skipped > 0).any())
+    assert marched < plain
+    assert bool((tally.marched <= tally.plain).all())
+    assert bool((tally.skipped <= tally.marched).all())
+    assert torch.equal(flags >> TRect.SCAN_WINDOWS_SHIFT, tally.marched)
+    assert torch.equal((flags >> 1) & 0xFF, torch.isfinite(key).sum(-1).to(torch.int32))
+    # a pixel stopped (done) or marched every window; an exited pixel holds
+    # fewer than K hits
+    done = (flags & 1) == 1
+    assert bool((done | (tally.marched == n_coarse)).all())
+    assert bool((torch.isfinite(key[tally.exited]).sum(-1) < max_hits).all())
+
+
+def test_inversion_band_starts_above_the_layer(scenes):
+    """The exit's band: the duct (l below -1/R between 300 and 500 m) puts
+    h_safe just above its top, so no ray exits inside it; US-76 and the
+    0.02 K/m inversion bend rays less than 2/3 of the Earth's curvature, so
+    their band reaches down to DEATH_ALTITUDE; straight rays have no l; a
+    flat Earth with l < 0 above never exits; a march longer than half a
+    radian turns the exit off."""
+    def rules(scene, **over):
+        _, args, scan_kw = _scene(*scenes[scene])
+        kw = {**scan_kw, **over}
+        c = kw["coarse"]
+        return TRect.scan_rules(args[1].t().contiguous(), coarse=c,
+                                n_coarse=-(-kw["n_seg"] // c), shape=kw["shape"],
+                                table=kw["table"], straight=kw["straight"], step=kw["step"])
+
+    inv = rules("inversion")
+    assert 500.0 <= inv.h_safe <= 510.0
+    _, args, scan_kw = _scene(*scenes["inversion"])
+    assert args[2] < inv.h_safe  # the observer sits inside the layer
+    assert rules("small").h_safe == TR.DEATH_ALTITUDE
+    assert rules("warm").h_safe == TR.DEATH_ALTITUDE
+    assert rules("small", straight=True).h_safe == TR.DEATH_ALTITUDE
+    assert rules("small", shape=TR.FLAT).h_safe == np.inf
+    assert rules("flat_straight").h_safe == TR.DEATH_ALTITUDE
+    assert rules("small", n_seg=80_000, coarse=16).h_safe == np.inf  # 4000 km
+    # the suffix maximum: non-increasing down the windows, above each window's
+    r = rules("small")
+    assert bool((r.smax[:-1] >= r.smax[1:]).all()) and bool((r.smax >= r.tmax).all())
+    assert torch.equal(r.smax[0], r.tmax.amax(0))
+    assert r.tmax.shape == (-(-scan_kw["n_seg"] // scan_kw["coarse"]), args[0].shape[1])
+
+
+def test_exit_margin_holds_over_the_later_windows():
+    """Rule 1 on seeded states: wherever ``rule_exit`` holds against a
+    terrain level just under its margin, every later fine sample the plain
+    march gives stays above that level (US-76, the duct, straight rays; a
+    200 km march of 16-step windows)."""
+    from atm_raytracer_tpu_torch.physics.atmosphere import Atmosphere, us_76
+
+    rng = np.random.default_rng(14)
+    n, c, step = 4096, 16, 50.0
+    dx = TR._f32(step * c)
+    coeffs = TR.hermite_coeffs(c)
+    shape = TR.EarthShape(6_371_000.0)
+    inv_r = TR._f32(1.0 / shape.radius)
+    fired = 0
+    for atm in (us_76(), INVERSION, None):
+        table = None if atm is None else TR.RefractionTable.build(Atmosphere(atm), 530e-9,
+                                                                  device="cpu")
+        terr = torch.zeros((250 * c + 1, 1))
+        rules = TRect.scan_rules(terr, coarse=c, n_coarse=250, shape=shape, table=table,
+                                 straight=atm is None, step=step)
+        h = torch.from_numpy(rng.uniform(-900.0, 12_000.0, n).astype(np.float32))
+        v = torch.from_numpy((rng.uniform(0.0, 1.0, n) ** 3 * 0.6).astype(np.float32))
+        v[: n // 8] = 0.0
+        lo = h - (rules.m_abs + TRect.RULE_M_EXIT * (h.abs() + v * dx))
+        level = torch.nextafter(lo, torch.full_like(lo, -np.inf))
+        ok = TRect.rule_exit(rules, h, v, dx, inv_r, level)
+        fired += int(ok.sum())
+        low = torch.full_like(h, np.inf)
+        for _ in range(250):
+            h1, v1 = TR._rk4_step(h, v, dx, table, shape.radius)
+            for j in range(c + 1):
+                low = torch.minimum(low, TR.hermite_plane(h, v * dx, h1, v1 * dx, coeffs, j))
+            h, v = h1, v1
+        assert bool((low[ok] > level[ok]).all())
+    assert fired > 3 * n // 2
 
 
 def _deep_scene():
@@ -252,6 +370,15 @@ def test_launcher_arguments_convert_to_the_argtypes(monkeypatch):
     n_poly = [s[13].value for s in seen[::3]]
     assert n_poly == [len(table.poly), 0, 0]
     assert [s[18].value for s in seen[::3]] == [1, 1, 0]  # refract
+    # the rules' inputs, last: tmax and smax, then h_safe, h_top, k_cap, m_abs
+    assert all(s[30].value and s[31].value for s in seen)
+    h_safe = [s[32].value for s in seen[::3]]
+    assert h_safe == [TR.DEATH_ALTITUDE, np.inf, TR.DEATH_ALTITUDE]  # flat l < 0: never
+    assert seen[0][33].value == pytest.approx(0.1 * 6_371_000.0)
+    assert [s[33].value for s in seen[3::3]] == [np.inf, np.inf]
+    assert seen[0][34].value == pytest.approx(np.sin(3 * 800.0 / 6_371_000.0) / 0.1)
+    assert [s[34].value for s in seen[3::3]] == [0.0, 0.0]
+    assert seen[0][35].value == pytest.approx(800.0 ** 2 / (4 * 6_371_000.0) + 1e-3)
 
 
 def test_tilt0_hits_refuses_other_devices():
