@@ -198,7 +198,17 @@ RECT_SCAN = CudaKernel(
      _I, _F, _F, _P, _I, _P, _P, _P, _P, _P, _P, _F, _F, _F, _F, _P],
 )
 
-KERNELS = (COMBINE, MARCH, RECT_SCAN)
+# K4: the capture scan of the tilted Rectilinear path
+# (generators/rectilinear.py::culled_capture), one launch a round: each
+# pixel's candidate blocks against the terrain envelope, their start states
+# in M_CAND slots
+RECT_CULLED = CudaKernel(
+    "rect_culled.cu", "rect_culled",
+    [_P, _I, _F, _I, _I, _I, _I, _I, _I, _I, _F, _P, _I, _P, _I, _F, _F, _I, _F, _F, _I,
+     _F, _F, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
+)
+
+KERNELS = (COMBINE, MARCH, RECT_SCAN, RECT_CULLED)
 
 
 def _gxx() -> str:

@@ -14,8 +14,9 @@ along its own geodesic (rectilinear.rs:78-186). Three regimes, all exact:
   ``march_scan_light`` for K = 1, ``march_scan`` for K > 1).
 * tilt != 0, opaque terrain (``fused_culled_core``): azimuth couples both
   pixel axes, so nothing is shared; a conservative terrain envelope culls
-  the per-pixel sampling to a few candidate blocks, which re-integrate from
-  captured ODE states and are tested exactly.
+  the per-pixel sampling to a few candidate blocks (the capture scan,
+  ``culled_capture``), which re-integrate from captured ODE states and are
+  tested exactly.
 * everything else (tilted translucent or object frames, or ``cull=False``):
   ``pixelwise_hits``, the dense per-pixel program, 64 image rows at a time.
 
@@ -23,9 +24,11 @@ Scene objects: at tilt 0, ``shared_column_core`` marches row chunks of rays
 in full (the march kernel on the card), finds their crossings against the
 shared column terrain (``combine.aligned_crossing_segments``) and merges
 ``ops.objects.object_hits_pixelwise``; a tilted object frame takes the dense
-path, which merges the same object hits. Every stage is PyTorch ops on the
-device of its inputs; the culled path's capture scan is a Python loop over
-coarse windows (no kernel yet).
+path, which merges the same object hits. Every other stage is PyTorch ops on
+the device of its inputs. The culled path's capture scan is
+``culled_capture``: on the card the CUDA kernel ``csrc/rect_culled.cu``, K4,
+one thread a pixel in one launch a round; on the CPU, or with ``plain``,
+``culled_capture_plain``, a ``march_scan`` over the coarse windows.
 """
 
 from __future__ import annotations
@@ -767,40 +770,44 @@ def shared_column_core(pack: TerrainPack, table: Optional[RefractionTable],
 # ---------------------------------------------------------------------------
 
 
-def fused_culled_core(pack: TerrainPack, table: Optional[RefractionTable], alt0,
-                      *, cam: tuple, model: EarthModel, shape: EarthShape,
-                      straight: bool, step: float, n_terr: int, lat0: float,
-                      lon0: float, coloring, fog_distance: Optional[float],
-                      terrain_alpha: float, emit=None):
-    """Exact tilted-pinhole frame without dense per-pixel terrain sampling,
-    on the device of ``pack``: (image [P, 3] u8, hits [P, 1], rounds) with
-    P = W·H pixels in row-major order. ``cam`` = (width, height, fov, tilt,
-    direction).
+class CulledInputs(NamedTuple):
+    """What the culled path derives once a frame (``culled_envelope``), on
+    the device of the pack."""
 
-    1. envelope: terrain on an azimuth grid of two columns per pixel column,
-       reduced to per-(azimuth interval, block of BLOCK_WINDOWS windows)
-       min/max, widened by slack = G·d·δa·1.1 + 1 m + seam jump, with G the
-       mosaic's Lipschitz bound (``TerrainPack.grad_bound``): conservative,
-       so culling never drops a real crossing;
-    2. capture: one ``march_scan`` per round; a block whose ray range meets
-       its envelope range stores its start state (h, h', P, death) in the
-       pixel's next free slot of M_CAND;
-    3. exact test: candidate blocks re-integrate from those states
-       (``rk4_window``, bitwise the march's values) and sample terrain at
-       each pixel's own azimuth only there;
-    4. rounds: 2-3 repeat on the next M_CAND candidates for pixels with
-       candidates left and no hit yet, one host sync per round.
+    elev: torch.Tensor  # [P] float32: the pixels' elevations (rad), row-major
+    az_px: torch.Tensor  # [P] float32: their azimuths (deg), unwrapped about the view
+    env_hi: torch.Tensor  # [A-1, nb] float32: the envelope's highs, slack added
+    env_lo: torch.Tensor  # [A-1, nb] float32: its lows, slack taken off
+    j_px: torch.Tensor  # [P] int64: each pixel's azimuth interval, a row of env_*
 
-    ``emit`` receives the share of the blocks whose candidates were tested.
-    """
+
+class CulledBlocks(NamedTuple):
+    """The culled path's march geometry (``culled_blocks``)."""
+
+    n_seg: int  # segments of the march
+    coarse: int  # steps a window
+    b_len: int  # segments a block of BLOCK_WINDOWS windows
+    nb: int  # blocks
+    n_march: int  # steps marched: whole blocks; masks trim the tail
+
+
+def culled_blocks(n_terr: int, step: float) -> CulledBlocks:
+    """The culled path's march geometry for ``n_terr`` terrain samples
+    ``step`` apart, windows as in ``fused_shared_core``."""
+    n_seg = n_terr - 1
+    coarse = max(1, min(march_coarse(step), n_seg))
+    b_len = BLOCK_WINDOWS * coarse
+    nb = -(-n_seg // b_len)
+    return CulledBlocks(n_seg, coarse, b_len, nb, nb * b_len)
+
+
+def culled_envelope(pack: TerrainPack, *, cam: tuple, model: EarthModel, step: float,
+                    blocks: CulledBlocks, lat0: float, lon0: float) -> CulledInputs:
+    """Stage 1 of ``fused_culled_core``: the pixels' angles and the
+    conservative terrain envelope, on the device of ``pack``."""
     width, height, fov, tilt, direction = cam
     dev = pack.tiles.device
-    n_seg = n_terr - 1
-    coarse = max(1, min(march_coarse(step), n_seg))  # as in fused_shared_core
-    b_len = BLOCK_WINDOWS * coarse  # segments per block
-    nb = -(-n_seg // b_len)
-    n_march = nb * b_len  # whole blocks; masks trim the tail
-    p_n = width * height
+    _, _, b_len, nb, n_march = blocks
     f_step = _f32(step)
 
     elev_hw, dirr_hw = camera.rectilinear_ray_params_device(
@@ -812,7 +819,6 @@ def fused_culled_core(pack: TerrainPack, table: Optional[RefractionTable], alt0,
     az_off = torch.remainder(az_raw - _f32(direction) + 180.0, 360.0) - 180.0
     az_px = _f32(direction) + az_off
 
-    # -- 1. conservative envelope -------------------------------------------
     n_env = 2 * width
     az_lo = az_px.min()
     span = (az_px.max() - az_lo).clamp(min=1e-7)
@@ -830,105 +836,257 @@ def fused_culled_core(pack: TerrainPack, table: Optional[RefractionTable], alt0,
     slack = (_f32(pack.grad_bound) * d_far * torch.deg2rad(d_az) * 1.1
              + 1.0 + _f32(pack.seam_jump))  # [nb]
     j_px = torch.floor((az_px - az_lo) / d_az).to(torch.int64).clamp(0, n_env - 2)
-    # [nb, P]: one contiguous row per block
-    env_hi_p = (int_hi + slack).t().contiguous()[:, j_px]
-    env_lo_p = (int_lo - slack).t().contiguous()[:, j_px]
+    return CulledInputs(elev, az_px, int_hi + slack, int_lo - slack, j_px)
 
+
+def culled_capture_plain(elev, alt0, env_hi, env_lo, j_px, *, skip: int,
+                         shape: EarthShape, table: Optional[RefractionTable],
+                         straight: bool, step: float, blocks: CulledBlocks):
+    """Stage 2 of ``fused_culled_core`` in plain PyTorch, on any device: one
+    ``march_scan`` over the pixels ``elev`` [P] that captures candidate
+    blocks skip .. skip + M_CAND - 1. A block whose ray range (the min and
+    max of its fine samples) meets the envelope ``env_hi`` / ``env_lo``
+    [A-1, nb] at the pixel's row ``j_px`` [P], and whose ray was alive at its
+    start, is a candidate; its start state goes to the pixel's slot
+    ``cnt - skip``.
+
+    Returns (cnt [P] int32, every candidate; s_h, s_v, s_p [P, M_CAND]
+    float32: altitude, slope and path length at the block's start; s_d
+    [P, M_CAND] bool: dead at its start; s_b [P, M_CAND] int32: the block,
+    nb in an empty slot). The oracle of K4 (``culled_capture_cuda``)."""
+    dev = elev.device
+    p_n = elev.shape[0]
+    n_seg, coarse, b_len, nb, n_march = blocks
+    # [nb, P]: one contiguous row per block
+    env_hi_p = env_hi.t().contiguous()[:, j_px]
+    env_lo_p = env_lo.t().contiguous()[:, j_px]
     slot_iota = torch.arange(M_CAND, dtype=torch.int32, device=dev)[None, :]
 
-    def capture_round(skip: int):
-        """One march: capture candidate blocks skip..skip+M_CAND-1."""
+    def consumer(user, k0, h_f, plen_f, alive, v, _h1, _v1):
+        bh, bv, bp, bd, rmin, rmax, cnt, s_h, s_v, s_p, s_d, s_b = user
+        w_idx = k0 // coarse
+        wmin = h_f.amin(-1)
+        wmax = h_f.amax(-1)
+        if w_idx % BLOCK_WINDOWS == 0:  # block start: its state, fresh range
+            bh, bv, bp, bd = h_f[:, 0], v, plen_f[:, 0], ~alive[:, 0]
+            rmin, rmax = wmin, wmax
+        else:
+            rmin = torch.minimum(rmin, wmin)
+            rmax = torch.maximum(rmax, wmax)
+        b = w_idx // BLOCK_WINDOWS
+        if w_idx % BLOCK_WINDOWS == BLOCK_WINDOWS - 1 and b * b_len < n_seg:
+            cand = (rmin <= env_hi_p[b]) & (rmax >= env_lo_p[b]) & ~bd
+            wm = cand[:, None] & (slot_iota == (cnt - skip)[:, None])
+            s_h = torch.where(wm, bh[:, None], s_h)
+            s_v = torch.where(wm, bv[:, None], s_v)
+            s_p = torch.where(wm, bp[:, None], s_p)
+            s_d = torch.where(wm, bd[:, None], s_d)
+            s_b = s_b.masked_fill(wm, b)
+            cnt = cnt + cand.to(torch.int32)
+        return bh, bv, bp, bd, rmin, rmax, cnt, s_h, s_v, s_p, s_d, s_b
 
-        def consumer(user, k0, h_f, plen_f, alive, v, _h1, _v1):
-            bh, bv, bp, bd, rmin, rmax, cnt, s_h, s_v, s_p, s_d, s_b = user
-            w_idx = k0 // coarse
-            wmin = h_f.amin(-1)
-            wmax = h_f.amax(-1)
-            if w_idx % BLOCK_WINDOWS == 0:  # block start: its state, fresh range
-                bh, bv, bp, bd = h_f[:, 0], v, plen_f[:, 0], ~alive[:, 0]
-                rmin, rmax = wmin, wmax
-            else:
-                rmin = torch.minimum(rmin, wmin)
-                rmax = torch.maximum(rmax, wmax)
-            b = w_idx // BLOCK_WINDOWS
-            if w_idx % BLOCK_WINDOWS == BLOCK_WINDOWS - 1 and b * b_len < n_seg:
-                cand = (rmin <= env_hi_p[b]) & (rmax >= env_lo_p[b]) & ~bd
-                wm = cand[:, None] & (slot_iota == (cnt - skip)[:, None])
-                s_h = torch.where(wm, bh[:, None], s_h)
-                s_v = torch.where(wm, bv[:, None], s_v)
-                s_p = torch.where(wm, bp[:, None], s_p)
-                s_d = torch.where(wm, bd[:, None], s_d)
-                s_b = s_b.masked_fill(wm, b)
-                cnt = cnt + cand.to(torch.int32)
-            return bh, bv, bp, bd, rmin, rmax, cnt, s_h, s_v, s_p, s_d, s_b
+    z = torch.zeros(p_n, dtype=torch.float32, device=dev)
+    zm = torch.zeros((p_n, M_CAND), dtype=torch.float32, device=dev)
+    init = (
+        z, z, z, torch.zeros(p_n, dtype=torch.bool, device=dev), z, z,
+        torch.zeros(p_n, dtype=torch.int32, device=dev),
+        zm, zm, zm, torch.zeros((p_n, M_CAND), dtype=torch.bool, device=dev),
+        torch.full((p_n, M_CAND), nb, dtype=torch.int32, device=dev),
+    )
+    out = march_scan(alt0, elev, step, n_march, shape, table, straight,
+                     consumer, init, coarse=coarse, with_slope=True)
+    return out[6:]  # cnt, s_h, s_v, s_p, s_d, s_b
 
-        z = torch.zeros(p_n, dtype=torch.float32, device=dev)
-        zm = torch.zeros((p_n, M_CAND), dtype=torch.float32, device=dev)
-        init = (
-            z, z, z, torch.zeros(p_n, dtype=torch.bool, device=dev), z, z,
-            torch.zeros(p_n, dtype=torch.int32, device=dev),
-            zm, zm, zm, torch.zeros((p_n, M_CAND), dtype=torch.bool, device=dev),
-            torch.full((p_n, M_CAND), nb, dtype=torch.int32, device=dev),
-        )
-        out = march_scan(alt0, elev, step, n_march, shape, table, straight,
-                         consumer, init, coarse=coarse, with_slope=True)
-        return out[6:]  # cnt, s_h, s_v, s_p, s_d, s_b
 
-    def exact_test(s_h, s_v, s_p, s_d, s_b, az):
-        """Re-integrate the candidate blocks of these pixels; the first exact
-        crossing (key [p, 1], path length [p, 1])."""
-        p_c = s_h.shape[0]
-        h, v, pl = s_h.reshape(-1), s_v.reshape(-1), s_p.reshape(-1)
-        parts_h = [h[:, None]]
-        parts_p = [pl[:, None]]
-        for _ in range(BLOCK_WINDOWS):
-            h_f, plen_f, h, v = rk4_window(h, v, pl, step, coarse, table, straight,
-                                           shape.radius)
-            parts_h.append(h_f[:, 1:])
-            parts_p.append(plen_f[:, 1:])
-            pl = plen_f[:, -1]
-        h_fine = torch.cat(parts_h, dim=-1).reshape(p_c, M_CAND, b_len + 1)
-        p_fine = torch.cat(parts_p, dim=-1).reshape(p_c, M_CAND, b_len + 1)
-        # death rule inside the block (prefix over samples before a segment)
-        pref = torch.cumsum((h_fine[..., :-1] < DEATH_ALTITUDE).to(torch.int32), dim=-1)
-        no_prior = torch.cat([torch.zeros_like(pref[..., :1]), pref[..., :-1]], dim=-1)
-        alive = ~s_d[..., None] & (no_prior == 0)
+def culled_capture_cuda(elev, alt0, env_hi, env_lo, j_px, *, skip: int,
+                        shape: EarthShape, table: Optional[RefractionTable],
+                        straight: bool, step: float, blocks: CulledBlocks,
+                        count_windows: bool = False):
+    """Launch K4 (``csrc/rect_culled.cu``) once on the device of ``elev``:
+    ``culled_capture_plain``'s six outputs and, with ``count_windows``,
+    windows [P] int32, the windows each pixel marched (all nb ·
+    BLOCK_WINDOWS unless its ray died: a pixel stops at the first block
+    that starts dead), else None.
 
-        local = torch.arange(b_len + 1, dtype=torch.float32, device=dev)
-        d = s_b[..., None].to(torch.float32) * _f32(b_len * step) + local * f_step
-        dl, dn = model.geodesic_delta(lat0, lon0, az[:, None, None], d)
-        dd = h_fine - sample_elevation(pack, dl, dn, lat0, lon0)  # [p, M, B+1]
-        d1 = dd[..., :-1]
-        d2 = dd[..., 1:]
-        seg = s_b[..., None] * b_len + torch.arange(b_len, dtype=torch.int32, device=dev)
-        crossing = (d1 * d2 < 0.0) & alive & (seg < n_seg) & (s_b[..., None] < nb)
-        cand = torch.where(crossing, seg, combine.NO_HIT_SEG).reshape(p_c, -1)
-        cmin, arg = cand.min(dim=-1, keepdim=True)  # candidate segments are unique
+    The start slopes are the plain version's (``_scan_start``); l(h) comes
+    from ``table.poly`` when it exists, else from the table; ``straight`` or
+    no table marches without refraction. The envelope is read in place:
+    no [nb, P] copy of it is made. A captured block starts alive, so every
+    death flag s_d is false: the wrapper makes it, the kernel does not."""
+    dev = elev.device
+    p_n = elev.shape[0]
+    n_seg, coarse, _, nb, n_march = blocks
+    _, v0, coarse, _ = _scan_start(alt0, elev, shape, n_march, coarse)
+    v0 = v0.contiguous()
+    n_env = env_hi.shape[0]
+    if env_hi.shape != (n_env, nb) or env_lo.shape != (n_env, nb) or j_px.shape != (p_n,):
+        raise ValueError(f"culled_capture_cuda: envelope {tuple(env_hi.shape)} / "
+                         f"{tuple(env_lo.shape)} and rows {tuple(j_px.shape)} do not fit "
+                         f"{p_n} pixels of {nb} blocks")
+    env_hi = env_hi.to(torch.float32).contiguous()
+    env_lo = env_lo.to(torch.float32).contiguous()
+    rows = j_px.to(torch.int32).contiguous()
+    refract = not straight and table is not None
+    if refract and table.stacked:
+        raise ValueError("culled_capture_cuda: the scan takes one table, not a stack")
+    if refract and table.poly is not None:
+        poly, n_poly = table.poly_rows(), len(table.poly)
+    else:
+        poly, n_poly = None, 0
+    pairs = table.pairs.contiguous() if refract else None
+    for t in (env_hi, env_lo, rows, poly, pairs):
+        if t is not None and t.device != dev:
+            raise ValueError("culled_capture_cuda: envelope, table and pixels live on "
+                             "different devices")
+    radius = shape.radius
+    basis = _hermite_basis(coarse, dev)
+    cnt = torch.empty(p_n, dtype=torch.int32, device=dev)
+    windows = torch.empty_like(cnt) if count_windows else None
+    s_h = torch.empty((p_n, M_CAND), dtype=torch.float32, device=dev)
+    s_v = torch.empty_like(s_h)
+    s_p = torch.empty_like(s_h)
+    s_d = torch.zeros((p_n, M_CAND), dtype=torch.bool, device=dev)
+    s_b = torch.empty((p_n, M_CAND), dtype=torch.int32, device=dev)
+    if p_n == 0:
+        return cnt, s_h, s_v, s_p, s_d, s_b, windows
+    fstep = _f32(step)
+    _kernels.RECT_CULLED.call(
+        dev, v0.data_ptr(), p_n, _f32(alt0), int(n_seg), int(coarse), int(n_march), nb,
+        BLOCK_WINDOWS, M_CAND, int(skip), _f32(step * coarse),
+        None if poly is None else poly.data_ptr(), n_poly,
+        None if pairs is None else pairs.data_ptr(),
+        int(table.values.shape[-1]) if refract else 0, table.h0 if refract else 0.0,
+        table.inv_dh if refract else 0.0, int(refract),
+        0.0 if radius is None else _f32(1.0 / radius),
+        0.0 if radius is None else _f32(radius), 0 if radius is None else 1, fstep,
+        _f32(np.float32(fstep) * np.float32(fstep)), basis.data_ptr(), env_hi.data_ptr(),
+        env_lo.data_ptr(), rows.data_ptr(), cnt.data_ptr(), s_h.data_ptr(), s_v.data_ptr(),
+        s_p.data_ptr(), s_b.data_ptr(), None if windows is None else windows.data_ptr())
+    return cnt, s_h, s_v, s_p, s_d, s_b, windows
 
-        def sel(x):
-            return x.reshape(p_c, -1).gather(-1, arg)
 
-        d1s, d2s = sel(d1), sel(d2)
-        denom = d1s - d2s
-        prop = d1s / torch.where(denom == 0.0, 1.0, denom)
-        keyc = torch.where(cmin < combine.NO_HIT_SEG, cmin.to(torch.float32) + prop,
-                           combine.NO_HIT)
-        return keyc, sel(p_fine[..., :-1]) * (1.0 - prop) + sel(p_fine[..., 1:]) * prop
+def culled_capture(elev, alt0, env_hi, env_lo, j_px, *, skip: int, shape: EarthShape,
+                   table: Optional[RefractionTable], straight: bool, step: float,
+                   blocks: CulledBlocks, plain: bool = False):
+    """One round's capture scan (``culled_capture_plain``'s six outputs).
+    CUDA tensors launch K4 (``culled_capture_cuda``) and raise if it cannot
+    be built or launched; CPU tensors, or ``plain`` on any device, run
+    ``culled_capture_plain``."""
+    kw = dict(skip=skip, shape=shape, table=table, straight=straight, step=step,
+              blocks=blocks)
+    if plain or elev.device.type == "cpu":
+        return culled_capture_plain(elev, alt0, env_hi, env_lo, j_px, **kw)
+    if elev.device.type != "cuda":
+        raise ValueError(f"culled_capture: unsupported device {elev.device}")
+    return culled_capture_cuda(elev, alt0, env_hi, env_lo, j_px, **kw)[:6]
 
-    # -- 2-4. rounds ----------------------------------------------------------
-    chunk = max(1, EXACT_TEST_ELEMS // (M_CAND * (b_len + 1)))
-    key = torch.full((p_n, 1), combine.NO_HIT, dtype=torch.float32, device=dev)
+
+def culled_exact_test(pack: TerrainPack, s_h, s_v, s_p, s_d, s_b, az, *, model: EarthModel,
+                      shape: EarthShape, table: Optional[RefractionTable], straight: bool,
+                      step: float, blocks: CulledBlocks, lat0: float, lon0: float):
+    """Stage 3 of ``fused_culled_core``: re-integrate the candidate blocks
+    (slots [p, M_CAND]) of pixels with azimuths ``az`` [p]; the first exact
+    crossing (key [p, 1], path length [p, 1])."""
+    dev = s_h.device
+    p_c = s_h.shape[0]
+    n_seg, coarse, b_len, nb, _ = blocks
+    f_step = _f32(step)
+    h, v, pl = s_h.reshape(-1), s_v.reshape(-1), s_p.reshape(-1)
+    parts_h = [h[:, None]]
+    parts_p = [pl[:, None]]
+    for _ in range(BLOCK_WINDOWS):
+        h_f, plen_f, h, v = rk4_window(h, v, pl, step, coarse, table, straight,
+                                       shape.radius)
+        parts_h.append(h_f[:, 1:])
+        parts_p.append(plen_f[:, 1:])
+        pl = plen_f[:, -1]
+    h_fine = torch.cat(parts_h, dim=-1).reshape(p_c, M_CAND, b_len + 1)
+    p_fine = torch.cat(parts_p, dim=-1).reshape(p_c, M_CAND, b_len + 1)
+    # death rule inside the block (prefix over samples before a segment)
+    pref = torch.cumsum((h_fine[..., :-1] < DEATH_ALTITUDE).to(torch.int32), dim=-1)
+    no_prior = torch.cat([torch.zeros_like(pref[..., :1]), pref[..., :-1]], dim=-1)
+    alive = ~s_d[..., None] & (no_prior == 0)
+
+    local = torch.arange(b_len + 1, dtype=torch.float32, device=dev)
+    d = s_b[..., None].to(torch.float32) * _f32(b_len * step) + local * f_step
+    dl, dn = model.geodesic_delta(lat0, lon0, az[:, None, None], d)
+    dd = h_fine - sample_elevation(pack, dl, dn, lat0, lon0)  # [p, M, B+1]
+    d1 = dd[..., :-1]
+    d2 = dd[..., 1:]
+    seg = s_b[..., None] * b_len + torch.arange(b_len, dtype=torch.int32, device=dev)
+    crossing = (d1 * d2 < 0.0) & alive & (seg < n_seg) & (s_b[..., None] < nb)
+    cand = torch.where(crossing, seg, combine.NO_HIT_SEG).reshape(p_c, -1)
+    cmin, arg = cand.min(dim=-1, keepdim=True)  # candidate segments are unique
+
+    def sel(x):
+        return x.reshape(p_c, -1).gather(-1, arg)
+
+    d1s, d2s = sel(d1), sel(d2)
+    denom = d1s - d2s
+    prop = d1s / torch.where(denom == 0.0, 1.0, denom)
+    keyc = torch.where(cmin < combine.NO_HIT_SEG, cmin.to(torch.float32) + prop,
+                       combine.NO_HIT)
+    return keyc, sel(p_fine[..., :-1]) * (1.0 - prop) + sel(p_fine[..., 1:]) * prop
+
+
+def culled_test_round(pack: TerrainPack, slots, az_px, key, plh, *, blocks: CulledBlocks,
+                      **kw):
+    """One round's exact test (``culled_exact_test``) in pixel chunks of
+    EXACT_TEST_ELEMS, keeping the nearer hit in ``key`` / ``plh`` [P, 1]
+    (updated in place). ``slots`` = (s_h, s_v, s_p, s_d, s_b)."""
+    chunk = max(1, EXACT_TEST_ELEMS // (M_CAND * (blocks.b_len + 1)))
+    for p0 in range(0, key.shape[0], chunk):
+        px = slice(p0, p0 + chunk)
+        keyc, plc = culled_exact_test(pack, *(s[px] for s in slots), az_px[px],
+                                      blocks=blocks, **kw)
+        better = keyc < key[px]
+        key[px] = torch.where(better, keyc, key[px])
+        plh[px] = torch.where(better, plc, plh[px])
+
+
+def fused_culled_core(pack: TerrainPack, table: Optional[RefractionTable], alt0,
+                      *, cam: tuple, model: EarthModel, shape: EarthShape,
+                      straight: bool, step: float, n_terr: int, lat0: float,
+                      lon0: float, coloring, fog_distance: Optional[float],
+                      terrain_alpha: float, emit=None, plain: bool = False):
+    """Exact tilted-pinhole frame without dense per-pixel terrain sampling,
+    on the device of ``pack``: (image [P, 3] u8, hits [P, 1], rounds) with
+    P = W·H pixels in row-major order. ``cam`` = (width, height, fov, tilt,
+    direction).
+
+    1. envelope (``culled_envelope``): terrain on an azimuth grid of two
+       columns per pixel column, reduced to per-(azimuth interval, block of
+       BLOCK_WINDOWS windows) min/max, widened by slack = G·d·δa·1.1 + 1 m +
+       seam jump, with G the mosaic's Lipschitz bound
+       (``TerrainPack.grad_bound``): conservative, so culling never drops a
+       real crossing;
+    2. capture (``culled_capture``): one march a round; a block whose ray
+       range meets its envelope range stores its start state (h, h', P,
+       death) in the pixel's next free slot of M_CAND. On the card K4, one
+       launch a round, unless ``plain``;
+    3. exact test (``culled_test_round``): candidate blocks re-integrate
+       from those states (``rk4_window``, bitwise the march's values) and
+       sample terrain at each pixel's own azimuth only there;
+    4. rounds: 2-3 repeat on the next M_CAND candidates for pixels with
+       candidates left and no hit yet, one host sync per round.
+
+    ``emit`` receives the share of the blocks whose candidates were tested.
+    """
+    blocks = culled_blocks(n_terr, step)
+    nb = blocks.nb
+    inp = culled_envelope(pack, cam=cam, model=model, step=step, blocks=blocks, lat0=lat0,
+                          lon0=lon0)
+    scan_kw = dict(shape=shape, table=table, straight=straight, step=step, blocks=blocks)
+    key = torch.full((inp.elev.shape[0], 1), combine.NO_HIT, dtype=torch.float32,
+                     device=inp.elev.device)
     plh = torch.zeros_like(key)
     skip = 0
     rounds = 0
     while True:
-        cnt, *slots = capture_round(skip)
-        for p0 in range(0, p_n, chunk):
-            px = slice(p0, p0 + chunk)
-            keyc, plc = exact_test(*(s[px] for s in slots), az_px[px])
-            better = keyc < key[px]
-            key[px] = torch.where(better, keyc, key[px])
-            plh[px] = torch.where(better, plc, plh[px])
+        cnt, *slots = culled_capture(inp.elev, alt0, inp.env_hi, inp.env_lo, inp.j_px,
+                                     skip=skip, plain=plain, **scan_kw)
+        culled_test_round(pack, slots, inp.az_px, key, plh, model=model, lat0=lat0,
+                          lon0=lon0, **scan_kw)
         skip += M_CAND
         rounds += 1
         if emit is not None:
@@ -936,7 +1094,7 @@ def fused_culled_core(pack: TerrainPack, table: Optional[RefractionTable], alt0,
         if skip >= nb or not bool((torch.isinf(key[:, 0]) & (cnt > skip)).any()):
             break
 
-    hits = ray_hits(pack, model, az_px[:, None], key, plh, lat0=lat0, lon0=lon0,
+    hits = ray_hits(pack, model, inp.az_px[:, None], key, plh, lat0=lat0, lon0=lon0,
                     step=step, terrain_alpha=terrain_alpha)
     return _composite_hits(coloring, fog_distance, hits), hits, rounds
 
@@ -1058,7 +1216,8 @@ def render_rectilinear(params: Params, terrain: Terrain, device,
     tilt 0 takes the fused shared-column path (its scan K3 on a CUDA
     device unless ``plain``), or with scene objects the row-chunked
     shared-column path (``auto_chunk_rows`` rows a chunk); a tilted opaque
-    object-free frame (K = 1) the envelope-culled path; anything else, or
+    object-free frame (K = 1) the envelope-culled path (its capture scan K4
+    on a CUDA device unless ``plain``); anything else, or
     ``cull=False``, the dense pixelwise path. The march of the object chunks
     and of the dense path goes through the march kernel on a CUDA device
     unless ``plain``. The image comes back to the host
@@ -1115,7 +1274,7 @@ def render_rectilinear(params: Params, terrain: Terrain, device,
         image, hits, rounds = fused_culled_core(
             pack, table, alt0,
             cam=(w, h, float(frame.fov), float(frame.tilt), float(frame.direction)),
-            emit=emit, **kw)
+            emit=emit, plain=plain, **kw)
         image = image.reshape(h, w, 3)
         hits = _frame_hits([hits], h, w)
     else:

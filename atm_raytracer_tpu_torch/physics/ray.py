@@ -19,10 +19,11 @@ nodes only. On CPU tensors both run the plain PyTorch path
 The per-pixel Rectilinear generator marches through the fused scans
 ``march_scan_light`` and ``march_scan``: Python loops over coarse windows
 that hand each window to a consumer, so the [..., N] altitude grid never
-exists. They run as PyTorch ops on any device: the culled tilted path's
-capture scan, and the plain version of the tilt-0 scan, which on the card
-is the kernel ``csrc/rect_scan.cu`` (K3, ``generators/rectilinear.py::
-tilt0_hits``); K2 and K3 share the RK4 step's device code
+exists. They run as PyTorch ops on any device: the plain versions of the
+tilt-0 scan and of the culled tilted path's capture scan, which on the
+card are the kernels ``csrc/rect_scan.cu`` (K3, ``generators/
+rectilinear.py::tilt0_hits``) and ``csrc/rect_culled.cu`` (K4,
+``culled_capture``); K2, K3 and K4 share the RK4 step's device code
 (``csrc/ray_device.cuh``).
 """
 

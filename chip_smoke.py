@@ -16,7 +16,7 @@ nothing of JAX. Phases, each printed as it ends; any failure exits non-zero
 before the result line:
 
 1. device   — the card's name, and its power limit from nvidia-smi;
-2. build    — the three CUDA kernels (K1, K2, K3) built from
+2. build    — the four CUDA kernels (K1, K2, K3, K4) built from
               ``atm_raytracer_tpu_torch/csrc``, one nvcc each, started
               together, with ptxas's registers, spills and shared memory;
 2b. terrain files — the headline's 45 tiles of 1201 posts as files: both
@@ -67,7 +67,8 @@ before the result line:
               scenes (their grids through K1, and K2 where the rays are
               refracted, counted) and the three
               golden Rectilinear scenes, plus the golden scene tilted onto
-              the Rectilinear culled path (1 degree, opaque) and its
+              the Rectilinear culled path (1 degree, opaque; its capture
+              scan through K4, one launch a round, counted) and its
               pixelwise path (-1 degree, translucent; its march goes
               through K2), and the objects golden with each generator (K1
               and K2 once each for Fast and Interpolating, K2 for the
@@ -110,10 +111,24 @@ before the result line:
               pixel-windows and their bound; at K = 1 each launch's live
               pixels, live warps, pixel-windows and kernel time),
               CUDA-event stage times; (c) at
-              tilt 1 degree through the culled path:
-              one timed render after a warm-up with its round count, and at
-              192x108 the culled keys equal to the dense path's (plain
-              march);
+              tilt 1 degree through the culled path, its capture scan K4:
+              K4 against ``culled_capture_plain`` at 192x108 for every one
+              of K3's l(h) forms, at skip 0 and M_CAND (count and blocks
+              equal on >= 99.99 % of pixels, death flags equal, the slot
+              states within rtol 1e-6 / atol 1e-3 m, slope 1e-6; the first
+              differing pixel printed); at 1920x1080 the frame counted (one
+              K4 launch a round), its median wall of 5 after a warm-up
+              beside one ``plain=True`` frame (images within the verify
+              tolerance, validity equal on >= 99.99 %, keys within 1e-3
+              where both hit), peak memory of both, device busy time, idle
+              share and the top records of a profiled render, its top
+              host-side ops; K4 at the headline's inputs against the plain
+              capture (the same contract), by CUDA events, alone by the
+              profiler, its host enqueue, the plain capture's time, the
+              pixel-windows marched and the bound; the stages of a round
+              (envelope, capture, exact test, ``ray_hits``, composite, image
+              to host) for ``plain=True`` and for K4; and at 192x108 the
+              culled keys equal to the dense path's (plain march);
 8. metadata — the headline's artifact, npz and reference ``.dat``: saved,
               loaded and re-composited on the card bit for bit, every field
               exact (the render counted through both kernels); the
@@ -172,7 +187,10 @@ before the result line:
 12. multi-device — the modes of ``parallel.mesh`` over ``[cuda:0,
               cuda:0]``: Fast and Interpolating at the 1080p headline,
               Rectilinear at 192x108 at tilt 0 and 1 degree, each equal to
-              its one-device render; ``dryrun_multichip(4, "cuda")``;
+              its one-device render, its launches counted; the tilted split
+              (the dense path: K2, no K4) beside the one-device culled
+              render (K4 a round, counted), hit masks equal;
+              ``dryrun_multichip(4, "cuda")``;
 13. transfer — (a) ``fetch_flat`` of the Fast headline image and of the
               sweep's frames against ``.cpu()`` and a reused pinned buffer,
               ``_pack_artifact``'s one batched fetch against nine per-field
@@ -196,8 +214,8 @@ pixels differ by more than 2 counts and at most 5 % differ at all.
 
 Output: the kernels line ``{"kernels": [...]}`` (``launches`` summed over
 the counted main-path renders — Fast, Fast from the tile files, the
-Rectilinear tilt-0 headline, Interpolating, the three object frames, the
-sweep and the banded Fast render — with the split in
+Rectilinear tilt-0 and tilt-1 headlines, Interpolating, the three object
+frames, the sweep and the banded Fast render — with the split in
 ``launches_by_path``; each
 kernel's numbers at the Interpolating grid and at the sweep's shapes in
 ``at_interpolating_grid`` and ``at_sweep``) and, last, the result line
@@ -1026,7 +1044,7 @@ def rect_golden_configs():
 
 
 # the launches of one Fast or Interpolating frame (or a sweep): K1 and K2 once
-FAST_LAUNCHES = {"combine.cu": 1, "march.cu": 1, "rect_scan.cu": 0}
+FAST_LAUNCHES = {"combine.cu": 1, "march.cu": 1, "rect_scan.cu": 0, "rect_culled.cu": 0}
 
 
 def kernel_launches():
@@ -1093,6 +1111,9 @@ def phase_goldens(dev):
             want = k3_launches(params)
             check(launches["rect_scan.cu"] == want,
                   f"{name}: {launches['rect_scan.cu']} K3 launches, not {want}")
+        want = gpu.culled_rounds if "culled" in name else 0
+        check(launches["rect_culled.cu"] == want and (want > 0) == ("culled" in name),
+              f"{name}: {launches['rect_culled.cu']} K4 launches, not one a round ({want})")
         say(f"[goldens] {name}: cuda vs cpu plain any={fa:.4f} big={fb:.4f} "
             f"max={mx} (culled rounds {gpu.culled_rounds}, launches {launches})")
     renders = {"Fast": render_fast, "Rectilinear": render_rectilinear,
@@ -1569,6 +1590,8 @@ def phase_headline(dev, params, terrain, renders=20):
 
 
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+# spin kernels that open every profiler trace, ahead of the records it keeps
+TRACE_SPACER = 256
 
 
 def busy_us(spans) -> float:
@@ -1686,23 +1709,38 @@ def trace_busy_ms(fn, name: str):
     return busy_us(spans) / 1e3, len(events), by_name
 
 
-def trace_events(fn, name: str):
+def trace_events(fn, name: str, tries: int = 3):
     """The device records (kernels, copies, memsets) of a torch.profiler
-    trace of one ``fn()``; the trace file is parsed and deleted."""
+    trace of one ``fn()``; the trace file is parsed and deleted. On the card
+    a trace loses a prefix of its device records: one more every few
+    traces a process takes, and now and then a few hundred. So the trace
+    opens with TRACE_SPACER spin kernels, whose
+    records are dropped; a trace that kept none of them may have lost some
+    of ``fn``'s, and is taken again, up to ``tries`` times."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     trace = out_dir / f"{name}_trace.json"
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
+    for attempt in range(tries):
         torch.cuda.synchronize()
-    prof.export_chrome_trace(str(trace))
-    events = [e for e in json.loads(trace.read_text())["traceEvents"]
-              if e.get("ph") == "X" and e.get("cat") in DEVICE_CATS]
-    trace.unlink()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(TRACE_SPACER):
+                torch.cuda._sleep(1)
+            fn()
+            torch.cuda.synchronize()
+        prof.export_chrome_trace(str(trace))
+        events = [e for e in json.loads(trace.read_text())["traceEvents"]
+                  if e.get("ph") == "X" and e.get("cat") in DEVICE_CATS]
+        trace.unlink()
+        spacer = sum("spin_kernel" in e["name"] for e in events)
+        if spacer:
+            break
+        say(f"[profile] trace {name} (try {attempt + 1} of {tries}) kept none of its "
+            f"{TRACE_SPACER} spacer records: taken again")
+    check(spacer > 0, f"the profiler lost every spacer record of {tries} traces ({name})")
+    events = [e for e in events if "spin_kernel" not in e["name"]]
     check(bool(events), f"the profiler recorded no device activity ({name})")
     return events
 
@@ -1806,7 +1844,8 @@ def phase_rect_headline(dev, params, terrain, renders=5):
     result = rect.render_rectilinear(params, terrain, dev)
     torch.cuda.synchronize()
     launches = kernel_launches()
-    want = {"combine.cu": 0, "march.cu": 0, "rect_scan.cu": k3_launches(params)}
+    want = {"combine.cu": 0, "march.cu": 0, "rect_scan.cu": k3_launches(params),
+            "rect_culled.cu": 0}
     check(launches == want, f"rectilinear headline: launches {launches}, not {want}")
     say(f"[rectilinear] first render {time.perf_counter() - t0:.3f} s; kernel "
         f"launches {launches} (K3: one a progress stride)")
@@ -1992,29 +2031,325 @@ def phase_rect_headline(dev, params, terrain, renders=5):
     return k3, launches
 
 
-def phase_rect_culled(dev, terrain):
-    """(c): the tilt-1 headline through the culled path."""
+# operations of a window marched by csrc/rect_culled.cu, counted from the
+# source as k3_ops counts: the RK4 step 209, the two slopes times dx 2, 17
+# Hermite samples of 7 (119), 16 chords of 10 (160), the 16 adds that carry
+# them onto the path length (the kernel sums them in double and rounds once:
+# its own choice, not counted), the min and max of the samples and the
+# block's range 34, 17 NaN and 16 death tests 33
+K4_WINDOW = 209 + 2 + 119 + 160 + 16 + 34 + 33
+# a block's envelope test (two loads' compares, the NaN and n_seg tests) and
+# its slot bookkeeping
+K4_BLOCK = 8
+
+
+def k4_ops(windows: int, blocks: int) -> int:
+    """Operations of csrc/rect_culled.cu for ``windows`` pixel-windows
+    marched in ``blocks`` pixel-blocks (sphere, Chebyshev l(h))."""
+    return windows * K4_WINDOW + blocks * K4_BLOCK
+
+
+def k4_bound(n_pix: int, env_hi, coarse: int, windows):
+    """K4's bound on this run's data: v0 and the pixels' envelope rows read
+    once, the envelope [A-1, nb] twice, the count and the M_CAND slots (three
+    floats, a flag and a block) written once, the Hermite basis; the
+    operations of ``k4_ops`` for the windows each pixel marched (``windows``,
+    K4's count of them) and their blocks."""
+    from atm_raytracer_tpu_torch.generators import rectilinear as rect
+
+    n_windows = int(windows.sum())
+    n_blocks = int(((windows + rect.BLOCK_WINDOWS - 1) // rect.BLOCK_WINDOWS).sum())
+    n_bytes = (3 * 4 * n_pix + 2 * 4 * env_hi.numel() + 17 * n_pix * rect.M_CAND
+               + 16 * (coarse + 1))
+    n_ops = k4_ops(n_windows, n_blocks)
+    return (*bound(n_bytes, n_ops), n_bytes, n_ops, n_windows)
+
+
+def k4_check(tag, got, want, nb):
+    """K4's contract against ``culled_capture_plain`` on the same inputs:
+    count and blocks equal on >= 99.99 % of pixels; there, the death flags
+    equal and the captured states within rtol 1e-6 / atol 1e-3 m (slope
+    rtol 1e-6 / atol 1e-6). Prints the worst slot and the first pixel that
+    differs; returns the largest |dh| of a captured altitude (m)."""
     import torch
 
-    from atm_raytracer_tpu_torch.generators.rectilinear import render_rectilinear
+    cnt, s_h, s_v, s_p, s_d, s_b = got[:6]
+    cnt_p, s_h_p, s_v_p, s_p_p, s_d_p, s_b_p = want
+    n_pix = cnt.numel()
+    same = (cnt == cnt_p) & (s_b == s_b_p).all(-1)
+    n_diff = int((~same).sum())
+    flags = int((s_d != s_d_p)[same].sum())
+    held = same[:, None] & (s_b < nb)
+    worst = {}  # name: (largest |d|, where, K4's value, plain's, largest excess)
+    for name, a, b, atol in (("h", s_h, s_h_p, 1e-3), ("v", s_v, s_v_p, 1e-6),
+                             ("p", s_p, s_p_p, 1e-3)):
+        d = torch.where(held, (a - b).abs(), 0.0)
+        over = torch.where(held, d - (atol + 1e-6 * b.abs()), -1.0)
+        j = int(d.argmax())
+        worst[name] = (float(d.reshape(-1)[j]), divmod(j, a.shape[1]),
+                       float(a.reshape(-1)[j]), float(b.reshape(-1)[j]), float(over.max()))
+    w_p = worst["p"]
+    say(f"[rectilinear] K4 {tag}: count and blocks differ on {n_diff} of {n_pix} pixels; "
+        f"{int(cnt_p.sum())} candidates (plain {int(cnt.sum())} K4), {int(held.sum())} "
+        f"slots held in both, death flags differ on {flags}; max |dh| "
+        f"{worst['h'][0]:.3g} m, |dv| {worst['v'][0]:.3g}, |dp| {w_p[0]:.3g} m at (pixel, "
+        f"slot) {w_p[1]}: K4 {w_p[2]:.4f} m, plain {w_p[3]:.4f} m")
+    if n_diff:
+        i = int(torch.nonzero(~same)[0])
+        say(f"[rectilinear] K4 {tag}: first differing pixel {i}: K4 count {int(cnt[i])} "
+            f"blocks {s_b[i].tolist()}, plain count {int(cnt_p[i])} blocks "
+            f"{s_b_p[i].tolist()}")
+    check(n_diff <= 1e-4 * n_pix, f"K4 {tag}: count or blocks differ on {n_diff} of "
+          f"{n_pix} pixels")
+    check(flags == 0, f"K4 {tag}: death flags differ on {flags} slots")
+    for name, w in worst.items():
+        check(w[4] <= 0.0, f"K4 {tag}: a captured {name} is out of tolerance (largest "
+              f"|d| {w[0]} at {w[1]}: K4 {w[2]}, plain {w[3]})")
+    return worst["h"][0]
+
+
+def cuda_once(fn):
+    """(``fn()``, its device milliseconds by CUDA events), one run."""
+    import torch
+
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def culled_inputs(dev, terrain, params):
+    """The tilted frame's capture inputs on ``dev``, as ``fused_culled_core``
+    builds them: (pack, CulledInputs, alt0, table, the scan's keywords)."""
+    from atm_raytracer_tpu_torch.generators import rectilinear as rect
+
+    out, frame = params.output, params.view.frame
+    alt0 = float(params.view.position.abs_altitude(terrain))
+    n_terr = int(math.ceil(frame.max_distance / params.simulation_step))
+    step = float(params.simulation_step)
+    blocks = rect.culled_blocks(n_terr, step)
+    pack = terrain.pack(*rect.terrain_bbox(params), dev)
+    inp = rect.culled_envelope(
+        pack, cam=(out.width, out.height, float(frame.fov), float(frame.tilt),
+                   float(frame.direction)),
+        model=params.model, step=step, blocks=blocks, lat0=LAT0, lon0=LON0)
+    kw = dict(step=step, blocks=blocks)
+    return pack, inp, alt0, rect.build_refraction_table(params, alt0, dev), kw
+
+
+def culled_stages(dev, terrain, params, plain_capture_ms, k4_ms):
+    """The stages of one round of the tilted frame, CUDA-event means: the
+    envelope, the capture (plain and K4, measured by the caller), the exact
+    test in its EXACT_TEST_ELEMS chunks, ``ray_hits``, composite and the image
+    to the host. Prints the breakdown of the plain path (``plain=True``) and
+    of K4's."""
+    import torch
+
+    from atm_raytracer_tpu_torch.generators import rectilinear as rect
+    from atm_raytracer_tpu_torch.generators.base import fetch_flat
+
+    out, frame = params.output, params.view.frame
+    pack, inp, alt0, table, kw = culled_inputs(dev, terrain, params)
+    scan_kw = dict(shape=params.model.to_shape(), table=table, straight=False, **kw)
+    cnt, *slots = rect.culled_capture(inp.elev, alt0, inp.env_hi, inp.env_lo, inp.j_px,
+                                      skip=0, **scan_kw)
+    p_n = inp.elev.shape[0]
+    key = torch.full((p_n, 1), float("inf"), device=dev)
+    plh = torch.zeros_like(key)
+    test_kw = dict(model=params.model, lat0=LAT0, lon0=LON0, **scan_kw)
+    rect.culled_test_round(pack, slots, inp.az_px, key, plh, **test_kw)
+
+    def exact():
+        k, p = torch.full_like(key, float("inf")), torch.zeros_like(plh)
+        rect.culled_test_round(pack, slots, inp.az_px, k, p, **test_kw)
+
+    hit_kw = dict(lat0=LAT0, lon0=LON0, step=kw["step"],
+                  terrain_alpha=float(params.terrain_alpha))
+    hits = rect.ray_hits(pack, params.model, inp.az_px[:, None], key, plh, **hit_kw)
+    image = rect._composite_hits(params.coloring, params.view.fog_distance, hits)
+    t = {
+        "envelope": cuda_ms(lambda: rect.culled_envelope(
+            pack, cam=(out.width, out.height, float(frame.fov), float(frame.tilt),
+                       float(frame.direction)), model=params.model, step=kw["step"],
+            blocks=kw["blocks"], lat0=LAT0, lon0=LON0), 3),
+        "capture": None,
+        "exact test": cuda_ms(exact, 2),
+        "ray_hits": cuda_ms(lambda: rect.ray_hits(
+            pack, params.model, inp.az_px[:, None], key, plh, **hit_kw), 3),
+        "composite": cuda_ms(lambda: rect._composite_hits(
+            params.coloring, params.view.fog_distance, hits), 3),
+        "image to host": cuda_ms(lambda: fetch_flat(image), 3),
+    }
+    chunk = max(1, rect.EXACT_TEST_ELEMS // (rect.M_CAND * (kw["blocks"].b_len + 1)))
+    n_chunks = -(-p_n // chunk)
+    out_t = {}
+    for path, capture_ms in (("plain=True", plain_capture_ms), ("K4", k4_ms)):
+        stages = dict(t, capture=capture_ms)
+        total = sum(stages.values())
+        say(f"[rectilinear] tilt-1 stages of one round, {path} (CUDA events; the exact "
+            f"test in {n_chunks} chunks): " + ", ".join(f"{name} {ms:.3f} ms ({100.0 * ms / total:.1f} %)"
+                                     for name, ms in stages.items())
+            + f"; sum {total:.3f} ms")
+        out_t[path] = stages
+    return out_t
+
+
+def phase_rect_culled(dev, terrain, renders=5):
+    """(c): the tilt-1 headline through the culled path, its capture scan
+    K4: the frame counted (one K4 launch a round), timed and held to one
+    ``plain=True`` frame; K4 against ``culled_capture_plain`` at 192x108 for
+    every one of K3_FORMS and at the headline, timed beside the plain
+    capture and its bound; the stages of a round before and after. Returns
+    K4's numbers for the kernels line and the launches of the counted
+    render."""
+    import numpy as np
+    import torch
+
+    from atm_raytracer_tpu_torch import _kernels
+    from atm_raytracer_tpu_torch.generators import rectilinear as rect
+
+    # K4 alone at 192x108, every l(h) form and shape, at skip 0 and M_CAND
+    small = headline_params(192, 108, tilt=1.0)
+    _, inp, alt0, table, kw = culled_inputs(dev, terrain, small)
+    nb = kw["blocks"].nb
+    for form in K3_FORMS:
+        fkw = k3_form(form, table, small, alt0)
+        for skip in (0, rect.M_CAND):
+            args = (inp.elev, alt0, inp.env_hi, inp.env_lo, inp.j_px)
+            before = _kernels.RECT_CULLED.launches
+            got = rect.culled_capture_cuda(*args, skip=skip, **fkw, **kw)
+            check(_kernels.RECT_CULLED.launches == before + 1, "K4: not one launch a call")
+            want = rect.culled_capture_plain(*args, skip=skip, **fkw, **kw)
+            torch.cuda.synchronize()
+            k4_check(f"192x108 tilt 1 {form} skip {skip}", got, want, nb)
 
     params = headline_params(tilt=1.0)
+    out = params.output
+    n_terr = int(math.ceil(params.view.frame.max_distance / params.simulation_step))
+
+    def render(**kw):
+        return rect.render_rectilinear(params, terrain, dev, **kw)
+
+    # the tilted Rectilinear main path, counted; this first render is the warm-up
+    reset_launches()
     t0 = time.perf_counter()
-    warm = render_rectilinear(params, terrain, dev)
+    warm = render()
     torch.cuda.synchronize()
     first = time.perf_counter() - t0
+    launches = kernel_launches()
+    want_l = {"combine.cu": 0, "march.cu": 0, "rect_scan.cu": 0,
+              "rect_culled.cu": warm.culled_rounds}
+    check(launches == want_l, f"tilted headline: launches {launches}, not {want_l}")
+    valid = warm.hits.valid.cpu().numpy()
+    keys = warm.hits.key.cpu().numpy()
+    frac_hit = float(valid.mean())
+    check(warm.image.shape == (out.height, out.width, 3), f"image shape {warm.image.shape}")
+    check(np.isfinite(keys[valid]).all() and bool((keys[valid] < n_terr).all()),
+          "tilted headline: a valid hit with a non-finite key or a key past the march")
+    check(0.05 < frac_hit < 0.95, f"culled headline: implausible hit fraction {frac_hit}")
+    say(f"[rectilinear] headline tilt 1 (culled): first render {first * 1e3:.3f} ms, "
+        f"{warm.culled_rounds} rounds, hit fraction {frac_hit:.4f}; kernel launches "
+        f"{launches} (K4: one a round)")
+
+    walls = []
+    for _ in range(renders):
+        t0 = time.perf_counter()
+        result = render()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    med = statistics.median(walls)
+    check(torch.equal(result.hits.key, warm.hits.key), "culled path: two renders differ")
+    say(f"[rectilinear] tilt-1 frame wall over {renders} renders after the warm-up: "
+        f"median {med * 1e3:.3f} ms (min {min(walls) * 1e3:.3f}, max "
+        f"{max(walls) * 1e3:.3f}; all {', '.join(f'{w * 1e3:.3f}' for w in walls)})")
+
+    # the plain path on the card, once: its wall and peak beside K4's, the same frame
+    before = kernel_launches()
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
-    result = render_rectilinear(params, terrain, dev)
+    plain = render(plain=True)
     torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    check(torch.equal(result.hits.key, warm.hits.key), "culled path: two renders differ")
-    frac_hit = float(result.hits.valid.double().mean())
-    check(0.05 < frac_hit < 0.95, f"culled headline: implausible hit fraction {frac_hit}")
-    say(f"[rectilinear] headline tilt 1 (culled): wall {wall * 1e3:.3f} ms after a "
-        f"{first * 1e3:.3f} ms warm-up, {result.culled_rounds} rounds, hit fraction "
-        f"{frac_hit:.4f}, peak device memory "
-        f"{torch.cuda.max_memory_allocated(dev) / 2**20:.1f} MiB")
+    plain_wall = time.perf_counter() - t0
+    plain_peak = torch.cuda.max_memory_allocated(dev) / 2**20
+    check(kernel_launches() == before, "plain=True launched a kernel")
+    ok, fa, fb, mx = image_tolerance(result.image, plain.image)
+    v_k, v_p = result.hits.valid[..., 0], plain.hits.valid[..., 0]
+    vdiff = int((v_k != v_p).sum())
+    both = v_k & v_p
+    dk = float((result.hits.key[..., 0][both] - plain.hits.key[..., 0][both]).abs().max())
+    check(ok, f"tilted headline K4 vs plain=True: any={fa} big={fb} out of tolerance")
+    check(vdiff <= 1e-4 * v_k.numel() and dk <= 1e-3,
+          f"tilted headline K4 vs plain=True: validity differs on {vdiff} pixels, max "
+          f"|dkey| {dk}")
+    say(f"[rectilinear] tilt 1 plain=True on the card: wall {plain_wall * 1e3:.3f} ms "
+        f"({plain.culled_rounds} rounds) against the K4 median {med * 1e3:.3f} ms; images "
+        f"any={fa:.5f} big={fb:.5f} max={mx}; validity differs on {vdiff} of "
+        f"{v_k.numel()} pixels, max |dkey| {dk:.3g}; peak device memory {plain_peak:.1f} MiB")
+    del plain
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    render()
+    peak = torch.cuda.max_memory_allocated(dev) / 2**20
+    say(f"[rectilinear] tilt-1 peak device memory of one render through K4: {peak:.1f} MiB "
+        f"(plain=True {plain_peak:.1f} MiB)")
+    busy_ms, n_rec, by_name = trace_busy_ms(render, "rect_tilted")
+    say(f"[rectilinear] tilt 1: device busy {busy_ms:.3f} ms of one profiled render "
+        f"({n_rec} device records); idle share of the {med * 1e3:.3f} ms median frame "
+        f"wall: {1.0 - busy_ms / (med * 1e3):.4f}")
+    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]:
+        say(f"[rectilinear]   {ms:9.3f} ms  {name[:90]}")
+    host_top_ops(render, "rectilinear tilted")
+
+    # K4 at the headline's inputs, beside the plain capture and its bound
+    _, inp, alt0, table, kw = culled_inputs(dev, terrain, params)
+    blocks = kw["blocks"]
+    scan_kw = dict(shape=params.model.to_shape(), table=table, straight=False, skip=0, **kw)
+    args = (inp.elev, alt0, inp.env_hi, inp.env_lo, inp.j_px)
+    got = rect.culled_capture_cuda(*args, count_windows=True, **scan_kw)
+    want, plain_ms = cuda_once(lambda: rect.culled_capture_plain(*args, **scan_kw))
+    err = k4_check(f"{out.width}x{out.height} headline tilt 1", got, want, blocks.nb)
+    del want
+    windows = got[6]
+    k4_ms = cuda_ms(lambda: rect.culled_capture(*args, **scan_kw), 5)
+    before = _kernels.RECT_CULLED.launches
+    events = [e for e in trace_events(lambda: [rect.culled_capture(*args, **scan_kw)
+                                               for _ in range(5)], "k4")
+              if "rect_culled_kernel" in e["name"]]
+    traced = _kernels.RECT_CULLED.launches - before
+    check(traced == 5 and len(events) == traced, f"K4: {len(events)} kernel records in "
+          f"the trace of 5 captures ({traced} launches)")
+    device_ms = sum(float(e["dur"]) for e in events) / 5e3
+    enqueue = enqueue_ms(lambda: rect.culled_capture(*args, **scan_kw))
+    bound_ms, bound_by, n_bytes, n_ops, n_windows = k4_bound(
+        inp.elev.shape[0], inp.env_hi, blocks.coarse, windows)
+    n_coarse = blocks.n_march // blocks.coarse
+    plain_windows = inp.elev.shape[0] * n_coarse
+    plain_bound_ms, _ = bound(n_bytes, k4_ops(plain_windows, inp.elev.shape[0] * blocks.nb))
+    stopped = int((windows < n_coarse).sum())
+    say(f"[rectilinear] K4 (culled_capture: 1 launch a round) {k4_ms:.4f} ms by CUDA "
+        f"events, kernel alone {device_ms:.4f} ms (profiler, mean of 5), host enqueue "
+        f"{enqueue:.4f} ms (median of 10); plain capture {plain_ms:.3f} ms; {n_windows} "
+        f"pixel-windows marched of the plain capture's {plain_windows} ({stopped} pixels "
+        f"stopped dead at a block's start); bound {bound_ms:.4f} ms by {bound_by} "
+        f"({n_bytes} B, {n_ops} float32 operations): {100.0 * bound_ms / k4_ms:.2f} % of "
+        f"the bound; the plain capture's pixel-windows would bound it at "
+        f"{plain_bound_ms:.4f} ms")
+    stages = culled_stages(dev, terrain, params, plain_ms, k4_ms)
+    k4 = {"name": "K4 rect_culled", "route": "cuda",
+          "source": "atm_raytracer_tpu_torch/csrc/rect_culled.cu",
+          "replaces": "atm_raytracer_tpu/generators/rectilinear.py:699",
+          "max_abs_err": err, "ms": k4_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+          "bound_by": bound_by, "library_ms": None, "device_ms": device_ms,
+          "enqueue_ms": enqueue, "pixel_windows": n_windows,
+          "plain_pixel_windows": plain_windows, "plain_bound_ms": plain_bound_ms,
+          "frame_wall_ms": med * 1e3, "plain_frame_wall_ms": plain_wall * 1e3,
+          "rounds": warm.culled_rounds, "peak_mib": peak, "plain_peak_mib": plain_peak,
+          "busy_ms": busy_ms, "device_records": n_rec, "stages_ms": stages}
+    return k4, launches
 
 
 def hits_equal_on_valid(got, want, fields) -> None:
@@ -2983,17 +3318,37 @@ def phase_multi_device(dev, terrain, params, small=(192, 108), small_distance=20
          lambda p, t, d: render_rectilinear(p, t, d, cull=False), small_params[1.0]),
     ]
     for name, split, single, p in cases:
+        reset_launches()
         t0 = time.perf_counter()
         got = split(p, terrain, two)
         torch.cuda.synchronize()
         took = time.perf_counter() - t0
+        launches = kernel_launches()
         want = single(p, terrain, dev)
         moved = int((got.image != want.image).any(-1).sum())
         check(moved == 0 and torch.equal(got.hits.valid, want.hits.valid)
               and torch.equal(got.hits.key, want.hits.key),
               f"{name} over [{dev}, {dev}]: {moved} pixels moved vs one device, or hits differ")
         say(f"[multi-device] {name} over [{dev}, {dev}]: equal to the one-device render "
-            f"(image, hit mask, keys; {int(got.hits.valid.sum())} hits) in {took:.3f} s")
+            f"(image, hit mask, keys; {int(got.hits.valid.sum())} hits) in {took:.3f} s; "
+            f"launches {launches}")
+        if "pixels split" in name:
+            # the split takes the dense path (K2, never K4); the one-device
+            # frame's default path is the culled one, its capture K4
+            check(launches["rect_culled.cu"] == 0 and launches["march.cu"] > 0,
+                  f"{name}: launches {launches}")
+            reset_launches()
+            culled = render_rectilinear(p, terrain, dev)
+            torch.cuda.synchronize()
+            k4 = kernel_launches()["rect_culled.cu"]
+            v = culled.hits.valid
+            dk = float((culled.hits.key[v] - got.hits.key[v]).abs().max()) if v.any() else 0.0
+            check(k4 == culled.culled_rounds and torch.equal(v, got.hits.valid)
+                  and dk <= 1e-3, f"{name}: the one-device culled render ({k4} K4 launches, "
+                  f"{culled.culled_rounds} rounds) against the split: masks equal "
+                  f"{torch.equal(v, got.hits.valid)}, max |dkey| {dk}")
+            say(f"[multi-device] {name}: the one-device culled render through K4 ({k4} "
+                f"launches, one a round) has the split's hit mask, max |dkey| {dk:.3g}")
     del got, want
     M.dryrun_multichip(4, dev)  # prints its line
     say(f"[multi-device] phase wall {time.perf_counter() - t_phase:.1f} s")
@@ -3195,7 +3550,8 @@ def phase_transfer(dev, terrain, params):
             fast._stream_bands = real_bands
         torch.cuda.synchronize()
         counted = kernel_launches()
-        check(counted == {"combine.cu": 8, "march.cu": 1, "rect_scan.cu": 0},
+        check(counted == {"combine.cu": 8, "march.cu": 1, "rect_scan.cu": 0,
+                          "rect_culled.cu": 0},
               f"streamed (compact={compact}): launches {counted}, want 8 K1 and 1 K2")
         check(lines == [12, 25, 38, 50, 62, 75, 88, 100],
               f"streamed (compact={compact}): progress {lines}")
@@ -3378,7 +3734,8 @@ def main(argv) -> int:
         phase_rect_small(dev, terrain)
         k3, rect_launches = phase_rect_headline(dev, params, terrain)
         kernels.append(k3)
-        phase_rect_culled(dev, terrain)
+        k4, tilted_launches = phase_rect_culled(dev, terrain)
+        kernels.append(k4)
         phase_metadata(dev, terrain)
         interp_launches, at_grid = phase_interpolating(dev, terrain)
         obj_launches = phase_objects(dev, terrain)
@@ -3390,6 +3747,7 @@ def main(argv) -> int:
             k["launches_by_path"] = {"fast": fast_launches[src],
                                      "fast_from_files": files_launches[src],
                                      "rectilinear": rect_launches[src],
+                                     "rectilinear_tilted": tilted_launches[src],
                                      "interpolating": interp_launches[src],
                                      **{path: n[src] for path, n in obj_launches.items()},
                                      "sweep": sweep_launches[src],

@@ -209,9 +209,10 @@ def _hills(n=121):
 
 
 def _fast_launches():
-    """The launches of K1, K2 and K3 so far: a Fast frame adds one each to
-    K1 and K2 and none to K3."""
-    return [_kernels.COMBINE.launches, _kernels.MARCH.launches, _kernels.RECT_SCAN.launches]
+    """The launches of K1, K2, K3 and K4 so far: a Fast frame adds one each
+    to K1 and K2 and none to K3 or K4."""
+    return [_kernels.COMBINE.launches, _kernels.MARCH.launches, _kernels.RECT_SCAN.launches,
+            _kernels.RECT_CULLED.launches]
 
 
 @pytest.mark.parametrize("alpha", [1.0, 0.65])
@@ -268,7 +269,7 @@ def test_pack_from_files_on_card(cuda_device, tmp_path):
     assert _fast_launches() == [b + 1 for b in before[:2]] + before[2:]
 
 
-def _rect_scene(tilt=0.0, alpha=1.0):
+def _rect_scene(tilt=0.0, alpha=1.0, size=(96, 64)):
     terrain = Terrain()
     terrain.add_tile(Tile(49, 21, _hills()))
     params = Config.from_dict({
@@ -278,7 +279,7 @@ def _rect_scene(tilt=0.0, alpha=1.0):
                            "tilt": tilt}},
         "scene": {"terrain_alpha": alpha},
         "simulation_step": 100.0,
-        "output": {"width": 96, "height": 64},
+        "output": {"width": size[0], "height": size[1]},
     }).into_params(terrain)
     return terrain, params
 
@@ -309,8 +310,10 @@ def test_rectilinear_tilt0_on_card_matches_cpu(alpha, cuda_device):
 
 def test_rectilinear_culled_on_card(cuda_device):
     terrain, params = _rect_scene(tilt=1.5)
+    before = _kernels.RECT_CULLED.launches
     culled = render_rectilinear(params, terrain, cuda_device)
     assert culled.culled_rounds >= 1
+    assert _kernels.RECT_CULLED.launches == before + culled.culled_rounds  # K4 a round
     cpu = render_rectilinear(params, terrain, "cpu")
     ok, frac_any, frac_big = verify_tolerance(culled.image, cpu.image)
     assert ok, (frac_any, frac_big)
@@ -833,9 +836,89 @@ def test_rectilinear_tilt0_scans_through_the_kernel(alpha, cuda_device):
     before = _fast_launches()
     gpu = render_rectilinear(params, terrain, cuda_device)
     n_coarse = -(-(250 - 1) // 8)  # 25 km in 100 m steps, windows of 8
-    assert _fast_launches() == before[:2] + [before[2] + len(rect.scan_launches(n_coarse))]
+    assert _fast_launches() == (before[:2] + [before[2] + len(rect.scan_launches(n_coarse))]
+                                + before[3:])
     plain = render_rectilinear(params, terrain, cuda_device, plain=True)
     assert _fast_launches()[2] == before[2] + len(rect.scan_launches(n_coarse))
+    ok, frac_any, frac_big = verify_tolerance(gpu.image, plain.image)
+    assert ok, (frac_any, frac_big)
+    _first_hits_close(gpu, plain, 1e-3)
+
+
+def _culled_inputs(device, terrain, params):
+    """The tilted frame's capture inputs on ``device``, as
+    ``fused_culled_core`` builds them: (CulledInputs, alt0, table, the scan
+    keywords), the l(h) form and shape left to the caller."""
+    from atm_raytracer_tpu_torch.generators import rectilinear as rect
+
+    out, frame = params.output, params.view.frame
+    alt0 = float(params.view.position.abs_altitude(terrain))
+    n_terr = int(np.ceil(frame.max_distance / params.simulation_step))
+    step = float(params.simulation_step)
+    blocks = rect.culled_blocks(n_terr, step)
+    inp = rect.culled_envelope(
+        terrain.pack(*rect.terrain_bbox(params), device),
+        cam=(out.width, out.height, float(frame.fov), float(frame.tilt),
+             float(frame.direction)),
+        model=params.model, step=step, blocks=blocks, lat0=49.5, lon0=21.5)
+    kw = dict(step=step, blocks=blocks)
+    return inp, alt0, rect.build_refraction_table(params, alt0, device), kw
+
+
+def _k4_contract(got, want, nb):
+    """chip_smoke's K4 contract: count and blocks equal on >= 99.99 % of
+    pixels, and there the death flags equal and the captured states within
+    rtol 1e-6 / atol 1e-3 m (slope 1e-6)."""
+    cnt, s_h, s_v, s_p, s_d, s_b = got[:6]
+    cnt_p, s_h_p, s_v_p, s_p_p, s_d_p, s_b_p = want
+    same = (cnt == cnt_p) & (s_b == s_b_p).all(-1)
+    assert int((~same).sum()) <= 1e-4 * cnt.numel()
+    assert torch.equal(s_d[same], s_d_p[same])
+    held = same[:, None] & (s_b < nb)
+    assert held.any()
+    for a, b, atol in ((s_h, s_h_p, 1e-3), (s_v, s_v_p, 1e-6), (s_p, s_p_p, 1e-3)):
+        assert torch.allclose(a[held], b[held], rtol=1e-6, atol=atol)
+
+
+@pytest.mark.parametrize("tilt", [1.0, 2.0])
+@pytest.mark.parametrize("form", K3_FORMS)
+def test_rect_culled_kernel_matches_plain(form, tilt, cuda_device):
+    """K4 against ``culled_capture_plain`` on the same inputs at 192x108, one
+    launch a call, at skip 0 and M_CAND; each pixel marched every window or
+    stopped at a block's start; counting the windows changes no output."""
+    from atm_raytracer_tpu_torch.generators import rectilinear as rect
+
+    terrain, params = _rect_scene(tilt=tilt, size=(192, 108))
+    inp, alt0, table, kw = _culled_inputs(cuda_device, terrain, params)
+    fkw = _k3_form(form, table)
+    blocks = kw["blocks"]
+    args = (inp.elev, alt0, inp.env_hi, inp.env_lo, inp.j_px)
+    for skip in (0, rect.M_CAND):
+        before = _kernels.RECT_CULLED.launches
+        got = rect.culled_capture_cuda(*args, skip=skip, count_windows=True, **fkw, **kw)
+        assert _kernels.RECT_CULLED.launches == before + 1
+        want = rect.culled_capture_plain(*args, skip=skip, **fkw, **kw)
+        torch.cuda.synchronize()
+        _k4_contract(got, want, blocks.nb)
+        plain_out = rect.culled_capture(*args, skip=skip, **fkw, **kw)
+        assert all(torch.equal(a, b) for a, b in zip(plain_out, got[:6]))
+        windows = got[6]
+        n_coarse = blocks.n_march // blocks.coarse
+        assert bool(((windows == n_coarse) | (windows % rect.BLOCK_WINDOWS == 0)).all())
+        assert bool((windows <= n_coarse).all()) and bool((windows == n_coarse).any())
+
+
+@pytest.mark.parametrize("tilt", [1.0, 2.0])
+def test_rectilinear_culled_captures_through_the_kernel(tilt, cuda_device):
+    """The golden view tilted: its capture is K4 on the card (one launch a
+    round, counted), and ``plain=True`` renders the same image through the
+    plain capture."""
+    terrain, params = _rect_scene(tilt=tilt, size=(64, 48))
+    before = _fast_launches()
+    gpu = render_rectilinear(params, terrain, cuda_device)
+    assert _fast_launches() == before[:3] + [before[3] + gpu.culled_rounds]
+    plain = render_rectilinear(params, terrain, cuda_device, plain=True)
+    assert _fast_launches() == before[:3] + [before[3] + gpu.culled_rounds]
     ok, frac_any, frac_big = verify_tolerance(gpu.image, plain.image)
     assert ok, (frac_any, frac_big)
     _first_hits_close(gpu, plain, 1e-3)

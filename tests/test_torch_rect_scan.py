@@ -10,7 +10,8 @@ through their PyTorch mirrors (``scan_rules``, ``rule_exit``,
 ``rule_hull_clear``, ``tilt0_hits_ruled``; the hull's property test is in
 test_torch_rect_hull.py), the launch stride and its
 progress lines, the launcher's arguments against the C signature in
-``rect_scan.cu``, and the rebuild of a library when a header it includes
+``rect_scan.cu``, every kernel's argtypes (K4's too) against its entry point
+in ``csrc/``, and the rebuild of a library when a header it includes
 changes.
 """
 
@@ -334,7 +335,7 @@ C_TYPES = {"const void*": ctypes.c_void_p, "void*": ctypes.c_void_p,
            "int": ctypes.c_int, "float": ctypes.c_float}
 
 
-@pytest.mark.parametrize("kernel", ["RECT_SCAN", "MARCH", "COMBINE"])
+@pytest.mark.parametrize("kernel", ["RECT_SCAN", "MARCH", "COMBINE", "RECT_CULLED"])
 def test_argtypes_match_the_c_signature(kernel):
     """Each kernel's ctypes argtypes are its entry point's parameters, as the
     source declares them: a binding slip shows here, not on the card."""
@@ -408,11 +409,11 @@ def test_fused_shared_core_passes_plain(scenes, monkeypatch):
     assert np.array_equal(a.image, b.image) and torch.equal(a.hits.key, b.hits.key)
 
 
-@pytest.mark.parametrize("kernel", ["MARCH", "RECT_SCAN", "COMBINE"])
+@pytest.mark.parametrize("kernel", ["MARCH", "RECT_SCAN", "COMBINE", "RECT_CULLED"])
 def test_library_name_follows_the_header(kernel, tmp_path, monkeypatch):
     """A library's name hashes the csrc headers its source includes, so an
-    edit of ray_device.cuh rebuilds K2 and K3 (and leaves K1, which does
-    not include it, alone)."""
+    edit of ray_device.cuh rebuilds K2, K3 and K4 (and leaves K1, which
+    does not include it, alone)."""
     for f in _kernels.CSRC.iterdir():
         (tmp_path / f.name).write_bytes(f.read_bytes())
     monkeypatch.setattr(_kernels, "CSRC", tmp_path)
