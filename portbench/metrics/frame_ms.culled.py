@@ -1,0 +1,5 @@
+"""frame_ms.culled: frame_ms in the cells of the culled tilted path, which report
+frame_ms.culled: their frames are paced by the device and spread under 2 %
+run to run, where host-paced frames spread ~10 %."""
+
+from portbench.metrics.frame_ms import read  # noqa: F401

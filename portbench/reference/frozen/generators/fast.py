@@ -1,0 +1,350 @@
+# Frozen copy of atm_raytracer_tpu_torch/generators/fast.py (commit 05461a6); the benchmark's reference, not the program.
+"""Fast generator: the separable path × terrain program (PyTorch).
+
+Counterpart of ``atm_raytracer_tpu/generators/fast.py`` (reference
+src/generator/generators/fast.rs): pixel (x, y) maps to azimuth(x) and
+elevation(y) independently (fast.rs:111-125), so one path march per row and
+one terrain scan per column suffice (fast.rs:27-44), then a W×H combine
+(fast.rs:52-92):
+
+  1. march all H row-rays            → ray_h [H, N], path_len [H, N]   (K2)
+  2. geodesic + terrain per column   → terr [W, N], normals [W, N, 3]
+  3. crossing combine                → segments [H, W, K]              (K1)
+  4. field gathers at the segments   → HitBuffer
+  5. scene objects, merged into each one's column window (``ops.objects``)
+  6. coloring + compositing          → u8 image
+
+Every stage runs on the device of the tensors it is given; the host packs
+terrain tiles, builds the refraction table and plans the objects' column
+windows. ``separable_hits`` and ``fast_core`` also take a sweep's F frames
+on a leading axis (``parallel.mesh.render_sweep_sharded``): one march of
+the F·H rays, one [F·W, N] terrain scan and one combine over [F, H, W, K].
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+import sys
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..config import Params
+from ..models import camera
+from ..models.earth import EarthModel
+from ..ops import combine
+from ..ops.composite import composite
+from ..ops.objects import (
+    ObjectSet,
+    apply_objects_planes,
+    hits_to_planes,
+    max_window_overlap,
+    object_col_windows,
+    planes_to_hits,
+)
+from ..physics.atmosphere import Atmosphere
+from ..physics.ray import EarthShape, RefractionTable, march_coarse, march_rays
+from ..terrain.sample import sample_terrain_data
+from ..terrain.store import Terrain, TerrainPack
+from .base import HitBuffer, RenderResult, fetch_flat
+
+
+def terrain_bbox(params: Params) -> Tuple[Tuple[float, float], Tuple[float, float]]:
+    """Lat/lon box the render can touch: observer ± max_distance + margin."""
+    lat0 = params.view.position.latitude
+    lon0 = params.view.position.longitude
+    # conservative meters-per-degree lower bound 90 km (covers flat models'
+    # 111.1 km and high-latitude longitude shrink)
+    d_deg = params.view.frame.max_distance / 90_000.0 + 0.1
+    # longitude shrink at the MOST POLEWARD latitude the render can reach;
+    # past ~89.4° cover all longitudes
+    lat_pole = min(abs(lat0) + d_deg, 90.0)
+    coslat = max(0.01, math.cos(math.radians(lat_pole)))
+    d_lon = min(d_deg / coslat, 180.0)
+    return (lat0 - d_deg, lat0 + d_deg), (lon0 - d_lon, lon0 + d_lon)
+
+
+# extra object slots past the terrain's when object windows stack on one
+# column (the JAX package's default, generators/fast.py:418)
+OBJ_HIT_CAP = 6
+
+
+def build_refraction_table(params: Params, alt0: float, device,
+                           atmosphere_def=None) -> RefractionTable:
+    """The l(h) table sized to every altitude the march can visit, for
+    ``params``' atmosphere or another ``atmosphere_def`` (a sweep frame's).
+
+    Built anew for each frame: the reference keeps no memo.
+    """
+    max_elev_deg = abs(params.view.frame.tilt) + params.view.frame.fov  # slack
+    top = alt0 + math.tan(math.radians(min(max_elev_deg, 89.0))) * (
+        params.view.frame.max_distance
+    )
+    h_hi = float(min(max(20_000.0, top * 1.1 + 1000.0), 90_000.0))
+    return RefractionTable.build(
+        params.atmosphere if atmosphere_def is None else Atmosphere(atmosphere_def),
+        params.wavelength, h_lo=-2000.0, h_hi=h_hi, dh=1.0, device=device,
+    )
+
+
+def march_rows(table: Optional[RefractionTable], elev_deg: torch.Tensor, alt0,
+               *, shape: EarthShape, straight: bool, step: float, n_terr: int,
+               rays_per_frame: Optional[int] = None):
+    """Stage 1, the path cache (gen_path_cache, utils.rs:136-174): ray
+    altitudes and path lengths [H, n_terr] at x = k*step; coarse RK4 with
+    Hermite dense output (``march_coarse`` steps per node). ``alt0`` is a
+    scalar or one altitude a row; a stacked ``table`` gives each run of
+    ``rays_per_frame`` rows its own l(h)."""
+    return march_rays(
+        alt0, torch.deg2rad(elev_deg.to(torch.float32)), step, n_terr - 1,
+        shape, table, straight, coarse=march_coarse(step),
+        rays_per_frame=rays_per_frame,
+    )
+
+
+def march_frames(table: Optional[RefractionTable], elev_deg: torch.Tensor,
+                 alt0: torch.Tensor, *, shape: EarthShape, straight: bool, step: float,
+                 n_terr: int):
+    """Stage 1 for F frames: the rows of ``elev_deg`` ([F, H], or [H] shared
+    by the frames) from the altitudes ``alt0`` [F], one march over the F·H
+    rays; (ray_h, path_len) [F, H, n_terr]."""
+    f_n, h_n = alt0.shape[0], elev_deg.shape[-1]
+    alt_rows = alt0.to(torch.float32)[:, None].expand(f_n, h_n).reshape(-1)
+    ray_h, path_len = march_rows(
+        table, elev_deg.expand(f_n, h_n).reshape(-1), alt_rows, shape=shape,
+        straight=straight, step=step, n_terr=n_terr, rays_per_frame=h_n)
+    return ray_h.reshape(f_n, h_n, -1), path_len.reshape(f_n, h_n, -1)
+
+
+def frame_altitudes(alt0, device) -> torch.Tensor:
+    """One frame's altitude as a [1] tensor, filled on ``device`` (no copy
+    from host memory); a tensor as it is, [1]."""
+    if isinstance(alt0, torch.Tensor):
+        return alt0.reshape(1)
+    return torch.full((1,), float(alt0), dtype=torch.float32, device=device)
+
+
+def column_geodesic(model: EarthModel, az_deg: torch.Tensor, lat0: float,
+                    lon0: float, step: float, n_terr: int):
+    """(dlat, dlon) [W, n_terr] degrees along each column's geodesic at
+    x = k*step."""
+    dists = (torch.arange(n_terr, dtype=torch.float32, device=az_deg.device)
+             * float(np.float32(step)))
+    return model.geodesic_delta(lat0, lon0, az_deg.to(torch.float32)[:, None],
+                                dists[None, :])
+
+
+def terrain_columns(pack: TerrainPack, model: EarthModel, az_deg: torch.Tensor,
+                    lat0: float, lon0: float, step: float, n_terr: int):
+    """Stage 2, the terrain cache (utils.rs:176-199): elevation [W, n_terr]
+    and unit normal [W, n_terr, 3] along each column's geodesic."""
+    dlat, dlon = column_geodesic(model, az_deg, lat0, lon0, step, n_terr)
+    return sample_terrain_data(pack, model, dlat, dlon, lat0, lon0)
+
+
+def separable_hits(pack: TerrainPack, table: Optional[RefractionTable],
+                   elev_deg: torch.Tensor, az_deg: torch.Tensor, alt0, *,
+                   model: EarthModel, shape: EarthShape, straight: bool,
+                   step: float, n_terr: int, max_hits: int, lat0: float,
+                   lon0: float, terrain_alpha: float,
+                   objects: Optional[ObjectSet] = None, obj_windows=None) -> HitBuffer:
+    """Hits on the separable (elevation-row × azimuth-column) grid.
+
+    Shared by the Fast generator (camera rows and columns) and the
+    InterpolatingRectilinear generator (its snapped grid). ``objects``
+    (with ``obj_windows``, each object's (col_lo, n_cols); None for the full
+    width) merge into the terrain hits, which widen to ``max_hits +
+    min(2·overlap, max(cap, 2))`` slots: a ray can only hit objects whose
+    window holds its column, so the depth follows the deepest window overlap.
+    Past ``OBJ_HIT_CAP`` extra slots the deepest hits are dropped, with a
+    warning on every call (the reference keeps every trace point,
+    utils.rs:241-279).
+
+    A sweep's F frames ride a leading axis: ``az_deg`` [F, W], ``elev_deg``
+    [F, H] or the [H] rows all frames share, ``alt0`` [F] (a tensor) and a
+    table shared by the frames or stacked one a frame. The march is one call
+    over the F·H rays, the terrain one [F·W, N] scan, the combine one call
+    over [F, H, W, K]; the hits come back [F, H, W, K]. One frame
+    (``az_deg`` [W], a scalar ``alt0``) is the case F = 1, its hits [H, W, K].
+    The march and the combine are plain PyTorch on the device of the inputs.
+    """
+    one_frame = az_deg.ndim == 1
+    if one_frame:
+        az_deg = az_deg[None]
+        alt0 = frame_altitudes(alt0, az_deg.device)
+    # flatten the frames' rays and columns, then split them again
+    f_n, w_n = az_deg.shape
+    ray_h, path_len = march_frames(table, elev_deg, alt0, shape=shape, straight=straight,
+                                   step=step, n_terr=n_terr)
+    dlat, dlon = column_geodesic(model, az_deg.reshape(-1), lat0, lon0, step, n_terr)
+    terr_elev, terr_normal = sample_terrain_data(pack, model, dlat, dlon, lat0, lon0)
+    dlat, dlon, terr_elev = (x.reshape(f_n, w_n, n_terr) for x in (dlat, dlon, terr_elev))
+    terr_normal = terr_normal.reshape(f_n, w_n, n_terr, 3)
+
+    # 3. crossing segments [F, H, W, K]; the fractional hit position is a
+    # per-pixel quantity reconstructed below
+    n_seg = n_terr - 1
+    segs = combine.terrain_crossing_segments_plain(ray_h, terr_elev, n_seg, max_hits)
+    valid = segs < n_seg
+    ks = torch.where(valid, segs, 0)
+
+    # 4. field gathers (TracingState::interpolate, utils.rs:108-133): both
+    # segment ends of the terrain (elevation + normal) and ray (altitude +
+    # path length) stacks; the hit's dlat/dlon re-derive per pixel from
+    # (column azimuth, key·step) through the same geodesic
+    stacked = torch.cat([terr_elev[..., None], terr_normal], dim=-1)  # [F, W, N, 4]
+    c_lo, c_hi = combine.gather_pairs(stacked, ks, (0, 2))  # [F, H, W, K, 4] ×2
+    ray_stack = torch.stack([ray_h, path_len], dim=-1)  # [F, H, N, 2]
+    r_lo, r_hi = combine.gather_pairs(ray_stack, ks, (0, 1))
+    d1 = r_lo[..., 0] - c_lo[..., 0]
+    d2 = r_hi[..., 0] - c_hi[..., 0]
+    denom = d1 - d2
+    prop = d1 / torch.where(denom == 0.0, torch.ones_like(denom), denom)  # utils.rs:232
+    keys = torch.where(valid, ks.to(torch.float32) + prop,
+                       torch.full_like(prop, combine.NO_HIT))
+    safe_keys = torch.where(valid, keys, torch.zeros_like(keys))
+
+    hit_stack = c_lo * (1.0 - prop[..., None]) + c_hi * prop[..., None]
+    hit_plen = r_lo[..., 1] * (1.0 - prop) + r_hi[..., 1] * prop
+    hit_dist = safe_keys * float(np.float32(step))  # dist is linear in the key
+    hit_dlat, hit_dlon = model.geodesic_delta(
+        lat0, lon0, az_deg.to(torch.float32)[..., None, :, None], hit_dist
+    )
+
+    rgba = torch.zeros(keys.shape + (4,), dtype=torch.float32, device=keys.device)
+    rgba[..., 3] = float(terrain_alpha)
+    hits = HitBuffer(
+        valid=valid,
+        key=keys,
+        dlat=hit_dlat,
+        dlon=hit_dlon,
+        distance=hit_dist,
+        elevation=hit_stack[..., 0],
+        path_length=hit_plen,
+        normal=hit_stack[..., 1:4],
+        kind=torch.zeros(keys.shape, dtype=torch.int32, device=keys.device),
+        rgba=rgba,
+    )
+    if objects is not None:  # 5. scene objects
+        overlap = max_window_overlap(obj_windows, objects.n_objects)
+        if 2 * overlap > max(OBJ_HIT_CAP, 2):
+            print(
+                f"WARNING: object metadata depth truncated: {overlap} object windows "
+                f"overlap one column (needs {2 * overlap} slots) but obj_hit_cap="
+                f"{OBJ_HIT_CAP}; hits beyond the cap are dropped from metadata "
+                "(compositing is visually saturated by then)",
+                file=sys.stderr,
+            )
+        k_out = max_hits + min(2 * overlap, max(OBJ_HIT_CAP, 2))
+        key, vals = hits_to_planes(hits, k_out)
+        # the object pass runs frame by frame (its temporaries are per frame)
+        per_frame = [apply_objects_planes(
+            (key[f], vals[:, f]), objects, model, lat0, step, ray_h[f], path_len[f],
+            dlat[f], dlon[f], obj_windows, k_out) for f in range(f_n)]
+        hits = planes_to_hits(torch.stack([k for k, _ in per_frame]),
+                              torch.stack([v for _, v in per_frame], dim=1))
+    if one_frame:
+        hits = HitBuffer(**{f.name: getattr(hits, f.name)[0]
+                            for f in dataclasses.fields(HitBuffer)})
+    return hits
+
+
+def fast_core(pack: TerrainPack, table: Optional[RefractionTable],
+              elev_deg: torch.Tensor, az_deg: torch.Tensor, alt0, *,
+              model: EarthModel, shape: EarthShape, straight: bool, step: float,
+              n_terr: int, max_hits: int, lat0: float, lon0: float, coloring,
+              fog_distance: Optional[float], terrain_alpha: float,
+              objects: Optional[ObjectSet] = None, obj_windows=None):
+    """The whole Fast pipeline on one device: (image [H, W, 3] u8, hits)."""
+    hits = separable_hits(
+        pack, table, elev_deg, az_deg, alt0, model=model, shape=shape,
+        straight=straight, step=step, n_terr=n_terr, max_hits=max_hits,
+        lat0=lat0, lon0=lon0, terrain_alpha=terrain_alpha, objects=objects,
+        obj_windows=obj_windows,
+    )
+    image = composite(
+        coloring, fog_distance, hits.valid, hits.rgba[..., 3], hits.distance,
+        hits.elevation, hits.path_length, hits.normal, hits.kind,
+        hits.rgba[..., :3],
+    )
+    return image, hits
+
+
+def _fast_setup(params: Params, terrain: Terrain, device, max_hits: Optional[int]):
+    """What a Fast render of ``params`` needs before its first launch: the
+    camera angles (host), the terrain pack and the table on ``device``, the
+    march length and the hit depth."""
+    out, frame = params.output, params.view.frame
+    alt0 = params.view.position.abs_altitude(terrain)
+    elev_deg = camera.fast_ray_elevations(out.width, out.height, frame.fov, frame.tilt)
+    az_deg = camera.fast_ray_azimuths(out.width, out.height, frame.fov, frame.direction)
+    pack = terrain.pack(*terrain_bbox(params), device)
+    table = build_refraction_table(params, alt0, device)
+    n_terr = int(math.ceil(frame.max_distance / params.simulation_step))
+    if max_hits is None:
+        max_hits = 1 if params.terrain_alpha >= 1.0 else 4
+    return alt0, elev_deg, az_deg, pack, table, n_terr, int(max_hits)
+
+
+def core_kwargs(params: Params, n_terr: int) -> dict:
+    """The keyword arguments every core takes from ``params``."""
+    pos = params.view.position
+    return dict(
+        model=params.model,
+        shape=params.model.to_shape(),
+        straight=params.straight_rays,
+        step=float(params.simulation_step),
+        n_terr=n_terr,
+        lat0=float(pos.latitude),
+        lon0=float(pos.longitude),
+        coloring=params.coloring,
+        fog_distance=params.view.fog_distance,
+        terrain_alpha=float(params.terrain_alpha),
+    )
+
+
+def device_f32(x: np.ndarray, device) -> torch.Tensor:
+    """A host array as a float32 tensor on ``device``."""
+    return torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(device)
+
+
+def render_fast(params: Params, terrain: Terrain, device,
+                max_hits: Optional[int] = None) -> RenderResult:
+    """Full Fast-generator render from lowered Params (fast.rs:22-98) on
+    ``device``. The image comes back to the host; the hits stay on the
+    device. The scene's objects and their column windows are planned anew
+    for each frame: the reference keeps no memo."""
+    device = torch.device(device)
+    pos = params.view.position
+    alt0, elev_deg, az_deg, pack, table, n_terr, max_hits = _fast_setup(
+        params, terrain, device, max_hits)
+    objects = ObjectSet.build(params, device)
+    obj_windows = None
+    if objects is not None:
+        obj_windows = object_col_windows(
+            objects, params.model, float(pos.latitude), float(pos.longitude),
+            np.asarray(az_deg), float(params.simulation_step), n_terr)
+
+    image, hits = fast_core(
+        pack, table, device_f32(elev_deg, device), device_f32(az_deg, device), float(alt0),
+        objects=objects,
+        obj_windows=obj_windows,
+        max_hits=max_hits,
+        **core_kwargs(params, n_terr),
+    )
+    return RenderResult(
+        image=fetch_flat(image).reshape(image.shape),
+        hits=hits,
+        elevation_deg=elev_deg,
+        azimuth_deg=camera.wrap_azimuth_deg(az_deg),
+        observer=(pos.latitude, pos.longitude, alt0),
+    )
+
+
+# the exception cap of a streamed band (JAX ``render_fast_streamed``); a band
+# with more exceptions in a channel is fetched again raw
+STREAM_EXC_CAP = 256
+
+

@@ -1,0 +1,585 @@
+# Frozen copy of atm_raytracer_tpu_torch/ops/objects.py (commit 05461a6); the benchmark's reference, not the program.
+"""Scene objects: frustum + billboard intersection, culling, hit merging.
+
+Counterpart of ``atm_raytracer_tpu/ops/objects.py``. Re-implements the
+reference's ``Object`` trait (src/object/mod.rs:217-226) and its two impls —
+analytic segment-vs-cone-frustum (src/object/frustum.rs) and textured
+billboard (src/object/billboard.rs) — as dense segment tests over culled
+candidate windows.
+
+Reference control flow being replaced: per terrain point, ``objects_close``
+collects the objects whose cartesian distance² < 2·(r+step)²
+(frustum.rs:103-114, billboard.rs:68-78, gathered in utils.rs:71-89); per
+march segment, each close object's ``check_collision`` runs on the segment
+endpoints (utils.rs:241-279). Here each object gets a column window and a
+window of march segments around its culling region, every (ray × window
+segment) test runs at once, and each pixel keeps its earliest hits:
+
+* ``object_col_windows`` — per object, the azimuth columns whose geodesic
+  passes within its culling radius, planned on the host from the model's
+  own f64 geodesics, so the candidate tensors are [H, W_window, seg_window];
+* ``apply_objects_planes`` — the separable grids (Fast, the Interpolating
+  grid): one object at a time, in object order, merged into its column
+  window of the frame's hit planes.
+
+Geometry runs in each object's local ENU frame (``EarthModel.enu_rel``):
+mm-accurate in float32 within culling radii, and the frame's up vector IS
+the reference's ``v = world_directions(...).2`` (frustum.rs:31-34). Normals
+rotate back to global cartesian with the object's host-built basis.
+
+Every stage is plain PyTorch on the device of its inputs (no kernel). The
+object parameters are device tensors, so each quotient that decides a
+hit's validity divides by a tensor: the card computes a division by a
+Python float as a product with its float32 reciprocal.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from ..generators.base import HitBuffer
+from ..models.earth import EarthModel
+from ..physics.ray import DEATH_ALTITUDE, _f32
+from .combine import NO_HIT, gather_column_field, gather_ray_field, k_smallest
+
+# the per-object tensors of an ObjectSet, in the JAX ObjectSet's field order
+ARRAY_FIELDS = ("kind", "dlat", "dlon", "elev", "r1", "r2", "height", "width",
+                "rgba", "basis", "tex_id", "textures", "tex_hw", "cull_r2")
+
+# the payload channels of a hit-plane set, in order: a set of planes is
+# (key [H, W, K], vals [len(PLANE_CHANNELS), H, W, K])
+PLANE_CHANNELS = ("dlat", "dlon", "distance", "elevation", "path_length", "kind",
+                  "nx", "ny", "nz", "cr", "cg", "cb", "ca")
+
+
+@dataclasses.dataclass
+class ObjectSet:
+    """Per-object tensors on one device, and the host metadata that plans
+    the column windows."""
+
+    kind: torch.Tensor  # [n] int32: 0 frustum, 1 billboard
+    dlat: torch.Tensor  # [n] f32 relative to observer
+    dlon: torch.Tensor
+    elev: torch.Tensor  # [n] absolute altitude of the object base
+    r1: torch.Tensor
+    r2: torch.Tensor
+    height: torch.Tensor
+    width: torch.Tensor
+    rgba: torch.Tensor  # [n, 4]
+    basis: torch.Tensor  # [n, 3, 3] rows = (east, north, up) global cartesian
+    tex_id: torch.Tensor  # [n] int32, -1 = untextured
+    textures: torch.Tensor  # [T, TH, TW, 4] f32 atlas (T ≥ 1)
+    tex_hw: torch.Tensor  # [T, 2] f32 true (h, w) of each texture
+    cull_r2: torch.Tensor  # [n] culling radius², includes sim step
+    n_objects: int
+    seg_window: int  # march-steps window (covers the culling chord)
+    kinds_static: tuple  # per-object kind on the host
+    # per object (lat, lon, elev, cull_radius_m), host floats
+    host_meta: tuple = ()
+
+    @staticmethod
+    def from_arrays(arrays: dict, *, seg_window: int, host_meta: tuple,
+                    device) -> "ObjectSet":
+        """An ObjectSet from host arrays named as ``ARRAY_FIELDS``."""
+        tensors = {}
+        for name in ARRAY_FIELDS:
+            a = np.asarray(arrays[name])
+            dtype = np.int32 if name in ("kind", "tex_id") else np.float32
+            tensors[name] = torch.tensor(a.astype(dtype), device=device)
+        kinds = tuple(int(k) for k in np.asarray(arrays["kind"]))
+        return ObjectSet(**tensors, n_objects=len(kinds), seg_window=int(seg_window),
+                         kinds_static=kinds, host_meta=tuple(host_meta))
+
+    @staticmethod
+    def build(params, device) -> Optional["ObjectSet"]:
+        """The scene's objects (``Params.objects``) on ``device``; None
+        when there are none."""
+        objs = params.objects
+        if not objs:
+            return None
+        lat0 = params.view.position.latitude
+        lon0 = params.view.position.longitude
+        step = params.simulation_step
+        n = len(objs)
+        a = {
+            "kind": np.zeros(n, np.int32),
+            "dlat": np.zeros(n, np.float32),
+            "dlon": np.zeros(n, np.float32),
+            "elev": np.zeros(n, np.float32),
+            "r1": np.zeros(n, np.float32),
+            "r2": np.zeros(n, np.float32),
+            "height": np.zeros(n, np.float32),
+            "width": np.zeros(n, np.float32),
+            "rgba": np.zeros((n, 4), np.float32),
+            "basis": np.zeros((n, 3, 3), np.float32),
+            "tex_id": np.full(n, -1, np.int32),
+            "cull_r2": np.zeros(n, np.float32),
+        }
+        textures: List[np.ndarray] = []
+        for i, o in enumerate(objs):
+            a["kind"][i] = 0 if o.kind == "Frustum" else 1
+            a["dlat"][i] = o.lat - lat0
+            a["dlon"][i] = o.lon - lon0
+            a["elev"][i] = o.elev
+            a["r1"][i], a["r2"][i] = o.r1, o.r2
+            a["height"][i] = o.height
+            a["width"][i] = o.width
+            a["rgba"][i] = (o.color.r, o.color.g, o.color.b, o.color.a)
+            north, east, up = params.model.world_directions(o.lat, o.lon)
+            a["basis"][i] = np.stack([east, north, up])
+            if o.kind == "Frustum":
+                r = max(o.r1, o.r2)
+                a["cull_r2"][i] = 2.0 * (r + step) ** 2  # frustum.rs:113
+            else:
+                a["cull_r2"][i] = 2.0 * (o.width + step) ** 2  # billboard.rs:77
+            if o.texture is not None:
+                a["tex_id"][i] = len(textures)
+                textures.append(o.texture.astype(np.float32))
+        if textures:
+            th = max(t.shape[0] for t in textures)
+            tw = max(t.shape[1] for t in textures)
+            a["textures"] = np.zeros((len(textures), th, tw, 4), np.float32)
+            a["tex_hw"] = np.zeros((len(textures), 2), np.float32)
+            for t_i, t in enumerate(textures):
+                a["textures"][t_i, : t.shape[0], : t.shape[1]] = t
+                a["tex_hw"][t_i] = (t.shape[0], t.shape[1])
+        else:
+            a["textures"] = np.zeros((1, 2, 2, 4), np.float32)
+            a["tex_hw"] = np.ones((1, 2), np.float32) * 2
+        # window of march segments covering the culling chord: the close
+        # region along a ray is at most 2·cull_radius long. The cap only
+        # bounds candidate-tensor memory for giants (>12 km culling radius
+        # at 50 m steps); within it the window covers the full chord — the
+        # reference tests every close segment (utils.rs:241-250)
+        max_chord = 2.0 * math.sqrt(float(a["cull_r2"].max()))
+        want = max(4, math.ceil(max_chord / step) + 3)
+        seg_window = int(min(512, want))
+        if want > seg_window:
+            print(
+                f"WARNING: object culling window truncated to {seg_window} "
+                f"of {want} march steps — intersections beyond "
+                f"{seg_window * step:.0f} m into the culling region of the "
+                "largest object will be missed"
+            )
+        host_meta = tuple(
+            (float(o.lat), float(o.lon), float(o.elev), float(math.sqrt(a["cull_r2"][i])))
+            for i, o in enumerate(objs)
+        )
+        return ObjectSet.from_arrays(a, seg_window=seg_window, host_meta=host_meta,
+                                     device=device)
+
+
+def ray_death_index(ray_h: torch.Tensor) -> torch.Tensor:
+    """First sub-DEATH_ALTITUDE march index per ray, n_path if none ([H] f32).
+
+    Segment k participates in object tests iff k <= this index — the
+    reference's path cache ends one element after the first dead sample
+    (utils.rs:159-171), so its object loop never sees later segments.
+    """
+    n_path = ray_h.shape[1]
+    dead = ray_h < DEATH_ALTITUDE
+    first = torch.argmax(dead.to(torch.uint8), dim=1)  # the first maximum
+    return torch.where(dead.any(dim=1), first, n_path).to(torch.float32)
+
+
+def object_col_windows(objects: ObjectSet, model: EarthModel, lat0: float, lon0: float,
+                       az_deg, step: float, n_terr: int, stride: int = 2,
+                       pad: int = 2) -> tuple:
+    """Per-object azimuth-column windows for the separable generators.
+
+    For each object, the columns whose geodesic ray passes within its culling
+    radius (``is_close``, frustum.rs:103-114) — outside them no ray can hit
+    it. Host f64 geodesics (``coords_at_dist_host``) at ``stride`` march
+    steps along the ray, widened by the between-sample movement (stride·step)
+    plus ``pad`` columns: conservative for every earth model.
+
+    Returns a tuple of (col_lo, n_cols) per object; n_cols = 0 means the
+    object is out of view for this azimuth grid.
+    """
+    az = np.asarray(az_deg, np.float64)
+    w = az.shape[0]
+    dists = np.arange(1, max(n_terr, 2), stride, np.float64) * step  # [D]
+    glat, glon = model.coords_at_dist_host(lat0, lon0, az[:, None], dists[None, :])
+    # cartesian at elevation 0: raising both the geodesic point and the
+    # object by the object's altitude moves their separation by at most
+    # |p−c|·elev/R, negligible at culling-radius scales (see the margin)
+    p = model.as_cartesian(glat, glon, np.zeros_like(glat))  # [W, D, 3]
+    meta = np.asarray([(m[0], m[1], m[3]) for m in objects.host_meta], np.float64)
+    c = model.as_cartesian(meta[:, 0], meta[:, 1], np.zeros(len(meta)))  # [n, 3]
+    # all objects at once: [n, W] min distance² over D via |p|² + |c|² − 2 p·c
+    p2 = (p * p).sum(-1)  # [W, D]
+    c2 = (c * c).sum(-1)  # [n]
+    pc = p.reshape(-1, 3) @ c.T  # [W·D, n]
+    d2 = (p2.reshape(-1, 1) + c2[None, :] - 2.0 * pc).reshape(w, -1, len(meta)).min(axis=1).T
+    rr = meta[:, 2] + stride * step + 1.0
+    windows = []
+    for oi in range(len(meta)):
+        idx = np.nonzero(d2[oi] < rr[oi] * rr[oi])[0]
+        if idx.size == 0:
+            windows.append((0, 0))
+            continue
+        lo = max(0, int(idx[0]) - pad)
+        hi = min(w - 1, int(idx[-1]) + pad)
+        windows.append((lo, hi - lo + 1))
+    return tuple(windows)
+
+
+def max_window_overlap(col_windows, n_objects: int) -> int:
+    """Deepest column-window overlap: the most objects any single azimuth
+    column can see, which bounds the per-pixel object-hit depth."""
+    if col_windows is None:
+        return n_objects
+    events = []
+    for lo, wn in col_windows:
+        if wn:
+            events.append((lo, 1))
+            events.append((lo + wn, -1))
+    deepest = cur = 0
+    for _, delta in sorted(events):
+        cur += delta
+        deepest = max(deepest, cur)
+    return deepest
+
+
+# -- the intersection primitives ----------------------------------------------
+
+
+def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis (3) of a·b, left to right."""
+    return a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1] + a[..., 2] * b[..., 2]
+
+
+def _sample_texture(textures, tex_hw, tex_id, u, v):
+    """Bilinear RGBA texture sample (object/mod.rs:89-118).
+
+    u ∈ [0,1] across width, v ∈ [0,1] bottom→top; image rows are top-first.
+    """
+    t = tex_id.clamp(min=0)
+    th = tex_hw[t, 0]
+    tw = tex_hw[t, 1]
+    zero = torch.zeros_like(th)
+    x = u * tw - 0.5
+    x1 = torch.minimum(torch.maximum(torch.floor(x), zero), tw - 2.0)
+    y = (1.0 - v) * th - 0.5
+    y1 = torch.minimum(torch.maximum(torch.floor(y), zero), th - 2.0)
+    px = (x - x1)[..., None]
+    py = (y - y1)[..., None]
+    _, hh, ww, _ = textures.shape
+    flat = textures.reshape(-1, 4)
+    base = t.to(torch.int64) * (hh * ww) + y1.to(torch.int64) * ww + x1.to(torch.int64)
+    # a non-finite (u, v) belongs to an invalid segment: keep its index in range
+    base = base.clamp(0, flat.shape[0] - ww - 2)
+    p00 = flat[base]
+    p01 = flat[base + ww]
+    p10 = flat[base + 1]
+    p11 = flat[base + ww + 1]
+    return (p00 * (1 - px) * (1 - py) + p01 * (1 - px) * py
+            + p10 * px * (1 - py) + p11 * px * py)
+
+
+def _frustum_hits(p1, p2, r1, r2, height):
+    """Segment-vs-frustum (frustum.rs:17-101) in the object frame (v = ẑ).
+
+    p1, p2: [..., 3]. Returns (props [..., 4], normals [..., 4, 3],
+    valid [..., 4]): two side roots + bottom/top caps.
+    """
+    up = p1.new_tensor([0.0, 0.0, 1.0])
+    w = p2 - p1
+    wsq = _dot(w, w)
+    p1sq = _dot(p1, p1)
+    p1v = p1[..., 2]
+    p1w = _dot(p1, w)
+    wv = w[..., 2]
+    aa = (r2 - r1) / height
+    aa1 = 1.0 + aa * aa
+    a = wsq - wv * wv * aa1
+    b = 2.0 * (p1w - wv * (p1v * aa1 + aa * r1))
+    c = p1sq - p1v * p1v * aa1 - r1 * r1 - 2.0 * aa * r1 * p1v
+    delta = b * b - 4.0 * a * c
+    sq = torch.sqrt(torch.clamp(delta, min=0.0))
+    safe_a = torch.where(torch.abs(a) < 1e-12, 1e-12, a)
+    x1 = (-b - sq) / (2.0 * safe_a)
+    x2 = (-b + sq) / (2.0 * safe_a)
+    lo = torch.where(a < 0.0, x2, x1)  # frustum.rs:56
+    hi = torch.where(a < 0.0, x1, x2)
+    ang = torch.atan2(r1 - r2, height)
+    cos_ang, sin_ang = torch.cos(ang), torch.sin(ang)
+
+    def side(x):
+        inter = p1 + w * x[..., None]
+        h = inter[..., 2]
+        ok = (delta >= 0.0) & (x >= 0.0) & (x < 1.0) & (h >= 0.0) & (h < height)
+        outward = inter - h[..., None] * up
+        olen = torch.sqrt(_dot(outward, outward))
+        outward = outward / torch.clamp(olen, min=1e-30)[..., None]
+        return x, outward * cos_ang + up * sin_ang, ok
+
+    def cap(h_cap, r_cap, n_sign: float):
+        safe_wv = torch.where(torch.abs(wv) < 1e-12, 1e-12, wv)
+        x = (h_cap - p1v) / safe_wv
+        out = p1 + w * x[..., None] - h_cap * up
+        ok = (_dot(out, out) < r_cap * r_cap) & (x >= 0.0) & (x < 1.0)
+        return x, (up * n_sign).expand(out.shape), ok
+
+    xs1, n1, ok1 = side(lo)
+    xs2, n2, ok2 = side(hi)
+    xc1, nc1, okc1 = cap(torch.zeros_like(height), r1, -1.0)
+    xc2, nc2, okc2 = cap(height, r2, 1.0)
+    props = torch.stack([xs1, xs2, xc1, xc2], dim=-1)
+    normals = torch.stack([n1, n2, nc1, nc2], dim=-2)
+    valid = torch.stack([ok1, ok2, okc1, okc2], dim=-1)
+    return props, normals, valid
+
+
+def _billboard_hit(p1, p2, width, height):
+    """Segment-vs-billboard (billboard.rs:17-66): an upright rectangle always
+    facing the ray. Returns (prop, normal [..., 3], u, v, valid)."""
+    up = p1.new_tensor([0.0, 0.0, 1.0])
+    ray = p2 - p1
+    right = torch.linalg.cross(ray, up.expand(ray.shape), dim=-1)
+    rlen = torch.sqrt(_dot(right, right))
+    right = right / torch.clamp(rlen, min=1e-30)[..., None]
+    front = torch.linalg.cross(right, up.expand(right.shape), dim=-1)
+    denom = _dot(ray, front)
+    safe = torch.where(torch.abs(denom) < 1e-30, 1e-30, denom)
+    prop = -_dot(p1, front) / safe
+    inter = p1 + ray * prop[..., None]
+    y = inter[..., 2]
+    x = _dot(inter, right)
+    ok = ((prop >= 0.0) & (prop < 1.0) & (y >= 0.0) & (y < height)
+          & (x >= -width / 2.0) & (x < width / 2.0))
+    u = (x + width / 2.0) / width
+    v = y / height
+    return prop, front, u, v, ok
+
+
+def _object_candidates(objects: ObjectSet, oi: int, p1, p2):
+    """One object's sub-hits on the segments (p1, p2) [..., kw, 3] of its
+    frame: (props [..., kw, S], normals [..., kw, S, 3] in the object frame,
+    rgba [..., kw, S, 4], valid [..., kw, S]); S = 4 for a frustum (two side
+    roots, two caps), 1 for a billboard (textured where it has a texture)."""
+    if objects.kinds_static[oi] == 0:
+        props, normals_loc, valid = _frustum_hits(
+            p1, p2, objects.r1[oi], objects.r2[oi], objects.height[oi])
+        rgba = objects.rgba[oi].expand(props.shape + (4,))
+        return props, normals_loc, rgba, valid
+    prop, front, u, v, ok = _billboard_hit(p1, p2, objects.width[oi], objects.height[oi])
+    texed = _sample_texture(objects.textures, objects.tex_hw, objects.tex_id[oi], u, v)
+    rgba1 = torch.where(objects.tex_id[oi] >= 0, texed,
+                        objects.rgba[oi].expand(texed.shape))
+    return prop[..., None], front[..., None, :], rgba1[..., None, :], ok[..., None]
+
+
+def _rotate(nloc, b):
+    """Object-frame vectors [..., 3] (or their 3 channels) to global
+    cartesian through the basis rows ``b`` [3, 3]: channel d is
+    n0·b[0, d] + n1·b[1, d] + n2·b[2, d]."""
+    return [nloc[0] * b[0, d] + nloc[1] * b[1, d] + nloc[2] * b[2, d] for d in range(3)]
+
+
+# -- the separable grids: hit planes ------------------------------------------
+
+
+def _object_window_planes(objects: ObjectSet, oi: int, model: EarthModel, lat0: float,
+                          step: float, ray_h, path_len, dlat, dlon, k_per_object: int,
+                          death_idx):
+    """One object's hits over its column window of the separable grid.
+
+    ray_h, path_len: [H, N]; dlat, dlon: [Wo, N] the window's terrain-scan
+    geodesic; death_idx: ``ray_death_index(ray_h)``. Finds per column the
+    first march step inside the culling radius (utils.rs:74-80), tests a
+    window of ``seg_window`` segments from there for every row-ray, and
+    keeps the ``k_per_object`` earliest hits per pixel as planes (key
+    [H, Wo, k], vals [C, H, Wo, k]).
+    """
+    h_n, n_path = ray_h.shape
+    w_n, n_t = dlat.shape
+    kw = objects.seg_window
+    dev = ray_h.device
+    o_dlat, o_dlon, o_elev = objects.dlat[oi], objects.dlon[oi], objects.elev[oi]
+    # culling: distance² of the terrain points at the object's altitude
+    # (frustum.rs:103-114)
+    rel = model.enu_rel(dlat, dlon, o_elev, o_dlat, o_dlon, o_elev, lat0)  # [Wo, N, 3]
+    close = _dot(rel, rel) < objects.cull_r2[oi]  # [Wo, N]
+    first_k = torch.where(close.any(dim=1), torch.argmax(close.to(torch.uint8), dim=1), n_t)
+    # the window starts one step early: segment (k-1, k) also sees the
+    # object through its far end (utils.rs:241-250 checks old OR new point)
+    k_lo = torch.clamp(first_k - 1, 0, max(n_t - kw - 1, 0))  # [Wo]
+    k_idx = torch.clamp(k_lo[:, None] + torch.arange(kw + 1, device=dev)[None, :],
+                        max=n_t - 1)  # [Wo, kw+1]
+    g_dlat = dlat.gather(1, k_idx)
+    g_dlon = dlon.gather(1, k_idx)
+    g_close = close.gather(1, k_idx)
+    # the ray altitudes at the window steps: one index_select of ray_h's
+    # columns, never a broadcast [H, W, N] cube
+    rh = ray_h.index_select(1, k_idx.reshape(-1).clamp(max=n_path - 1)).reshape(
+        h_n, w_n, kw + 1)
+    p = model.enu_rel(g_dlat[None], g_dlon[None], rh, o_dlat, o_dlon, o_elev,
+                      lat0)  # [H, Wo, kw+1, 3]
+    # a segment is eligible if either end is close (utils.rs:241-250)
+    seg_close = g_close[:, :-1] | g_close[:, 1:]  # [Wo, kw]
+    seg_k = k_idx[:, :-1].to(torch.float32)  # [Wo, kw] global segment index
+    # ray death (utils.rs:159-171): segment k participates iff k <= the
+    # first-death index
+    seg_alive = seg_k[None, :, :] <= death_idx[:, None, None]  # [H, Wo, kw]
+
+    props, normals_loc, rgba, valid = _object_candidates(
+        objects, oi, p[..., :-1, :], p[..., 1:, :])
+    del p
+    valid = valid & (seg_close[None, :, :] & seg_alive)[..., None]
+    valid = valid & (rgba[..., 3] > 0.0)  # fully transparent texels (utils.rs:258-259)
+    keys = torch.where(valid, seg_k[None, :, :, None] + torch.clamp(props, 0.0, 0.999999),
+                       NO_HIT).reshape(h_n, w_n, -1)
+    normals_flat = normals_loc.reshape(h_n, w_n, keys.shape[-1], 3)
+    rgba_flat = rgba.reshape(h_n, w_n, keys.shape[-1], 4)
+    del props, normals_loc, rgba, valid
+
+    # the k earliest hits: successive masked mins, each slot's payload by an
+    # equality one-hot; duplicate equal keys average, as in merge_hits
+    b = objects.basis[oi]  # rows = (east, north, up) global cartesian
+    f_step = _f32(step)
+    fin = torch.isfinite(keys)
+    out_key, out_vals = [], []
+    cur = keys
+    for k in range(k_per_object):
+        m = cur.amin(dim=-1)  # [H, Wo]
+        if k + 1 < k_per_object:
+            cur = torch.where(cur <= m[..., None], NO_HIT, cur)
+        vk = torch.isfinite(m)
+
+        def z(x, vk=vk):
+            return torch.where(vk, x, 0.0)
+
+        eqf = ((keys == m[..., None]) & fin).to(torch.float32)
+        inv_cnt = 1.0 / torch.clamp(eqf.sum(-1), min=1.0)
+        nloc = [torch.sum(normals_flat[..., d] * eqf, -1) * inv_cnt for d in range(3)]
+        safe = torch.where(vk, m, 0.0)
+        ch = {
+            "dlat": z(gather_column_field(dlat, safe)),
+            "dlon": z(gather_column_field(dlon, safe)),
+            "distance": safe * f_step,
+            # TracePoint fields at the hit (utils.rs:261-273): lerped along
+            # the march; elevation = the RAY's elevation
+            "elevation": z(gather_ray_field(ray_h, safe)),
+            "path_length": z(gather_ray_field(path_len, safe)),
+            "kind": vk.to(torch.float32),
+        }
+        for nm, x in zip(("nx", "ny", "nz"), _rotate(nloc, b)):
+            ch[nm] = z(x)
+        for d, nm in enumerate(("cr", "cg", "cb", "ca")):
+            ch[nm] = z(torch.sum(rgba_flat[..., d] * eqf, -1) * inv_cnt)
+        out_key.append(torch.where(vk, m, NO_HIT))
+        out_vals.append(torch.stack([ch[nm] for nm in PLANE_CHANNELS]))
+    return torch.stack(out_key, dim=-1), torch.stack(out_vals, dim=-1)
+
+
+def hits_to_planes(hits: HitBuffer, k_out: int):
+    """A [H, W, K] hit buffer as planes widened to ``k_out`` slots: key +inf
+    and every payload 0 on invalid slots (the merge's equality one-hot
+    matches every +inf key, so their payloads must be zero)."""
+    v = hits.valid
+
+    def z(x):
+        return torch.where(v, x, 0.0)
+
+    chans = {
+        "dlat": hits.dlat, "dlon": hits.dlon, "distance": hits.distance,
+        "elevation": hits.elevation, "path_length": hits.path_length,
+        "kind": hits.kind.to(torch.float32),
+        "nx": hits.normal[..., 0], "ny": hits.normal[..., 1], "nz": hits.normal[..., 2],
+        "cr": hits.rgba[..., 0], "cg": hits.rgba[..., 1], "cb": hits.rgba[..., 2],
+        "ca": hits.rgba[..., 3],
+    }
+    key = torch.where(v, hits.key, NO_HIT)
+    vals = torch.stack([z(chans[nm]) for nm in PLANE_CHANNELS])
+    return _pad_planes((key, vals), k_out)
+
+
+def planes_to_hits(key: torch.Tensor, vals: torch.Tensor) -> HitBuffer:
+    """The HitBuffer of a plane set (key [..., K], vals [C, ..., K])."""
+    ch = dict(zip(PLANE_CHANNELS, vals))
+    return HitBuffer(
+        valid=torch.isfinite(key),
+        key=key,
+        dlat=ch["dlat"],
+        dlon=ch["dlon"],
+        distance=ch["distance"],
+        elevation=ch["elevation"],
+        path_length=ch["path_length"],
+        normal=torch.stack([ch["nx"], ch["ny"], ch["nz"]], dim=-1),
+        kind=torch.round(ch["kind"]).to(torch.int32),
+        rgba=torch.stack([ch["cr"], ch["cg"], ch["cb"], ch["ca"]], dim=-1),
+    )
+
+
+def _pad_planes(planes, k_out: int):
+    """A new plane set: ``planes`` widened to k_out slots (new slots
+    invalid, payload zero)."""
+    key, vals = planes
+    n_pad = k_out - key.shape[-1]
+    if n_pad <= 0:
+        return key.clone(), vals.clone()
+    return (torch.nn.functional.pad(key, (0, n_pad), value=NO_HIT),
+            torch.nn.functional.pad(vals, (0, n_pad)))
+
+
+def _merge_planes(a, b, k_out: int):
+    """The k_out earliest keys of two plane sets, with their payloads.
+
+    The keys come from successive masked mins; slot s's payload is the sum
+    over the inputs of value × (key == key_s), in input order, times one
+    over the match count: equal keys average, and invalid slots (+inf, zero
+    payload) contribute zero."""
+    keys = torch.cat([a[0], b[0]], dim=-1)  # [..., Kc]
+    vals = torch.cat([a[1], b[1]], dim=-1)  # [C, ..., Kc]
+    sel = k_smallest(keys, k_out)  # [..., k_out]
+    eq = (keys[..., None, :] == sel[..., :, None]).to(torch.float32)  # [..., k_out, Kc]
+    count = eq[..., 0]
+    for i in range(1, keys.shape[-1]):
+        count = count + eq[..., i]
+    inv_match = 1.0 / torch.clamp(count, min=1.0)  # [..., k_out]
+    acc = vals[..., 0, None] * eq[..., 0]
+    for i in range(1, keys.shape[-1]):
+        acc = acc + vals[..., i, None] * eq[..., i]
+    return sel, acc * inv_match
+
+
+def apply_objects_planes(planes, objects: ObjectSet, model: EarthModel, lat0: float,
+                         step: float, ray_h, path_len, dlat, dlon, col_windows,
+                         k_out: int, k_per_object: int = 2):
+    """Merge every object's hits into the frame's hit planes.
+
+    planes: (key [H, W, K], vals [C, H, W, K]) of the terrain hits; ray_h,
+    path_len: [H, N]; dlat, dlon: [W, N]; col_windows: per-object (lo, n),
+    or None for the full width. The planes widen to ``k_out`` slots; then
+    each object, in object order, computes its hits over its column window
+    and merges into just that window (the semantics of the JAX package's
+    ``_apply_objects_planes_unrolled``). Sequential merges keep the k_out
+    earliest hits per pixel, so overlapping windows compose.
+    """
+    w_n = dlat.shape[0]
+    if col_windows is None:
+        col_windows = ((0, w_n),) * objects.n_objects
+    key, vals = _pad_planes(planes, k_out)
+    death_idx = ray_death_index(ray_h)
+    for oi in range(objects.n_objects):
+        lo, wn = col_windows[oi]
+        if wn == 0:
+            continue
+        win = slice(lo, lo + wn)
+        obj = _object_window_planes(objects, oi, model, lat0, step, ray_h, path_len,
+                                    dlat[win], dlon[win], k_per_object, death_idx)
+        mk, mv = _merge_planes((key[:, win], vals[:, :, win]), obj, k_out)
+        key[:, win] = mk
+        vals[:, :, win] = mv
+    return key, vals
+
+
+# -- P independent rays (Rectilinear) -----------------------------------------
+
+

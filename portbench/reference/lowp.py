@@ -1,0 +1,68 @@
+"""The control: the reference with its fields held in bfloat16.
+
+The configuration computes in float32. The step below it that a later
+change could take is bfloat16 storage of the fields the march and the
+terrain tests read: the refraction table l(h) (values and fit), the
+sampled terrain (elevation and normals) and the marched rays (altitude and
+path length). Under ``lower_precision()`` the frozen reference rounds each
+of them to bfloat16 where it is made, and computes on in float32. A sound
+comparison has to call that output wrong.
+"""
+
+from __future__ import annotations
+
+import contextlib
+
+import numpy as np
+import torch
+
+from .frozen.generators import fast, rectilinear
+from .frozen.physics import ray
+from .frozen.terrain import sample
+
+
+def _bf16(x):
+    if isinstance(x, torch.Tensor) and x.dtype == torch.float32:
+        return x.to(torch.bfloat16).to(torch.float32)
+    if isinstance(x, tuple):
+        return tuple(_bf16(v) for v in x)
+    return x
+
+
+def _bf16_host(values) -> np.ndarray:
+    return torch.from_numpy(np.asarray(values, np.float32).copy()).to(
+        torch.bfloat16).to(torch.float32).numpy()
+
+
+def _rounded(fn):
+    def wrapped(*args, **kwargs):
+        return _bf16(fn(*args, **kwargs))
+    return wrapped
+
+
+@contextlib.contextmanager
+def lower_precision():
+    """Patch the frozen reference so that the table, the terrain samples and
+    the march outputs are rounded to bfloat16; restored on exit."""
+    from_values = ray.RefractionTable.from_values
+
+    def from_values_bf16(values, h0, inv_dh, poly, device):
+        if poly is not None:
+            poly = tuple((lo, hi, tuple(float(c) for c in _bf16_host(cs)))
+                         for lo, hi, cs in poly)
+        return from_values(_bf16_host(values), h0, inv_dh, poly, device)
+
+    patches = [(ray.RefractionTable, "from_values", staticmethod(from_values_bf16))]
+    for mod in (sample, fast, rectilinear):
+        for name in ("sample_terrain_data", "sample_elevation"):
+            if hasattr(mod, name):
+                patches.append((mod, name, _rounded(getattr(mod, name))))
+    patches.append((fast, "march_rays", _rounded(fast.march_rays)))
+    saved = [(obj, name, obj.__dict__[name]) for obj, name, _ in patches]
+    try:
+        for obj, name, new in patches:
+            setattr(obj, name, new)
+        yield
+    finally:
+        for obj, name, old in saved:
+            setattr(obj, name, old)
