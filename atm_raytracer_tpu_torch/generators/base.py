@@ -25,6 +25,8 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from .. import tracing
+
 
 @dataclasses.dataclass
 class HitBuffer:
@@ -162,7 +164,8 @@ def fetch_flat(t, chunk_bytes: int = 0) -> np.ndarray:
     a page-locked buffer on a copy stream for a CUDA tensor, waited for
     before the return. ``chunk_bytes > 0`` copies slices of that size, one
     after another."""
-    return fetch_flat_many((t,), chunk_bytes)[0]
+    with tracing.span("fetch"):
+        return fetch_flat_many((t,), chunk_bytes)[0]
 
 
 def fetch_flat_many(tensors, chunk_bytes: int = 0) -> list:

@@ -31,6 +31,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from .. import tracing
 from ..config import Params
 from ..models import camera
 from ..models.earth import EarthModel
@@ -96,16 +97,17 @@ def build_objects_cached(params, az_deg, n_terr: int, device):
         }
         _objects_cache[pid] = entry
     dev = str(torch.device(device))
-    if dev not in entry["sets"]:
-        entry["sets"][dev] = ObjectSet.build(params, device)
-    objects = entry["sets"][dev]
-    az = np.asarray(az_deg)
-    key = (az.shape[0], float(az[0]), float(az[-1]), n_terr)
-    if key not in entry["wins"]:
-        pos = params.view.position
-        entry["wins"][key] = object_col_windows(
-            objects, params.model, float(pos.latitude), float(pos.longitude), az,
-            float(params.simulation_step), n_terr)
+    with tracing.span("objects.plan"):
+        if dev not in entry["sets"]:
+            entry["sets"][dev] = ObjectSet.build(params, device)
+        objects = entry["sets"][dev]
+        az = np.asarray(az_deg)
+        key = (az.shape[0], float(az[0]), float(az[-1]), n_terr)
+        if key not in entry["wins"]:
+            pos = params.view.position
+            entry["wins"][key] = object_col_windows(
+                objects, params.model, float(pos.latitude), float(pos.longitude), az,
+                float(params.simulation_step), n_terr)
     return objects, entry["wins"][key]
 
 
@@ -233,11 +235,13 @@ def separable_hits(pack: TerrainPack, table: Optional[RefractionTable],
     # flatten the frames' rays and columns, then split them again
     f_n, w_n = az_deg.shape
     if march is None:
-        march = march_frames(table, elev_deg, alt0, shape=shape, straight=straight,
-                             step=step, n_terr=n_terr, plain=plain)
+        with tracing.span("fast.march"):
+            march = march_frames(table, elev_deg, alt0, shape=shape, straight=straight,
+                                 step=step, n_terr=n_terr, plain=plain)
     ray_h, path_len = march
-    dlat, dlon = column_geodesic(model, az_deg.reshape(-1), lat0, lon0, step, n_terr)
-    terr_elev, terr_normal = sample_terrain_data(pack, model, dlat, dlon, lat0, lon0)
+    with tracing.span("fast.terrain_columns"):
+        dlat, dlon = column_geodesic(model, az_deg.reshape(-1), lat0, lon0, step, n_terr)
+        terr_elev, terr_normal = sample_terrain_data(pack, model, dlat, dlon, lat0, lon0)
     dlat, dlon, terr_elev = (x.reshape(f_n, w_n, n_terr) for x in (dlat, dlon, terr_elev))
     terr_normal = terr_normal.reshape(f_n, w_n, n_terr, 3)
 
@@ -246,7 +250,8 @@ def separable_hits(pack: TerrainPack, table: Optional[RefractionTable],
     n_seg = n_terr - 1
     crossing = (combine.terrain_crossing_segments_plain if plain
                 else combine.terrain_crossing_segments)
-    segs = crossing(ray_h, terr_elev, n_seg, max_hits)
+    with tracing.span("fast.combine"):
+        segs = crossing(ray_h, terr_elev, n_seg, max_hits)
     valid = segs < n_seg
     ks = torch.where(valid, segs, 0)
 
@@ -349,8 +354,9 @@ def _fast_setup(params: Params, terrain: Terrain, device, max_hits: Optional[int
     march length and the hit depth."""
     out, frame = params.output, params.view.frame
     alt0 = params.view.position.abs_altitude(terrain)
-    elev_deg = camera.fast_ray_elevations(out.width, out.height, frame.fov, frame.tilt)
-    az_deg = camera.fast_ray_azimuths(out.width, out.height, frame.fov, frame.direction)
+    with tracing.span("camera"):
+        elev_deg = camera.fast_ray_elevations(out.width, out.height, frame.fov, frame.tilt)
+        az_deg = camera.fast_ray_azimuths(out.width, out.height, frame.fov, frame.direction)
     pack = terrain.pack(*terrain_bbox(params), device)
     table = build_refraction_table(params, alt0, device)
     n_terr = int(math.ceil(frame.max_distance / params.simulation_step))
@@ -388,28 +394,29 @@ def render_fast(params: Params, terrain: Terrain, device,
     ``device``. The image comes back to the host (``base.fetch_flat``), or
     stays a device tensor with ``fetch_image=False``; the hits stay on
     device. ``obj_hit_cap``: see ``separable_hits``."""
-    device = torch.device(device)
-    pos = params.view.position
-    alt0, elev_deg, az_deg, pack, table, n_terr, max_hits = _fast_setup(
-        params, terrain, device, max_hits)
-    objects, obj_windows = build_objects_cached(params, az_deg, n_terr, device)
+    with tracing.span("gen.render"):
+        device = torch.device(device)
+        pos = params.view.position
+        alt0, elev_deg, az_deg, pack, table, n_terr, max_hits = _fast_setup(
+            params, terrain, device, max_hits)
+        objects, obj_windows = build_objects_cached(params, az_deg, n_terr, device)
 
-    image, hits = fast_core(
-        pack, table, device_f32(elev_deg, device), device_f32(az_deg, device), float(alt0),
-        objects=objects,
-        obj_windows=obj_windows,
-        obj_hit_cap=int(obj_hit_cap),
-        plain=plain,
-        max_hits=max_hits,
-        **core_kwargs(params, n_terr),
-    )
-    return RenderResult(
-        image=fetch_flat(image).reshape(image.shape) if fetch_image else image,
-        hits=hits,
-        elevation_deg=elev_deg,
-        azimuth_deg=camera.wrap_azimuth_deg(az_deg),
-        observer=(pos.latitude, pos.longitude, alt0),
-    )
+        image, hits = fast_core(
+            pack, table, device_f32(elev_deg, device), device_f32(az_deg, device), float(alt0),
+            objects=objects,
+            obj_windows=obj_windows,
+            obj_hit_cap=int(obj_hit_cap),
+            plain=plain,
+            max_hits=max_hits,
+            **core_kwargs(params, n_terr),
+        )
+        return RenderResult(
+            image=fetch_flat(image).reshape(image.shape) if fetch_image else image,
+            hits=hits,
+            elevation_deg=elev_deg,
+            azimuth_deg=camera.wrap_azimuth_deg(az_deg),
+            observer=(pos.latitude, pos.longitude, alt0),
+        )
 
 
 def _largest_band_divisor(w: int, bands: int) -> int:
@@ -434,15 +441,17 @@ def _stream_bands(pool, pack, table, elev, az, alt0: float, march, b: int, kw: d
 
     wb = az.shape[0] // b
     band_imgs, band_hits, outs, handles = [], [], [], []
-    for i in range(b):
-        image_b, hits_b = fast_core(pack, table, elev, az[i * wb:(i + 1) * wb], alt0,
-                                    march=march, **kw)
-        band_imgs.append(image_b)
-        band_hits.append(hits_b)
-        segs = pack_frame_stream(hits_b.valid, image_b, exc_cap) if compact else (image_b,)
-        o, hs = submit_fetch(pool, segs)
-        outs.append(o)
-        handles.append(hs)
+    with tracing.span("fast.bands"):
+        for i in range(b):
+            image_b, hits_b = fast_core(pack, table, elev, az[i * wb:(i + 1) * wb], alt0,
+                                        march=march, **kw)
+            band_imgs.append(image_b)
+            band_hits.append(hits_b)
+            segs = (pack_frame_stream(hits_b.valid, image_b, exc_cap) if compact
+                    else (image_b,))
+            o, hs = submit_fetch(pool, segs)
+            outs.append(o)
+            handles.append(hs)
     return band_imgs, band_hits, outs, handles
 
 
@@ -482,45 +491,49 @@ def render_fast_streamed(params: Params, terrain: Terrain, device, bands: int = 
         return result
     from ..meta.pack import frame_base_rgb, unpack_frame_stream
 
-    device = torch.device(device)
-    pos = params.view.position
-    alt0, elev_deg, az_deg, pack, table, n_terr, max_hits = _fast_setup(
-        params, terrain, device, max_hits)
-    kw = dict(core_kwargs(params, n_terr), max_hits=max_hits)
-    h, w = params.output.height, params.output.width
-    b = _largest_band_divisor(w, max(1, int(bands)))
-    wb = w // b
-    elev = device_f32(elev_deg, device)
-    az = device_f32(az_deg, device)
-    exc_cap = STREAM_EXC_CAP
-    march = march_frames(table, elev, frame_altitudes(alt0, device), shape=kw["shape"],
-                         straight=kw["straight"], step=kw["step"], n_terr=n_terr)
+    with tracing.span("gen.render"):
+        device = torch.device(device)
+        pos = params.view.position
+        alt0, elev_deg, az_deg, pack, table, n_terr, max_hits = _fast_setup(
+            params, terrain, device, max_hits)
+        kw = dict(core_kwargs(params, n_terr), max_hits=max_hits)
+        h, w = params.output.height, params.output.width
+        b = _largest_band_divisor(w, max(1, int(bands)))
+        wb = w // b
+        elev = device_f32(elev_deg, device)
+        az = device_f32(az_deg, device)
+        exc_cap = STREAM_EXC_CAP
+        with tracing.span("fast.march"):
+            march = march_frames(table, elev, frame_altitudes(alt0, device),
+                                 shape=kw["shape"], straight=kw["straight"], step=kw["step"],
+                                 n_terr=n_terr)
 
-    with fetch_pool() as pool:
-        band_imgs, band_hits, outs, handles = _stream_bands(
-            pool, pack, table, elev, az, float(alt0), march, b, kw, compact, exc_cap)
-        for i, hs in enumerate(handles):
-            for handle in hs:
-                handle.result()
-            if progress is not None:
-                progress(int(round(100.0 * (i + 1) / b)))
+        with fetch_pool() as pool:
+            band_imgs, band_hits, outs, handles = _stream_bands(
+                pool, pack, table, elev, az, float(alt0), march, b, kw, compact, exc_cap)
+            with tracing.span("fetch"):
+                for i, hs in enumerate(handles):
+                    for handle in hs:
+                        handle.result()
+                    if progress is not None:
+                        progress(int(round(100.0 * (i + 1) / b)))
 
-    if compact:
-        sky = frame_base_rgb(params.coloring, params.view.fog_distance)
-        slabs = []
-        for o, image_b in zip(outs, band_imgs):
-            slab = unpack_frame_stream(*o, sky, h, wb, exc_cap)
-            if slab is None:  # an exception channel overflowed: the raw band
-                slab = fetch_flat(image_b).reshape(h, wb, 3)
-            slabs.append(slab)
-    else:
-        slabs = [o[0].reshape(h, wb, 3) for o in outs]
-    hits = HitBuffer(**{f.name: torch.cat([getattr(x, f.name) for x in band_hits], dim=1)
-                        for f in dataclasses.fields(HitBuffer)})
-    return RenderResult(
-        image=np.concatenate(slabs, axis=1),
-        hits=hits,
-        elevation_deg=elev_deg,
-        azimuth_deg=camera.wrap_azimuth_deg(az_deg),
-        observer=(pos.latitude, pos.longitude, alt0),
-    )
+        if compact:
+            sky = frame_base_rgb(params.coloring, params.view.fog_distance)
+            slabs = []
+            for o, image_b in zip(outs, band_imgs):
+                slab = unpack_frame_stream(*o, sky, h, wb, exc_cap)
+                if slab is None:  # an exception channel overflowed: the raw band
+                    slab = fetch_flat(image_b).reshape(h, wb, 3)
+                slabs.append(slab)
+        else:
+            slabs = [o[0].reshape(h, wb, 3) for o in outs]
+        hits = HitBuffer(**{f.name: torch.cat([getattr(x, f.name) for x in band_hits], dim=1)
+                            for f in dataclasses.fields(HitBuffer)})
+        return RenderResult(
+            image=np.concatenate(slabs, axis=1),
+            hits=hits,
+            elevation_deg=elev_deg,
+            azimuth_deg=camera.wrap_azimuth_deg(az_deg),
+            observer=(pos.latitude, pos.longitude, alt0),
+        )

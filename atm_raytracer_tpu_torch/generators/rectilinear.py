@@ -40,8 +40,8 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from .. import _kernels, tracing
 from ..config import Params
-from .. import _kernels
 from ..models import camera
 from ..models.earth import EarthModel
 from ..ops import combine
@@ -515,11 +515,12 @@ def tilt0_hits(elev_hw, terr_pad, alt0, *, shape: EarthShape,
     """
     kw = dict(shape=shape, table=table, straight=straight, step=step, n_seg=n_seg,
               coarse=coarse, max_hits=max_hits, emit=emit)
-    if plain or elev_hw.device.type == "cpu":
-        return tilt0_hits_plain(elev_hw, terr_pad, alt0, **kw)
-    if elev_hw.device.type != "cuda":
-        raise ValueError(f"tilt0_hits: unsupported device {elev_hw.device}")
-    key, plh, _ = tilt0_hits_cuda(elev_hw, terr_pad, alt0, **kw)
+    with tracing.span("rect.scan"):
+        if plain or elev_hw.device.type == "cpu":
+            return tilt0_hits_plain(elev_hw, terr_pad, alt0, **kw)
+        if elev_hw.device.type != "cuda":
+            raise ValueError(f"tilt0_hits: unsupported device {elev_hw.device}")
+        key, plh, _ = tilt0_hits_cuda(elev_hw, terr_pad, alt0, **kw)
     return key, plh
 
 
@@ -1035,13 +1036,14 @@ def culled_test_round(pack: TerrainPack, slots, az_px, key, plh, *, blocks: Cull
     EXACT_TEST_ELEMS, keeping the nearer hit in ``key`` / ``plh`` [P, 1]
     (updated in place). ``slots`` = (s_h, s_v, s_p, s_d, s_b)."""
     chunk = max(1, EXACT_TEST_ELEMS // (M_CAND * (blocks.b_len + 1)))
-    for p0 in range(0, key.shape[0], chunk):
-        px = slice(p0, p0 + chunk)
-        keyc, plc = culled_exact_test(pack, *(s[px] for s in slots), az_px[px],
-                                      blocks=blocks, **kw)
-        better = keyc < key[px]
-        key[px] = torch.where(better, keyc, key[px])
-        plh[px] = torch.where(better, plc, plh[px])
+    with tracing.span("rect.exact_test"):
+        for p0 in range(0, key.shape[0], chunk):
+            px = slice(p0, p0 + chunk)
+            keyc, plc = culled_exact_test(pack, *(s[px] for s in slots), az_px[px],
+                                          blocks=blocks, **kw)
+            better = keyc < key[px]
+            key[px] = torch.where(better, keyc, key[px])
+            plh[px] = torch.where(better, plc, plh[px])
 
 
 def fused_culled_core(pack: TerrainPack, table: Optional[RefractionTable], alt0,
@@ -1083,8 +1085,9 @@ def fused_culled_core(pack: TerrainPack, table: Optional[RefractionTable], alt0,
     skip = 0
     rounds = 0
     while True:
-        cnt, *slots = culled_capture(inp.elev, alt0, inp.env_hi, inp.env_lo, inp.j_px,
-                                     skip=skip, plain=plain, **scan_kw)
+        with tracing.span("rect.capture"):
+            cnt, *slots = culled_capture(inp.elev, alt0, inp.env_hi, inp.env_lo, inp.j_px,
+                                         skip=skip, plain=plain, **scan_kw)
         culled_test_round(pack, slots, inp.az_px, key, plh, model=model, lat0=lat0,
                           lon0=lon0, **scan_kw)
         skip += M_CAND
@@ -1227,76 +1230,82 @@ def render_rectilinear(params: Params, terrain: Terrain, device,
     from the host loops (windows of the tilt-0 scan, row chunks, culled
     rounds, dense chunks), ending at 100.
     """
-    device = torch.device(device)
-    out = params.output
-    frame = params.view.frame
-    pos = params.view.position
-    alt0 = float(pos.abs_altitude(terrain))
-    h, w = out.height, out.width
+    with tracing.span("gen.render"):
+        device = torch.device(device)
+        out = params.output
+        frame = params.view.frame
+        pos = params.view.position
+        alt0 = float(pos.abs_altitude(terrain))
+        h, w = out.height, out.width
 
-    elev_rad, dir_rad = camera.rectilinear_ray_params(
-        w, h, frame.fov, frame.tilt, frame.direction)  # [H, W] f64
-    pack = terrain.pack(*terrain_bbox(params), device)
-    table = build_refraction_table(params, alt0, device)
-    n_terr = int(math.ceil(frame.max_distance / params.simulation_step))
-    if max_hits is None:
-        max_hits = 1 if params.terrain_alpha >= 1.0 else 4
-    objects = ObjectSet.build(params, device)
-    kw = dict(
-        model=params.model,
-        shape=params.model.to_shape(),
-        straight=params.straight_rays,
-        step=float(params.simulation_step),
-        n_terr=n_terr,
-        lat0=float(pos.latitude),
-        lon0=float(pos.longitude),
-        coloring=params.coloring,
-        fog_distance=params.view.fog_distance,
-        terrain_alpha=float(params.terrain_alpha),
-    )
-    rounds = None
-    emit = percent_reporter(progress)
-    if frame.tilt == 0.0:
-        az = torch.from_numpy(camera.rectilinear_column_azimuths(
-            w, frame.fov, frame.direction).astype(np.float32)).to(device)
-        if objects is None:
-            image, hits = fused_shared_core(
-                pack, table, az, alt0, cam=(w, h, float(frame.fov)),
-                max_hits=int(max_hits), emit=emit, plain=plain, **kw)
+        with tracing.span("camera"):
+            elev_rad, dir_rad = camera.rectilinear_ray_params(
+                w, h, frame.fov, frame.tilt, frame.direction)  # [H, W] f64
+        pack = terrain.pack(*terrain_bbox(params), device)
+        table = build_refraction_table(params, alt0, device)
+        n_terr = int(math.ceil(frame.max_distance / params.simulation_step))
+        if max_hits is None:
+            max_hits = 1 if params.terrain_alpha >= 1.0 else 4
+        objects = None
+        if params.objects:
+            with tracing.span("objects.plan"):
+                objects = ObjectSet.build(params, device)
+        kw = dict(
+            model=params.model,
+            shape=params.model.to_shape(),
+            straight=params.straight_rays,
+            step=float(params.simulation_step),
+            n_terr=n_terr,
+            lat0=float(pos.latitude),
+            lon0=float(pos.longitude),
+            coloring=params.coloring,
+            fog_distance=params.view.fog_distance,
+            terrain_alpha=float(params.terrain_alpha),
+        )
+        rounds = None
+        emit = percent_reporter(progress)
+        if frame.tilt == 0.0:
+            with tracing.span("camera"):
+                az_host = camera.rectilinear_column_azimuths(w, frame.fov, frame.direction)
+            az = torch.from_numpy(az_host.astype(np.float32)).to(device)
+            if objects is None:
+                image, hits = fused_shared_core(
+                    pack, table, az, alt0, cam=(w, h, float(frame.fov)),
+                    max_hits=int(max_hits), emit=emit, plain=plain, **kw)
+            else:
+                image, hits = shared_column_core(
+                    pack, table, objects,
+                    torch.from_numpy(elev_rad.astype(np.float32)).to(device), az, alt0,
+                    max_hits=int(max_hits),
+                    chunk_rows=auto_chunk_rows(w, h, n_terr), emit=emit,
+                    plain=plain, **kw)
+        elif max_hits == 1 and cull and objects is None:
+            image, hits, rounds = fused_culled_core(
+                pack, table, alt0,
+                cam=(w, h, float(frame.fov), float(frame.tilt), float(frame.direction)),
+                emit=emit, plain=plain, **kw)
+            image = image.reshape(h, w, 3)
+            hits = _frame_hits([hits], h, w)
         else:
-            image, hits = shared_column_core(
-                pack, table, objects,
-                torch.from_numpy(elev_rad.astype(np.float32)).to(device), az, alt0,
-                max_hits=int(max_hits),
-                chunk_rows=auto_chunk_rows(w, h, n_terr), emit=emit,
-                plain=plain, **kw)
-    elif max_hits == 1 and cull and objects is None:
-        image, hits, rounds = fused_culled_core(
-            pack, table, alt0,
-            cam=(w, h, float(frame.fov), float(frame.tilt), float(frame.direction)),
-            emit=emit, plain=plain, **kw)
-        image = image.reshape(h, w, 3)
-        hits = _frame_hits([hits], h, w)
-    else:
-        elev_flat = torch.from_numpy(elev_rad.reshape(-1).astype(np.float32)).to(device)
-        dir_flat = torch.from_numpy(
-            np.rad2deg(dir_rad).reshape(-1).astype(np.float32)).to(device)
-        chunk = PIXEL_ROWS * w
-        starts = range(0, h * w, chunk)
-        parts = []
-        for i, c0 in enumerate(starts):
-            parts.append(rectilinear_core(
-                pack, table, elev_flat[c0:c0 + chunk], dir_flat[c0:c0 + chunk], alt0,
-                max_hits=int(max_hits), objects=objects, plain=plain, **kw))
-            emit((i + 1) / len(starts))
-        image = torch.cat([p[0] for p in parts], dim=0).reshape(h, w, 3)
-        hits = _frame_hits([p[1] for p in parts], h, w)
-    emit(1.0)
-    return RenderResult(
-        image=fetch_flat(image).reshape(image.shape) if fetch_image else image,
-        hits=hits,
-        elevation_deg=np.rad2deg(elev_rad),
-        azimuth_deg=np.rad2deg(dir_rad),
-        observer=(pos.latitude, pos.longitude, alt0),
-        culled_rounds=rounds,
-    )
+            elev_flat = torch.from_numpy(elev_rad.reshape(-1).astype(np.float32)).to(device)
+            dir_flat = torch.from_numpy(
+                np.rad2deg(dir_rad).reshape(-1).astype(np.float32)).to(device)
+            chunk = PIXEL_ROWS * w
+            starts = range(0, h * w, chunk)
+            parts = []
+            for i, c0 in enumerate(starts):
+                parts.append(rectilinear_core(
+                    pack, table, elev_flat[c0:c0 + chunk], dir_flat[c0:c0 + chunk], alt0,
+                    max_hits=int(max_hits), objects=objects, plain=plain, **kw))
+                emit((i + 1) / len(starts))
+            image = torch.cat([p[0] for p in parts], dim=0).reshape(h, w, 3)
+            hits = _frame_hits([p[1] for p in parts], h, w)
+        emit(1.0)
+        return RenderResult(
+            image=fetch_flat(image).reshape(image.shape) if fetch_image else image,
+            hits=hits,
+            elevation_deg=np.rad2deg(elev_rad),
+            azimuth_deg=np.rad2deg(dir_rad),
+            observer=(pos.latitude, pos.longitude, alt0),
+            culled_rounds=rounds,
+        )

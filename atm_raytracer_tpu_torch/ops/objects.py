@@ -43,6 +43,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from .. import tracing
 from ..generators.base import HitBuffer
 from ..models.earth import EarthModel
 from ..physics.ray import DEATH_ALTITUDE, _f32
@@ -566,18 +567,19 @@ def apply_objects_planes(planes, objects: ObjectSet, model: EarthModel, lat0: fl
     w_n = dlat.shape[0]
     if col_windows is None:
         col_windows = ((0, w_n),) * objects.n_objects
-    key, vals = _pad_planes(planes, k_out)
-    death_idx = ray_death_index(ray_h)
-    for oi in range(objects.n_objects):
-        lo, wn = col_windows[oi]
-        if wn == 0:
-            continue
-        win = slice(lo, lo + wn)
-        obj = _object_window_planes(objects, oi, model, lat0, step, ray_h, path_len,
-                                    dlat[win], dlon[win], k_per_object, death_idx)
-        mk, mv = _merge_planes((key[:, win], vals[:, :, win]), obj, k_out)
-        key[:, win] = mk
-        vals[:, :, win] = mv
+    with tracing.span("objects.pass"):
+        key, vals = _pad_planes(planes, k_out)
+        death_idx = ray_death_index(ray_h)
+        for oi in range(objects.n_objects):
+            lo, wn = col_windows[oi]
+            if wn == 0:
+                continue
+            win = slice(lo, lo + wn)
+            obj = _object_window_planes(objects, oi, model, lat0, step, ray_h, path_len,
+                                        dlat[win], dlon[win], k_per_object, death_idx)
+            mk, mv = _merge_planes((key[:, win], vals[:, :, win]), obj, k_out)
+            key[:, win] = mk
+            vals[:, :, win] = mv
     return key, vals
 
 

@@ -1,0 +1,177 @@
+"""The port's span recorder (``atm_raytracer_tpu_torch/tracing.py``) on the CPU.
+
+Off, ``span`` hands out one shared null context manager and nothing is
+recorded. On, each route a benchmark cell takes records its layer spans
+under one ``gen.render`` root: Fast with objects, the banded Fast render,
+Rectilinear at tilt 1 (the culled path) and at tilt 0 (the scan), all on
+the golden terrain at its golden size. The recorder changes no output; a
+span closes when its body raises; each thread keeps its own stack.
+"""
+
+import copy
+import dataclasses
+import threading
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import test_golden as G  # noqa: E402
+from atm_raytracer_tpu_torch import tracing  # noqa: E402
+from atm_raytracer_tpu_torch.config import Config  # noqa: E402
+from atm_raytracer_tpu_torch.generators import fast, rectilinear  # noqa: E402
+from atm_raytracer_tpu_torch.generators.base import HitBuffer  # noqa: E402
+from atm_raytracer_tpu_torch.terrain.store import Terrain  # noqa: E402
+from fixtures import make_terrain_folder  # noqa: E402
+
+# route -> (golden scene, generator, tilt, render call, the spans under its root)
+ROUTES = {
+    "fast objects": ("objects", "Fast", 0.0, fast.render_fast, {
+        "camera", "objects.plan", "fast.march", "fast.terrain_columns", "fast.combine",
+        "objects.pass", "fetch"}),
+    "fast banded": ("plain", "Fast", 0.0,
+                    lambda p, t, d: fast.render_fast_streamed(p, t, d, bands=8), {
+                        "camera", "fast.march", "fast.bands", "fast.terrain_columns",
+                        "fast.combine", "fetch"}),
+    "rectilinear tilt 1": ("plain", "Rectilinear", 1.0, rectilinear.render_rectilinear, {
+        "camera", "rect.capture", "rect.exact_test", "fetch"}),
+    "rectilinear tilt 0": ("plain", "Rectilinear", 0.0, rectilinear.render_rectilinear, {
+        "camera", "rect.scan", "fetch"}),
+}
+
+
+@pytest.fixture(autouse=True)
+def recorder_off():
+    tracing.disable()
+    tracing.take()
+    yield
+    tracing.disable()
+    tracing.take()
+
+
+@pytest.fixture(scope="module")
+def golden(tmp_path_factory):
+    d = make_terrain_folder(tmp_path_factory.mktemp("torch_tracing"), tiles=((49, 21),), n=181)
+    return d, Terrain.from_folder(d)
+
+
+def _params(golden, scene, generator, tilt):
+    d, terrain = golden
+    cfg = G._base_config(**copy.deepcopy(G.SCENES[scene]))
+    cfg["scene"]["terrain_folder"] = str(d)
+    cfg["output"]["generator"] = generator
+    cfg["view"]["frame"]["tilt"] = tilt
+    return Config.from_dict(cfg).into_params(terrain)
+
+
+@pytest.fixture(scope="module")
+def renders(golden):
+    """route -> (the render with the recorder off, with it on, its spans)."""
+    out = {}
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        for route, (scene, generator, tilt, render, _) in ROUTES.items():
+            params = _params(golden, scene, generator, tilt)
+            off = render(params, golden[1], "cpu")
+            tracing.enable()
+            try:
+                on = render(params, golden[1], "cpu")
+            finally:
+                tracing.disable()
+            out[route] = (off, on, tracing.take())
+    finally:
+        torch.set_num_threads(before)
+    return out
+
+
+def test_off_records_nothing_and_hands_out_the_shared_null(golden):
+    assert tracing.span("gen.render") is tracing.span("fast.bands")
+    with tracing.span("gen.render") as inner:
+        assert inner is None
+    fast.render_fast(_params(golden, "plain", "Fast", 0.0), golden[1], "cpu")
+    assert tracing.take() == []
+
+
+@pytest.mark.parametrize("route", ROUTES)
+def test_each_route_records_its_layer_spans_under_one_render(route, renders):
+    want = ROUTES[route][4]
+    spans = renders[route][2]
+    assert spans[0].name == "gen.render" and spans[0].parent is None
+    assert {s.name for s in spans[1:]} == want
+    for i, s in enumerate(spans):
+        assert s.start <= s.end
+        if i:
+            parent = spans[s.parent]
+            assert s.parent < i and parent.start <= s.start and s.end <= parent.end
+    if route == "fast banded":
+        assert [s.name for s in spans].count("fast.bands") == 1
+        assert {spans[s.parent].name for s in spans if s.name == "fast.combine"} == {"fast.bands"}
+    if route == "rectilinear tilt 1":
+        captures = [s for s in spans if s.name == "rect.capture"]
+        assert renders[route][1].culled_rounds == len(captures) >= 1
+
+
+@pytest.mark.parametrize("route", ROUTES)
+def test_the_recorder_changes_no_output(route, renders):
+    off, on, _ = renders[route]
+    assert torch.equal(torch.from_numpy(off.image), torch.from_numpy(on.image))
+    for f in dataclasses.fields(HitBuffer):
+        assert torch.equal(getattr(off.hits, f.name), getattr(on.hits, f.name)), f.name
+
+
+def test_a_profiler_recording_turns_the_recorder_on():
+    """A ``torch.profiler`` trace records the spans of what it profiles,
+    with the recorder not enabled; once it stops, spans are off again."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU]):
+        with tracing.span("gen.render"):
+            with tracing.span("camera"):
+                pass
+    assert tracing.span("after") is tracing.span("after.too")
+    root, cam = tracing.take()
+    assert (root.name, root.parent, cam.name, cam.parent) == ("gen.render", None, "camera", 0)
+    assert root.start <= cam.start <= cam.end <= root.end
+
+
+def test_a_span_closes_and_unwinds_when_its_body_raises():
+    tracing.enable()
+    with tracing.span("outer"):
+        with pytest.raises(ValueError):
+            with tracing.span("inner"):
+                raise ValueError("in the body")
+        with tracing.span("after"):
+            pass
+    with tracing.span("next"):
+        pass
+    outer, inner, after, nxt = tracing.take()
+    assert inner.end >= inner.start and inner.end <= after.start
+    assert inner.parent == 0 and after.parent == 0
+    assert nxt.parent is None and outer.end <= nxt.start
+
+
+def test_a_second_thread_keeps_its_own_parent_stack():
+    tracing.enable()
+    opened, release = threading.Event(), threading.Event()
+
+    def worker():
+        with tracing.span("worker"):
+            opened.set()
+            release.wait(10)
+            with tracing.span("worker.child"):
+                pass
+
+    t = threading.Thread(target=worker)
+    with tracing.span("main"):
+        t.start()
+        assert opened.wait(10)
+        with tracing.span("main.child"):
+            release.set()
+            t.join(10)
+    assert not t.is_alive()
+    spans = {s.name: (i, s) for i, s in enumerate(tracing.take())}
+    (i_main, main), (i_worker, worker_span) = spans["main"], spans["worker"]
+    assert main.parent is None and worker_span.parent is None
+    assert spans["worker.child"][1].parent == i_worker
+    assert spans["main.child"][1].parent == i_main
