@@ -14,10 +14,11 @@ one terrain scan per column suffice (fast.rs:27-44), then a W×H combine
   6. coloring + compositing          → u8 image
 
 Every stage runs on the device of the tensors it is given; the host packs
-terrain tiles, builds the refraction table and plans the objects' column
-windows. ``separable_hits`` and ``fast_core`` also take a sweep's F frames
-on a leading axis (``parallel.mesh.render_sweep_sharded``): one march of
-the F·H rays, one [F·W, N] terrain scan and one combine over [F, H, W, K].
+terrain tiles and builds the refraction table, and the objects' column
+windows come back from a float64 scan on the objects' device.
+``separable_hits`` and ``fast_core`` also take a sweep's F frames on a
+leading axis (``parallel.mesh.render_sweep_sharded``): one march of the
+F·H rays, one [F·W, N] terrain scan and one combine over [F, H, W, K].
 """
 
 from __future__ import annotations
@@ -74,7 +75,7 @@ _table_cache: dict = {}
 OBJ_HIT_CAP = 6
 
 # ObjectSet + column windows per Params object: repeat renders of one
-# lowered Params skip the host geodesic scan and the upload. Keyed by id()
+# lowered Params skip the geodesic scan and the upload. Keyed by id()
 # but guarded by a weakref identity check (CPython reuses freed addresses),
 # and a weakref finalizer evicts dead entries. Inner keys: the device, and
 # the azimuth grid + march length (the Fast camera and the Interpolating

@@ -2,8 +2,8 @@
 
 Counterpart of ``atm_raytracer_tpu/models/earth.py`` (reference
 src/utils/earth_model/mod.rs:19-145 and directional_calc.rs). Host parts
-(config parsing, canonical aliases, the physics shape, f64 cartesian) are
-numpy; the device parts work on float32 tensors on any device:
+(config parsing, canonical aliases, the physics shape) are plain Python;
+the device parts work on float32 tensors on any device:
 
 * ``geodesic_delta`` — (dlat, dlon) degrees from the observer along an
   azimuth, in the cancellation-free delta forms (great circle, Vincenty
@@ -11,8 +11,9 @@ numpy; the device parts work on float32 tensors on any device:
 * ``world_directions`` — the local (north, east, up) basis;
 * ``normal_offsets`` — degree offsets of a NORMAL_DIFF-meter move.
 
-``coords_at_dist_host`` is the host f64 geodesic (absolute lat/lon), the
-oracle of those delta forms.
+``coords_at_dist_host`` is the float64 geodesic (absolute lat/lon), the
+oracle of those delta forms; it and ``as_cartesian`` run in numpy on numpy
+inputs and in torch on the device of tensor inputs.
 """
 
 from __future__ import annotations
@@ -145,62 +146,66 @@ class EarthModel:
         return north, east, up
 
     def as_cartesian(self, lat, lon, elev):
-        """Geodetic → global cartesian, host-side float64 (mod.rs:59-93)."""
+        """Geodetic → global cartesian in float64 (mod.rs:59-93): numpy in,
+        numpy out; a tensor among the inputs gives a float64 tensor on its
+        device."""
         m = self._canonical()
-        lat = np.asarray(lat, np.float64)
-        lon = np.asarray(lon, np.float64)
-        elev = np.asarray(elev, np.float64)
+        xp, f64 = _namespace(lat, lon, elev)
+        lat, lon, elev = f64(lat), f64(lon), f64(elev)
         if m.kind == "Spherical":
             r = m.radius + elev
-            la, lo = np.deg2rad(lat), np.deg2rad(lon)
-            return np.stack(
-                [r * np.cos(la) * np.cos(lo), r * np.cos(la) * np.sin(lo),
-                 r * np.sin(la)], axis=-1)
+            la, lo = xp.deg2rad(lat), xp.deg2rad(lon)
+            return xp.stack(
+                [r * xp.cos(la) * xp.cos(lo), r * xp.cos(la) * xp.sin(lo),
+                 r * xp.sin(la)], axis=-1)
         if m.kind == "Ellipsoid":
             a, b = m.a, m.b
             e2 = 1.0 - (b * b) / (a * a)
-            la, lo = np.deg2rad(lat), np.deg2rad(lon)
-            n = a / np.sqrt(1.0 - e2 * np.sin(la) ** 2)
-            return np.stack(
-                [(n + elev) * np.cos(la) * np.cos(lo),
-                 (n + elev) * np.cos(la) * np.sin(lo),
-                 (n * (1.0 - e2) + elev) * np.sin(la)], axis=-1)
+            la, lo = xp.deg2rad(lat), xp.deg2rad(lon)
+            n = a / xp.sqrt(1.0 - e2 * xp.sin(la) ** 2)
+            return xp.stack(
+                [(n + elev) * xp.cos(la) * xp.cos(lo),
+                 (n + elev) * xp.cos(la) * xp.sin(lo),
+                 (n * (1.0 - e2) + elev) * xp.sin(la)], axis=-1)
         # flat family: azimuthal-equidistant plane (mod.rs:82-91)
         r = (90.0 - lat) * DEGREE_DISTANCE
-        lo = np.deg2rad(lon)
-        return np.stack([r * np.cos(lo), r * np.sin(lo), elev], axis=-1)
+        lo = xp.deg2rad(lon)
+        return xp.stack([r * xp.cos(lo), r * xp.sin(lo), elev], axis=-1)
 
     def coords_at_dist_host(self, lat0: float, lon0: float, az_deg, dist):
-        """(lat, lon) degrees at ``dist`` meters along an azimuth, host f64
+        """(lat, lon) degrees at ``dist`` meters along an azimuth, float64
         and vectorized (directional_calc.rs): the oracle of the device
-        delta forms, and the walk of ``output-elev-profile``."""
+        delta forms, the walk of ``output-elev-profile`` and the objects'
+        column scan. Numpy in, numpy out; a tensor among ``az_deg`` and
+        ``dist`` gives float64 tensors on its device."""
         m = self._canonical()
-        az = np.deg2rad(np.asarray(az_deg, np.float64))
-        dist = np.asarray(dist, np.float64)
+        xp, f64 = _namespace(az_deg, dist)
+        az = xp.deg2rad(f64(az_deg))
+        dist = f64(dist)
         if m.kind == "FlatDistorted":  # directional_calc.rs:41-48
-            dlat = np.cos(az) * dist / DEGREE_DISTANCE
-            dlon = np.sin(az) * dist / DEGREE_DISTANCE / np.cos(np.deg2rad(lat0))
+            dlat = xp.cos(az) * dist / DEGREE_DISTANCE
+            dlon = xp.sin(az) * dist / DEGREE_DISTANCE / float(np.cos(np.deg2rad(lat0)))
             return lat0 + dlat, lon0 + dlon
         if m.kind == "AzimuthalEquidistant":  # directional_calc.rs:20-28
-            pos = self.as_cartesian(lat0, lon0, 0.0)
-            north, east, _ = self.world_directions(lat0, lon0)
-            dir_v = north * np.cos(az)[..., None] + east * np.sin(az)[..., None]
+            pos = f64(self.as_cartesian(lat0, lon0, 0.0))
+            north, east, _ = (f64(v) for v in self.world_directions(lat0, lon0))
+            dir_v = north * xp.cos(az)[..., None] + east * xp.sin(az)[..., None]
             p2 = pos + dir_v * dist[..., None]
-            lon = np.rad2deg(np.arctan2(p2[..., 1], p2[..., 0]))
-            r = np.hypot(p2[..., 0], p2[..., 1])
+            lon = xp.rad2deg(xp.arctan2(p2[..., 1], p2[..., 0]))
+            r = xp.hypot(p2[..., 0], p2[..., 1])
             return 90.0 - r / DEGREE_DISTANCE, lon
         if m.kind in ("Spherical", "ObserverAe"):  # directional_calc.rs:71-86
             # the spherical basis even for ObserverAe, whose calculator is
             # the spherical one
             la, lo = np.deg2rad(lat0), np.deg2rad(lon0)
-            pos = np.array([np.cos(la) * np.cos(lo), np.cos(la) * np.sin(lo), np.sin(la)])
-            dirn = np.array([-np.sin(la) * np.cos(lo), -np.sin(la) * np.sin(lo), np.cos(la)])
-            dire = np.array([-np.sin(lo), np.cos(lo), 0.0])
-            d = dirn * np.cos(az)[..., None] + dire * np.sin(az)[..., None]
+            pos = f64([np.cos(la) * np.cos(lo), np.cos(la) * np.sin(lo), np.sin(la)])
+            dirn = f64([-np.sin(la) * np.cos(lo), -np.sin(la) * np.sin(lo), np.cos(la)])
+            dire = f64([-np.sin(lo), np.cos(lo), 0.0])
+            d = dirn * xp.cos(az)[..., None] + dire * xp.sin(az)[..., None]
             ang = dist / m.radius
-            f = pos * np.cos(ang)[..., None] + d * np.sin(ang)[..., None]
-            return (np.rad2deg(np.arcsin(f[..., 2])),
-                    np.rad2deg(np.arctan2(f[..., 1], f[..., 0])))
+            f = pos * xp.cos(ang)[..., None] + d * xp.sin(ang)[..., None]
+            return (xp.rad2deg(xp.arcsin(f[..., 2])),
+                    xp.rad2deg(xp.arctan2(f[..., 1], f[..., 0])))
         return _vincenty_direct(m.a, m.b, lat0, lon0, az, dist)
 
     def geodesic_delta(self, lat0: float, lon0: float, az_deg: torch.Tensor,
@@ -396,13 +401,16 @@ def _vincenty_delta_device(a, b, lat0, az, dist, iters: int = 12):
 
 
 def _vincenty_direct(a, b, lat0, lon0, az_rad, dist, iters: int = 12):
-    """Vincenty direct problem, host f64 (directional_calc.rs:103-185). The
+    """Vincenty direct problem in float64 (directional_calc.rs:103-185), in
+    the namespace of ``az_rad`` and ``dist`` (``_namespace``). The
     reference iterates to 1e-10; a fixed count converges in 3-4."""
+    xp, f64 = _namespace(az_rad, dist)
     f = (a - b) / a
     red_lat = np.arctan((1.0 - f) * np.tan(np.deg2rad(np.float64(lat0))))
-    sig1 = np.arctan2(np.tan(red_lat), np.cos(az_rad))
-    alfa = np.arcsin(np.cos(red_lat) * np.sin(az_rad))
-    cos2 = np.cos(alfa) ** 2
+    sr, cr = float(np.sin(red_lat)), float(np.cos(red_lat))
+    sig1 = xp.arctan2(f64(np.tan(red_lat)), xp.cos(az_rad))
+    alfa = xp.arcsin(cr * xp.sin(az_rad))
+    cos2 = xp.cos(alfa) ** 2
     u2 = cos2 * (a * a - b * b) / (b * b)
     cap_a = 1.0 + u2 / 256.0 * (64.0 + u2 * (-12.0 + 5.0 * u2))
     cap_b = u2 / 512.0 * (128.0 + u2 * (-64.0 + 37.0 * u2))
@@ -412,21 +420,31 @@ def _vincenty_direct(a, b, lat0, lon0, az_rad, dist, iters: int = 12):
     sig = base
     for _ in range(iters):
         sigm = 2.0 * sig1 + sig
-        dsig = cap_b * np.sin(sig) * (
-            np.cos(sigm) + cap_b / 4.0 * np.cos(sig) * (-1.0 + 2.0 * np.cos(sigm) ** 2)
+        dsig = cap_b * xp.sin(sig) * (
+            xp.cos(sigm) + cap_b / 4.0 * xp.cos(sig) * (-1.0 + 2.0 * xp.cos(sigm) ** 2)
         )
         sig = base + dsig
 
     sigm = 2.0 * sig1 + sig
-    sr, cr = np.sin(red_lat), np.cos(red_lat)
-    ss, cs = np.sin(sig), np.cos(sig)
-    ca1 = np.cos(az_rad)
-    lat2 = np.arctan(
+    ss, cs = xp.sin(sig), xp.cos(sig)
+    ca1 = xp.cos(az_rad)
+    lat2 = xp.arctan(
         (sr * cs + cr * ss * ca1)
-        / ((1.0 - f) * np.sqrt(np.sin(alfa) ** 2 + (sr * ss - cr * cs * ca1) ** 2))
+        / ((1.0 - f) * xp.sqrt(xp.sin(alfa) ** 2 + (sr * ss - cr * cs * ca1) ** 2))
     )
-    lam = np.arctan(ss * np.sin(az_rad) / (cr * cs - sr * ss * ca1))
-    dl = lam - (1.0 - cap_c) * f * np.sin(alfa) * (
-        sig + cap_c * ss * (np.cos(sigm) + cap_c * cs * (-1.0 + 2.0 * np.cos(sigm) ** 2))
+    lam = xp.arctan(ss * xp.sin(az_rad) / (cr * cs - sr * ss * ca1))
+    dl = lam - (1.0 - cap_c) * f * xp.sin(alfa) * (
+        sig + cap_c * ss * (xp.cos(sigm) + cap_c * cs * (-1.0 + 2.0 * xp.cos(sigm) ** 2))
     )
-    return np.rad2deg(lat2), lon0 + np.rad2deg(dl)
+    return xp.rad2deg(lat2), lon0 + xp.rad2deg(dl)
+
+
+def _namespace(*xs):
+    """(namespace, float64 converter) for the float64 geodesy: torch and
+    tensors on the device of the first tensor among ``xs``, else numpy
+    (``world_directions``' rule)."""
+    for x in xs:
+        if isinstance(x, torch.Tensor):
+            dev = x.device
+            return torch, lambda a: torch.as_tensor(a, dtype=torch.float64, device=dev)
+    return np, lambda a: np.asarray(a, np.float64)

@@ -15,8 +15,9 @@ window of march segments around its culling region, every (ray × window
 segment) test runs at once, and each pixel keeps its earliest hits:
 
 * ``object_col_windows`` — per object, the azimuth columns whose geodesic
-  passes within its culling radius, planned on the host from the model's
-  own f64 geodesics, so the candidate tensors are [H, W_window, seg_window];
+  passes within its culling radius, planned from the model's own float64
+  geodesics as tensors on the objects' device (one [n, 2] copy to the
+  host), so the candidate tensors are [H, W_window, seg_window];
 * ``apply_objects_planes`` — the separable grids (Fast, the Interpolating
   grid): one object at a time, in object order, merged into its column
   window of the frame's hit planes;
@@ -189,6 +190,11 @@ def ray_death_index(ray_h: torch.Tensor) -> torch.Tensor:
     return torch.where(dead.any(dim=1), first, n_path).to(torch.float32)
 
 
+# the window scan's largest float64 temporary, [W·D, chunk of objects]:
+# 128 MiB is 4 objects at 1080p over 200 km in 50 m steps (W·D = 1920·2000)
+_WINDOW_SCAN_BYTES = 1 << 27
+
+
 def object_col_windows(objects: ObjectSet, model: EarthModel, lat0: float, lon0: float,
                        az_deg, step: float, n_terr: int, stride: int = 2,
                        pad: int = 2) -> tuple:
@@ -196,39 +202,59 @@ def object_col_windows(objects: ObjectSet, model: EarthModel, lat0: float, lon0:
 
     For each object, the columns whose geodesic ray passes within its culling
     radius (``is_close``, frustum.rs:103-114) — outside them no ray can hit
-    it. Host f64 geodesics (``coords_at_dist_host``) at ``stride`` march
-    steps along the ray, widened by the between-sample movement (stride·step)
-    plus ``pad`` columns: conservative for every earth model.
+    it. The model's own float64 geodesics (``coords_at_dist_host``) at
+    ``stride`` march steps along the ray, evaluated as float64 tensors on the
+    objects' device, widened by the between-sample movement (stride·step)
+    plus ``pad`` columns: conservative for every earth model. Only each
+    object's first and last close column come back to the host.
 
     Returns a tuple of (col_lo, n_cols) per object; n_cols = 0 means the
     object is out of view for this azimuth grid.
     """
-    az = np.asarray(az_deg, np.float64)
-    w = az.shape[0]
-    dists = np.arange(1, max(n_terr, 2), stride, np.float64) * step  # [D]
-    glat, glon = model.coords_at_dist_host(lat0, lon0, az[:, None], dists[None, :])
-    # cartesian at elevation 0: raising both the geodesic point and the
-    # object by the object's altitude moves their separation by at most
-    # |p−c|·elev/R, negligible at culling-radius scales (see the margin)
-    p = model.as_cartesian(glat, glon, np.zeros_like(glat))  # [W, D, 3]
-    meta = np.asarray([(m[0], m[1], m[3]) for m in objects.host_meta], np.float64)
-    c = model.as_cartesian(meta[:, 0], meta[:, 1], np.zeros(len(meta)))  # [n, 3]
-    # all objects at once: [n, W] min distance² over D via |p|² + |c|² − 2 p·c
-    p2 = (p * p).sum(-1)  # [W, D]
-    c2 = (c * c).sum(-1)  # [n]
-    pc = p.reshape(-1, 3) @ c.T  # [W·D, n]
-    d2 = (p2.reshape(-1, 1) + c2[None, :] - 2.0 * pc).reshape(w, -1, len(meta)).min(axis=1).T
-    rr = meta[:, 2] + stride * step + 1.0
-    windows = []
-    for oi in range(len(meta)):
-        idx = np.nonzero(d2[oi] < rr[oi] * rr[oi])[0]
-        if idx.size == 0:
-            windows.append((0, 0))
-            continue
-        lo = max(0, int(idx[0]) - pad)
-        hi = min(w - 1, int(idx[-1]) + pad)
-        windows.append((lo, hi - lo + 1))
-    return tuple(windows)
+    with tracing.span("objects.col_windows"):
+        f64 = dict(dtype=torch.float64, device=objects.kind.device)
+        az = torch.as_tensor(az_deg, **f64)
+        w = az.shape[0]
+        dists = torch.arange(1, max(n_terr, 2), stride, **f64) * step  # [D]
+        glat, glon = model.coords_at_dist_host(lat0, lon0, az[:, None], dists[None, :])
+        # cartesian at elevation 0: raising both the geodesic point and the
+        # object by the object's altitude moves their separation by at most
+        # |p−c|·elev/R, negligible at culling-radius scales (see the margin)
+        p = model.as_cartesian(glat, glon, torch.zeros_like(glat))  # [W, D, 3]
+        del glat, glon
+        meta = torch.tensor([(m[0], m[1], m[3]) for m in objects.host_meta], **f64)
+        c = model.as_cartesian(meta[:, 0], meta[:, 1], torch.zeros_like(meta[:, 0]))  # [n, 3]
+        # [n, W] min distance² over D via |p|² + |c|² − 2 p·c, a chunk of
+        # objects at a time so that each [W·D, chunk] temporary stays under
+        # _WINDOW_SCAN_BYTES whatever the number of objects
+        p2 = (p * p).sum(-1).reshape(-1, 1)  # [W·D, 1]
+        c2 = (c * c).sum(-1)  # [n]
+        p = p.reshape(-1, 1, 3)
+        chunk = max(1, _WINDOW_SCAN_BYTES // (8 * p2.shape[0]))
+        d2 = []
+        for i in range(0, c.shape[0], chunk):
+            # elementwise, not a matmul: a first cuBLAS call would keep its
+            # workspace allocated for the rest of the process
+            pc = _dot(p, c[i:i + chunk])  # [W·D, chunk]
+            d2.append((p2 + c2[None, i:i + chunk] - 2.0 * pc).reshape(w, -1, pc.shape[1])
+                      .amin(dim=1).T)
+            del pc
+        del p
+        d2 = torch.cat(d2)  # [n, W]
+        rr = meta[:, 2] + stride * step + 1.0
+        close = d2 < (rr * rr)[:, None]  # [n, W]
+        cols = torch.arange(w, device=close.device)
+        ends = torch.stack([torch.where(close, cols, w).amin(dim=1),
+                            torch.where(close, cols, -1).amax(dim=1)], dim=1)
+        windows = []
+        for first, last in ends.tolist():  # the one copy to the host
+            if last < 0:
+                windows.append((0, 0))
+                continue
+            lo = max(0, first - pad)
+            hi = min(w - 1, last + pad)
+            windows.append((lo, hi - lo + 1))
+        return tuple(windows)
 
 
 def max_window_overlap(col_windows, n_objects: int) -> int:

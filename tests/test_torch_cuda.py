@@ -20,13 +20,18 @@ from atm_raytracer_tpu_torch.generators import interpolating as I  # noqa: E402
 from atm_raytracer_tpu_torch.generators.fast import render_fast  # noqa: E402
 from atm_raytracer_tpu_torch.generators.rectilinear import render_rectilinear  # noqa: E402
 from atm_raytracer_tpu_torch.ops import combine  # noqa: E402
+from atm_raytracer_tpu_torch.ops import objects as O  # noqa: E402
 from atm_raytracer_tpu_torch.physics import ray as R  # noqa: E402
 from atm_raytracer_tpu_torch.physics.atmosphere import Atmosphere, us_76  # noqa: E402
 from atm_raytracer_tpu_torch.terrain.store import Terrain, Tile  # noqa: E402
 from torch_parity import (  # noqa: E402,F401
+    WINDOW_GRIDS,
+    WINDOW_SHAPES,
     cuda_device,
     cull_fan,
+    fast_window_args,
     objects_golden_config,
+    seeded_objects_config,
     split_fit,
     verify_tolerance,
 )
@@ -490,6 +495,21 @@ def test_fast_object_pass_kernels_match_plain_on_card(cuda_device):
     assert ok, (frac_any, frac_big)
     assert float((gpu.hits.valid == plain.hits.valid).double().mean()) >= 0.999
     assert abs(_object_hits(gpu) - _object_hits(plain)) <= 5
+
+
+@pytest.mark.parametrize("shape", list(WINDOW_SHAPES))
+def test_col_windows_on_card_equal_cpu(shape, cuda_device):
+    """The objects' column windows scanned on the card equal the CPU scan
+    at 1080p's 1920 columns over 200 km in 50 m steps (one [1920, 2000]
+    float64 grid, two chunks of objects), on the scene whose CPU windows
+    ``test_torch_objects.py`` holds equal to the JAX package's (this file
+    imports no JAX, so the card is compared with the CPU here)."""
+    cfg = seeded_objects_config(WINDOW_SHAPES[shape], seed=19, **WINDOW_GRIDS["1080p"])
+    params = Config.from_dict(cfg).into_params(None)
+    args = fast_window_args(params)
+    gpu = O.object_col_windows(O.ObjectSet.build(params, cuda_device), params.model, *args)
+    cpu = O.object_col_windows(O.ObjectSet.build(params, "cpu"), params.model, *args)
+    assert gpu == cpu and sum(1 for _, n in gpu if n) == 6
 
 
 def test_tilted_object_frame_marches_through_the_kernel(cuda_device):

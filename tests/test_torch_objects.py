@@ -40,6 +40,16 @@ from atm_raytracer_tpu_torch.models.earth import EarthModel as TEarth  # noqa: E
 from atm_raytracer_tpu_torch.ops import objects as TO  # noqa: E402
 from atm_raytracer_tpu_torch.terrain.store import Terrain as TTerrain  # noqa: E402
 from fixtures import make_terrain_folder  # noqa: E402
+from torch_parity import (  # noqa: E402,F401
+    SEEDED_BEHIND,
+    SEEDED_BEYOND,
+    SEEDED_PAIR,
+    WINDOW_GRIDS,
+    WINDOW_SHAPES,
+    cuda_device,
+    fast_window_args,
+    seeded_objects_config,
+)
 
 LAT0, LON0 = G.LAT0, G.LON0
 HIT_FIELDS = ("dlat", "dlon", "distance", "elevation", "path_length", "normal", "rgba")
@@ -140,6 +150,31 @@ def test_host_planning_equals_jax(scene, golden_dir, reference_scene):
     assert TF.render_fast(tp, tt, "cpu").hits.valid.shape[-1] == k_out
     print(f"\n[{scene}] seg_window {tset.seg_window}, windows {t_wins}, overlap "
           f"{overlap}, k_out {k_out}")
+
+
+@pytest.mark.parametrize("device", ["cpu", pytest.param("cuda", marks=pytest.mark.cuda)])
+@pytest.mark.parametrize("grid", list(WINDOW_GRIDS))
+@pytest.mark.parametrize("shape", list(WINDOW_SHAPES))
+def test_col_windows_equal_jax_for_each_model(shape, grid, device, request):
+    """The port's column windows, scanned as float64 tensors on ``device``,
+    equal the JAX package's numpy scan on seeded objects of every
+    geodesic calculator: the two out of view get none, the pair on one
+    bearing overlaps, and the deepest overlap is the same."""
+    if device == "cuda":
+        device = request.getfixturevalue("cuda_device")
+    cfg = seeded_objects_config(WINDOW_SHAPES[shape], seed=19, **WINDOW_GRIDS[grid])
+    jp = JConfig.from_dict(cfg).into_params(None)
+    tp = TConfig.from_dict(cfg).into_params(None)
+    jset, tset = JO.ObjectSet.build(jp), TO.ObjectSet.build(tp, device)
+    args = fast_window_args(tp)
+    j_wins = JO.object_col_windows(jset, jp.model, *args)
+    t_wins = TO.object_col_windows(tset, tp.model, *args)
+    assert t_wins == j_wins
+    assert t_wins[SEEDED_BEHIND] == t_wins[SEEDED_BEYOND] == (0, 0)
+    (lo_a, n_a), (lo_b, n_b) = (t_wins[i] for i in SEEDED_PAIR)
+    assert n_a and n_b and lo_a < lo_b + n_b and lo_b < lo_a + n_a
+    overlap = TO.max_window_overlap(t_wins, tset.n_objects)
+    assert overlap == JO.max_window_overlap(j_wins, jset.n_objects) >= 2
 
 
 # -- the ENU frame -------------------------------------------------------------

@@ -1,7 +1,8 @@
 """Parity of the PyTorch port's diagnostic subcommands with the JAX package:
 ``output-atm`` and ``output-elev-profile`` print the same text,
 ``output-ray-paths`` the same fan within 1e-3 m on the plain march, and the
-host geodesic they walk agrees for all 8 Earth models.
+host geodesic they walk agrees for all 8 Earth models, fed numpy arrays or
+float64 tensors.
 """
 
 import argparse
@@ -28,6 +29,7 @@ from atm_raytracer_tpu_torch.tools import elev_profile as t_elev  # noqa: E402
 from atm_raytracer_tpu_torch.tools import ray_path as t_ray  # noqa: E402
 from fixtures import make_terrain_folder  # noqa: E402
 from test_torch_terrain import EARTH_CONFIGS, _ids  # noqa: E402
+from torch_parity import cuda_device  # noqa: E402,F401
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -167,3 +169,36 @@ def test_coords_at_dist_host_matches_jax(cfg):
         tlat, tlon = tm.coords_at_dist_host(lat0, lon0, az, dist)
         np.testing.assert_allclose(tlat, jlat, rtol=0, atol=1e-12)
         np.testing.assert_allclose(tlon, jlon, rtol=0, atol=1e-12)
+
+
+@pytest.mark.parametrize("device", ["cpu", pytest.param("cuda", marks=pytest.mark.cuda)])
+@pytest.mark.parametrize("cfg", EARTH_CONFIGS, ids=_ids)
+def test_port_geodesy_follows_its_input_namespace(cfg, device, request):
+    """The port's ``coords_at_dist_host`` and ``as_cartesian`` fed float64
+    tensors return float64 tensors on the input's device, within 1e-12
+    relative of the JAX package's on the same inputs; numpy inputs still
+    give numpy arrays."""
+    if device == "cuda":
+        device = request.getfixturevalue("cuda_device")
+    jm, tm = JEarth.from_config(cfg), TEarth.from_config(cfg)
+    rng = np.random.default_rng(11)
+    lat0, lon0 = 49.979439, 21.622839
+    az = rng.uniform(0.0, 360.0, (40, 1))
+    dist = rng.uniform(0.0, 300_000.0, (1, 30))
+    elev = rng.uniform(-100.0, 3000.0, (40, 30))
+    jlat, jlon = jm.coords_at_dist_host(lat0, lon0, az, dist)
+    want = (jlat, jlon, jm.as_cartesian(jlat, jlon, elev))
+    lat, lon = tm.coords_at_dist_host(lat0, lon0, az, dist)
+    got = (lat, lon, tm.as_cartesian(lat, lon, elev))
+    assert all(type(x) is np.ndarray for x in got)
+
+    def f64(x):
+        return torch.as_tensor(x, dtype=torch.float64, device=device)
+
+    t_lat, t_lon = tm.coords_at_dist_host(lat0, lon0, f64(az), f64(dist))
+    t_got = (t_lat, t_lon, tm.as_cartesian(t_lat, t_lon, f64(elev)))
+    for t, n, w in zip(t_got, got, want):
+        assert isinstance(t, torch.Tensor) and t.dtype == torch.float64
+        assert t.device == torch.device(device)
+        np.testing.assert_allclose(n, w, rtol=1e-12, atol=0.0)
+        np.testing.assert_allclose(t.cpu().numpy(), w, rtol=1e-12, atol=0.0)

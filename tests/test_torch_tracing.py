@@ -120,6 +120,25 @@ def test_the_recorder_changes_no_output(route, renders):
         assert torch.equal(getattr(off.hits, f.name), getattr(on.hits, f.name)), f.name
 
 
+def test_the_window_scan_opens_only_when_the_plan_misses(golden):
+    """``objects.col_windows`` opens once inside ``objects.plan`` for a new
+    Params with objects, not on a second render of the same Params (the
+    memo hits), and a scene without objects opens neither."""
+    params = _params(golden, "objects", "Fast", 0.0)
+    tracing.enable()
+    fast.render_fast(params, golden[1], "cpu")
+    first = tracing.take()
+    fast.render_fast(params, golden[1], "cpu")
+    again = tracing.take()
+    fast.render_fast(_params(golden, "plain", "Fast", 0.0), golden[1], "cpu")
+    plain = tracing.take()
+    scans = [s for s in first if s.name == "objects.col_windows"]
+    assert len(scans) == 1 and first[scans[0].parent].name == "objects.plan"
+    assert [s.name for s in again].count("objects.plan") == 1
+    assert "objects.col_windows" not in {s.name for s in again}
+    assert not {"objects.plan", "objects.col_windows"} & {s.name for s in plain}
+
+
 def test_a_profiler_recording_turns_the_recorder_on():
     """A ``torch.profiler`` trace records the spans of what it profiles,
     with the recorder not enabled; once it stops, spans are off again."""

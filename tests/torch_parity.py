@@ -81,6 +81,84 @@ def parallel_object(dist_m, color, shape):
     }
 
 
+# the earth models whose geodesics plan the objects' column windows: one of
+# each calculator (sphere, Vincenty, the two flat ones, the AE projection)
+WINDOW_SHAPES = {
+    "Spherical": {"Spherical": {"radius": 6_371_000.0}},
+    "Wgs84": "Wgs84",
+    "FlatDistorted": "FlatDistorted",
+    "AzimuthalEquidistant": "AzimuthalEquidistant",
+    "ObserverAe": {"ObserverAe": {"proj_radius": 6_371_000.0}},
+}
+
+# the Fast grids of the window tests: a small one, and the benchmark's
+# 1080p grid over 200 km in 50 m steps ([1920, 2000] geodesic points, two
+# chunks of objects), where a column's distance comes closest to its limit
+WINDOW_GRIDS = {
+    "64_columns": {},
+    "1080p": {"width": 1920, "max_distance": 200_000.0, "step": 50.0},
+}
+
+# the seeded objects' roles, by index in ``seeded_objects_config``'s list
+SEEDED_PAIR, SEEDED_BEHIND, SEEDED_BEYOND = (4, 5), 6, 7
+
+
+def seeded_objects_config(shape, seed, width=64, max_distance=25_000.0, step=100.0):
+    """A Fast scene of 8 seeded objects placed along ``shape``'s own
+    geodesics, every altitude absolute (no terrain needed to lower it):
+    four in view; two on one bearing at 30 % and 60 % of ``max_distance``,
+    whose column windows overlap (``SEEDED_PAIR``); one behind the camera
+    (``SEEDED_BEHIND``) and one past ``max_distance`` on the view's centre
+    bearing (``SEEDED_BEYOND``), both out of view."""
+    from atm_raytracer_tpu_torch.models.earth import EarthModel
+
+    model = EarthModel.from_config(shape)
+    rng = np.random.default_rng(seed)
+    direction, fov = 45.0, 30.0
+    half = fov / 2.0 - 2.0
+    pair_az = float(rng.uniform(direction - half, direction + half))
+    placed = [(float(rng.uniform(direction - half, direction + half)),
+               float(rng.uniform(0.1, 0.8)) * max_distance) for _ in range(4)]
+    placed += [(pair_az, 0.3 * max_distance), (pair_az, 0.6 * max_distance),
+               (direction + 180.0, 0.2 * max_distance), (direction, 1.6 * max_distance)]
+    objects = []
+    for i, (az, dist) in enumerate(placed):
+        lat, lon = model.coords_at_dist_host(49.5, 21.5, az, dist)
+        radius = float(rng.uniform(20.0, 80.0))
+        kind = "Cylinder" if i % 2 == 0 else "Cone"
+        objects.append({
+            "position": {"latitude": float(lat), "longitude": float(lon),
+                         "altitude": {"Absolute": 200.0}},
+            "color": {"r": 0.9, "g": 0.1, "b": 0.1},
+            "shape": {kind: {"radius": radius, "height": 150.0}},
+        })
+    return {
+        "scene": {"terrain_folder": ".", "objects": objects},
+        "earth_shape": shape,
+        "view": {
+            "position": {"latitude": 49.5, "longitude": 21.5, "altitude": {"Absolute": 300.0}},
+            "frame": {"direction": direction, "fov": fov, "max_distance": max_distance,
+                      "tilt": 0.0},
+            "coloring": {"Shading": {"water_level": -100.0}},
+        },
+        "straight_rays": False,
+        "simulation_step": step,
+        "output": {"width": width, "height": 48, "file": "out.png", "generator": "Fast"},
+    }
+
+
+def fast_window_args(params):
+    """(lat0, lon0, azimuths, step, n_terr): the arguments after the model
+    that ``object_col_windows`` takes for ``params``' Fast grid."""
+    from atm_raytracer_tpu_torch.models import camera
+
+    out, frame, pos = params.output, params.view.frame, params.view.position
+    az = camera.fast_ray_azimuths(out.width, out.height, frame.fov, frame.direction)
+    n_terr = int(math.ceil(frame.max_distance / params.simulation_step))
+    return (float(pos.latitude), float(pos.longitude), az, float(params.simulation_step),
+            n_terr)
+
+
 def verify_tolerance(a, b):
     """The on-chip verify tolerance of bench.py:548-551 on two u8 images:
     (ok, fraction of pixels that moved at all, fraction moved > 2 counts)."""
