@@ -251,48 +251,50 @@ def separable_hits(pack: TerrainPack, table: Optional[RefractionTable],
     n_seg = n_terr - 1
     crossing = (combine.terrain_crossing_segments_plain if plain
                 else combine.terrain_crossing_segments)
-    with tracing.span("fast.combine"):
+    with tracing.span("fast.combine", device=True):
         segs = crossing(ray_h, terr_elev, n_seg, max_hits)
-    valid = segs < n_seg
-    ks = torch.where(valid, segs, 0)
+    tracing.count("fast.max_hits", max_hits)
 
     # 4. field gathers (TracingState::interpolate, utils.rs:108-133): both
     # segment ends of the terrain (elevation + normal) and ray (altitude +
     # path length) stacks; the hit's dlat/dlon re-derive per pixel from
     # (column azimuth, key·step) through the same geodesic
-    stacked = torch.cat([terr_elev[..., None], terr_normal], dim=-1)  # [F, W, N, 4]
-    c_lo, c_hi = combine.gather_pairs(stacked, ks, (0, 2))  # [F, H, W, K, 4] ×2
-    ray_stack = torch.stack([ray_h, path_len], dim=-1)  # [F, H, N, 2]
-    r_lo, r_hi = combine.gather_pairs(ray_stack, ks, (0, 1))
-    d1 = r_lo[..., 0] - c_lo[..., 0]
-    d2 = r_hi[..., 0] - c_hi[..., 0]
-    denom = d1 - d2
-    prop = d1 / torch.where(denom == 0.0, torch.ones_like(denom), denom)  # utils.rs:232
-    keys = torch.where(valid, ks.to(torch.float32) + prop,
-                       torch.full_like(prop, combine.NO_HIT))
-    safe_keys = torch.where(valid, keys, torch.zeros_like(keys))
+    with tracing.span("fast.fields", device=True):
+        valid = segs < n_seg
+        ks = torch.where(valid, segs, 0)
+        stacked = torch.cat([terr_elev[..., None], terr_normal], dim=-1)  # [F, W, N, 4]
+        c_lo, c_hi = combine.gather_pairs(stacked, ks, (0, 2))  # [F, H, W, K, 4] ×2
+        ray_stack = torch.stack([ray_h, path_len], dim=-1)  # [F, H, N, 2]
+        r_lo, r_hi = combine.gather_pairs(ray_stack, ks, (0, 1))
+        d1 = r_lo[..., 0] - c_lo[..., 0]
+        d2 = r_hi[..., 0] - c_hi[..., 0]
+        denom = d1 - d2
+        prop = d1 / torch.where(denom == 0.0, torch.ones_like(denom), denom)  # utils.rs:232
+        keys = torch.where(valid, ks.to(torch.float32) + prop,
+                           torch.full_like(prop, combine.NO_HIT))
+        safe_keys = torch.where(valid, keys, torch.zeros_like(keys))
 
-    hit_stack = c_lo * (1.0 - prop[..., None]) + c_hi * prop[..., None]
-    hit_plen = r_lo[..., 1] * (1.0 - prop) + r_hi[..., 1] * prop
-    hit_dist = safe_keys * float(np.float32(step))  # dist is linear in the key
-    hit_dlat, hit_dlon = model.geodesic_delta(
-        lat0, lon0, az_deg.to(torch.float32)[..., None, :, None], hit_dist
-    )
+        hit_stack = c_lo * (1.0 - prop[..., None]) + c_hi * prop[..., None]
+        hit_plen = r_lo[..., 1] * (1.0 - prop) + r_hi[..., 1] * prop
+        hit_dist = safe_keys * float(np.float32(step))  # dist is linear in the key
+        hit_dlat, hit_dlon = model.geodesic_delta(
+            lat0, lon0, az_deg.to(torch.float32)[..., None, :, None], hit_dist
+        )
 
-    rgba = torch.zeros(keys.shape + (4,), dtype=torch.float32, device=keys.device)
-    rgba[..., 3] = float(terrain_alpha)
-    hits = HitBuffer(
-        valid=valid,
-        key=keys,
-        dlat=hit_dlat,
-        dlon=hit_dlon,
-        distance=hit_dist,
-        elevation=hit_stack[..., 0],
-        path_length=hit_plen,
-        normal=hit_stack[..., 1:4],
-        kind=torch.zeros(keys.shape, dtype=torch.int32, device=keys.device),
-        rgba=rgba,
-    )
+        rgba = torch.zeros(keys.shape + (4,), dtype=torch.float32, device=keys.device)
+        rgba[..., 3] = float(terrain_alpha)
+        hits = HitBuffer(
+            valid=valid,
+            key=keys,
+            dlat=hit_dlat,
+            dlon=hit_dlon,
+            distance=hit_dist,
+            elevation=hit_stack[..., 0],
+            path_length=hit_plen,
+            normal=hit_stack[..., 1:4],
+            kind=torch.zeros(keys.shape, dtype=torch.int32, device=keys.device),
+            rgba=rgba,
+        )
     if objects is not None:  # 5. scene objects
         overlap = (max_window_overlap(obj_windows, objects.n_objects)
                    if obj_overlap is None else obj_overlap)
@@ -305,6 +307,8 @@ def separable_hits(pack: TerrainPack, table: Optional[RefractionTable],
                 file=sys.stderr,
             )
         k_out = max_hits + min(2 * overlap, max(obj_hit_cap, 2))
+        tracing.count("objects.overlap", overlap)
+        tracing.count("objects.k_out", k_out)
         key, vals = hits_to_planes(hits, k_out)
         # the object pass runs frame by frame (its temporaries are per frame)
         per_frame = [apply_objects_planes(
@@ -312,6 +316,7 @@ def separable_hits(pack: TerrainPack, table: Optional[RefractionTable],
             dlat[f], dlon[f], obj_windows, k_out) for f in range(f_n)]
         hits = planes_to_hits(torch.stack([k for k, _ in per_frame]),
                               torch.stack([v for _, v in per_frame], dim=1))
+    tracing.count("fast.slots", hits.valid.numel())
     if one_frame:
         hits = HitBuffer(**{f.name: getattr(hits, f.name)[0]
                             for f in dataclasses.fields(HitBuffer)})
@@ -341,11 +346,12 @@ def fast_core(pack: TerrainPack, table: Optional[RefractionTable],
     )
     if light_dir is not None:  # broadcast over the [H, W, K] of each frame
         light_dir = light_dir.reshape(light_dir.shape[:-1] + (1, 1, 1, 3))
-    image = composite(
-        coloring, fog_distance, hits.valid, hits.rgba[..., 3], hits.distance,
-        hits.elevation, hits.path_length, hits.normal, hits.kind,
-        hits.rgba[..., :3], light_dir,
-    )
+    with tracing.span("composite", device=True):
+        image = composite(
+            coloring, fog_distance, hits.valid, hits.rgba[..., 3], hits.distance,
+            hits.elevation, hits.path_length, hits.normal, hits.kind,
+            hits.rgba[..., :3], light_dir,
+        )
     return image, hits
 
 

@@ -593,7 +593,7 @@ def apply_objects_planes(planes, objects: ObjectSet, model: EarthModel, lat0: fl
     w_n = dlat.shape[0]
     if col_windows is None:
         col_windows = ((0, w_n),) * objects.n_objects
-    with tracing.span("objects.pass"):
+    with tracing.span("objects.pass", device=True):
         key, vals = _pad_planes(planes, k_out)
         death_idx = ray_death_index(ray_h)
         for oi in range(objects.n_objects):

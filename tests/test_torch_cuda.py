@@ -512,6 +512,59 @@ def test_col_windows_on_card_equal_cpu(shape, cuda_device):
     assert gpu == cpu and sum(1 for _, n in gpu if n) == 6
 
 
+
+def _object_pixels(hits, config):
+    """For each object of a benchmark configuration, at its stored position:
+    the pixels it is a valid kind-1 hit in (told apart by the hit's distance,
+    within 250 m of the object's), and of those the pixels where a terrain
+    hit lies in front of its nearest hit."""
+    sc = config["scene"]["view"]["position"]
+    lat0, lon0 = np.radians(sc["latitude"]), np.radians(sc["longitude"])
+    inf = torch.full_like(hits.key, float("inf"))
+    terrain = hits.valid & (hits.kind == 0)
+    first_terrain = torch.where(terrain, hits.key, inf).min(-1).values
+    seen, behind = [], []
+    for lat, lon in config["objects"]["placed"]:
+        lat, lon = np.radians(lat), np.radians(lon)
+        d = 2 * 6371000.0 * np.arcsin(np.sqrt(
+            np.sin((lat - lat0) / 2) ** 2
+            + np.cos(lat0) * np.cos(lat) * np.sin((lon - lon0) / 2) ** 2))
+        mine = hits.valid & (hits.kind == 1) & ((hits.distance - float(d)).abs() < 250.0)
+        px = mine.any(-1)
+        nearest = torch.where(mine, hits.key, inf).min(-1).values
+        seen.append(int(px.sum()))
+        behind.append(int((px & (first_terrain < nearest)).sum()))
+    return seen, behind
+
+
+def test_translucent_scene_sees_its_objects_through_the_terrain(cuda_device):
+    """The benchmark's translucent scene (``portbench/configs/
+    translucent_1080p.json``, bench.py's positions) at 1080p on the card,
+    looking down the objects' sector (45 degrees) through the benchmark's
+    route: each of the ten objects is a valid kind-1 hit, and each whose base
+    a nearer ridge hides (objects 3-10, from 3.3 km out) is seen in some
+    pixels through the translucent terrain, a terrain hit in front of it."""
+    import tempfile
+    from pathlib import Path
+
+    from portbench import harness, scene
+
+    config = harness.load_json(harness.HERE / "configs" / "translucent_1080p.json")
+    keys, tiles = scene.make_tiles(config, cuda_device)
+    program = harness.Program()
+    terrain = scene.build_terrain(program.Terrain, program.Tile, keys, tiles)
+    with tempfile.TemporaryDirectory() as d:
+        texture = Path(d) / "checker64.png"
+        scene.write_texture(texture)
+        objects = scene.objects_at(config, config["objects"]["placed"], texture)
+        frame = scene.frame_dict(config["scene"], 45.0, 0.0, "Fast", objects)
+        hits = program.render(program.lower(frame, terrain), terrain, cuda_device).hits
+    assert hits.valid.shape[-1] == 10
+    seen, behind = _object_pixels(hits, config)
+    assert all(seen), seen
+    assert all(behind[2:]), behind
+
+
 def test_tilted_object_frame_marches_through_the_kernel(cuda_device):
     """Tilted, an object frame takes the dense path (never the culled one),
     whose march goes through K2, and matches the CPU."""

@@ -28,11 +28,11 @@ from fixtures import make_terrain_folder  # noqa: E402
 ROUTES = {
     "fast objects": ("objects", "Fast", 0.0, fast.render_fast, {
         "camera", "objects.plan", "fast.march", "fast.terrain_columns", "fast.combine",
-        "objects.pass", "fetch"}),
+        "fast.fields", "objects.pass", "composite", "fetch"}),
     "fast banded": ("plain", "Fast", 0.0,
                     lambda p, t, d: fast.render_fast_streamed(p, t, d, bands=8), {
                         "camera", "fast.march", "fast.bands", "fast.terrain_columns",
-                        "fast.combine", "fetch"}),
+                        "fast.combine", "fast.fields", "composite", "fetch"}),
     "rectilinear tilt 1": ("plain", "Rectilinear", 1.0, rectilinear.render_rectilinear, {
         "camera", "rect.capture", "rect.exact_test", "fetch"}),
     "rectilinear tilt 0": ("plain", "Rectilinear", 0.0, rectilinear.render_rectilinear, {
@@ -194,3 +194,124 @@ def test_a_second_thread_keeps_its_own_parent_stack():
     assert main.parent is None and worker_span.parent is None
     assert spans["worker.child"][1].parent == i_worker
     assert spans["main.child"][1].parent == i_main
+
+
+class _FakeEvent:
+    """A stand-in for ``torch.cuda.Event`` off a card: its time is when it
+    was recorded, on the host's clock."""
+
+    made = 0
+
+    def __init__(self, enable_timing=False):
+        assert enable_timing
+        type(self).made += 1
+        self.at = None
+
+    def record(self):
+        import time
+
+        self.at = time.perf_counter()
+
+    def synchronize(self):
+        assert self.at is not None
+
+    def elapsed_time(self, end):
+        return 1e3 * (end.at - self.at)
+
+
+def test_off_a_device_span_and_a_count_make_and_store_nothing(monkeypatch):
+    """Off, a device-timed span is the shared null context manager (no
+    event made, even with CUDA initialised) and a count stores nothing."""
+    monkeypatch.setattr(torch.cuda, "is_initialized", lambda: True)
+    monkeypatch.setattr(torch.cuda, "Event", _FakeEvent)
+    _FakeEvent.made = 0
+    assert tracing.span("objects.pass", device=True) is tracing.span("composite") is tracing._NULL
+    with tracing.span("fast.fields", device=True) as inner:
+        assert inner is None
+        tracing.count("fast.slots", 10)
+    tracing.count("fast.slots", torch.tensor(3))
+    assert _FakeEvent.made == 0
+    assert tracing.take() == []
+
+
+def test_device_time_is_none_on_the_cpu(renders):
+    """Without CUDA initialised a device-timed span records no event: its
+    ``device_ms`` is None, on a bare span and on every span of a render."""
+    assert not torch.cuda.is_initialized()
+    tracing.enable()
+    with tracing.span("composite", device=True):
+        pass
+    (s,) = tracing.take()
+    assert s.events is None and s.device_ms is None
+    for route in ROUTES:
+        assert all(sp.device_ms is None for sp in renders[route][2])
+
+
+def test_a_device_span_reads_the_time_between_its_two_events(monkeypatch):
+    """With CUDA initialised a device-timed span records an event when it
+    opens and one when it closes; ``device_ms`` is their elapsed time. A
+    span not asked to be device-timed records none."""
+    monkeypatch.setattr(torch.cuda, "is_initialized", lambda: True)
+    monkeypatch.setattr(torch.cuda, "Event", _FakeEvent)
+    _FakeEvent.made = 0
+    tracing.enable()
+    with tracing.span("gen.render"):
+        with tracing.span("objects.pass", device=True):
+            pass
+    root, timed = tracing.take()
+    assert _FakeEvent.made == 2 and root.events is None and root.device_ms is None
+    opened, closed = timed.events
+    assert timed.start <= opened.at <= closed.at <= timed.end
+    assert timed.device_ms == pytest.approx(1e3 * (closed.at - opened.at))
+
+
+class _Lazy:
+    """A counter value that notes when it is read, as a 0-d device tensor
+    read by ``float`` would synchronize."""
+
+    def __init__(self, value):
+        self.value, self.reads = value, 0
+
+    def __float__(self):
+        self.reads += 1
+        return float(self.value)
+
+
+def test_a_tensor_count_is_read_only_at_take():
+    """A count is kept on the innermost open span and read when the
+    recording is taken, not when it is counted; each count of a name under
+    one span is kept, and a count with no span open is not."""
+    lazy = _Lazy(7)
+    tracing.enable()
+    tracing.count("outside", 1)
+    with tracing.span("gen.render"):
+        tracing.count("fast.slots", 100)
+        with tracing.span("fast.bands"):
+            tracing.count("objects.k_out", lazy)
+            tracing.count("objects.k_out", torch.tensor(5))
+            assert lazy.reads == 0
+    assert lazy.reads == 0
+    root, bands = tracing.take()
+    assert lazy.reads == 1
+    assert root.counts == {"fast.slots": [100.0]}
+    assert bands.counts == {"objects.k_out": [7.0, 5.0]}
+
+
+@pytest.mark.parametrize("route", ["fast objects", "fast banded"])
+def test_a_fast_render_counts_its_hit_slots(route, renders):
+    """The Fast routes count the hit depth, the object windows' overlap and
+    the object depth it gives, and the slots of the hit buffer, as the
+    returned hits have them."""
+    _, on, spans = renders[route]
+    counts = {}
+    for s in spans:
+        for k, v in (s.counts or {}).items():
+            counts.setdefault(k, []).extend(v)
+    assert sum(counts["fast.slots"]) == on.hits.valid.numel()
+    k = on.hits.valid.shape[-1]
+    if route == "fast objects":
+        (max_hits,), (overlap,), (k_out,) = (counts[n] for n in (
+            "fast.max_hits", "objects.overlap", "objects.k_out"))
+        assert k_out == k == max_hits + min(2 * overlap, fast.OBJ_HIT_CAP) and overlap >= 1
+    else:
+        assert set(counts["fast.max_hits"]) == {k} and "objects.k_out" not in counts
