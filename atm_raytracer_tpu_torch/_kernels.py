@@ -208,7 +208,17 @@ RECT_CULLED = CudaKernel(
      _F, _F, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
 )
 
-KERNELS = (COMBINE, MARCH, RECT_SCAN, RECT_CULLED)
+# K6: the separable object pass (ops/objects.py::apply_objects_planes): its
+# culling scan and window tables, the widened planes, then the pass, one
+# launch a frame
+OBJECT_PASS = CudaKernel(
+    "object_pass.cu", "object_pass",
+    [_P, _P, _I, _P, _P, _I, _I, _I, _P, _P, _I, _P, _P, _I, _P, _P, _I, _I, _I, _P, _P, _P,
+     _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _I, _F,
+     _I, _P],
+)
+
+KERNELS = (COMBINE, MARCH, RECT_SCAN, RECT_CULLED, OBJECT_PASS)
 
 
 def _gxx() -> str:

@@ -223,11 +223,12 @@ def separable_hits(pack: TerrainPack, table: Optional[RefractionTable],
     over [F, H, W, K]; the hits come back [F, H, W, K]. One frame
     (``az_deg`` [W], a scalar ``alt0``) is the case F = 1, its hits [H, W, K].
 
-    ``plain`` runs the march and the combine as their plain PyTorch
-    versions on whatever device the tensors are on (the kernels' oracle on
-    the card); otherwise CUDA tensors go through the kernels. ``march``,
-    the (ray_h, path_len) [F, H, n_terr] of ``march_frames`` for these rows,
-    skips the march (the banded render marches once for all its bands).
+    ``plain`` runs the march, the combine and the object pass as their
+    plain PyTorch versions on whatever device the tensors are on (the
+    kernels' oracle on the card); otherwise CUDA tensors go through the
+    kernels. ``march``, the (ray_h, path_len) [F, H, n_terr] of
+    ``march_frames`` for these rows, skips the march (the banded render
+    marches once for all its bands).
     """
     one_frame = az_deg.ndim == 1
     if one_frame:
@@ -309,13 +310,17 @@ def separable_hits(pack: TerrainPack, table: Optional[RefractionTable],
         k_out = max_hits + min(2 * overlap, max(obj_hit_cap, 2))
         tracing.count("objects.overlap", overlap)
         tracing.count("objects.k_out", k_out)
-        key, vals = hits_to_planes(hits, k_out)
-        # the object pass runs frame by frame (its temporaries are per frame)
+        # the pass widens the K terrain slots to k_out, frame by frame
+        key, vals = hits_to_planes(hits)
         per_frame = [apply_objects_planes(
             (key[f], vals[:, f]), objects, model, lat0, step, ray_h[f], path_len[f],
-            dlat[f], dlon[f], obj_windows, k_out) for f in range(f_n)]
-        hits = planes_to_hits(torch.stack([k for k, _ in per_frame]),
-                              torch.stack([v for _, v in per_frame], dim=1))
+            dlat[f], dlon[f], obj_windows, k_out, plain=plain) for f in range(f_n)]
+        if f_n == 1:
+            key, vals = per_frame[0][0][None], per_frame[0][1][:, None]
+        else:
+            key = torch.stack([k for k, _ in per_frame])
+            vals = torch.stack([v for _, v in per_frame], dim=1)
+        hits = planes_to_hits(key, vals)
     tracing.count("fast.slots", hits.valid.numel())
     if one_frame:
         hits = HitBuffer(**{f.name: getattr(hits, f.name)[0]

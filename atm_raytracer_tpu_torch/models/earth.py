@@ -281,8 +281,22 @@ class EarthModel:
         (east, north, up) = (tangential, −radial, z). Ellipsoid: the
         spherical formula on the local sphere of radius (2a+b)/3.
         """
+        terms = self.enu_terms(dlat_p, dlon_p, dlat_o, dlon_o, lat0)
+        return self.enu_from_terms(terms, elev_p, elev_o)
+
+    def enu_radius(self) -> Optional[float]:
+        """The sphere radius of ``enu_rel``; None for the flat family."""
         m = self._canonical()
         if m.is_flat_family:
+            return None
+        return (2.0 * m.a + m.b) / 3.0 if m.kind == "Ellipsoid" else m.radius
+
+    def enu_terms(self, dlat_p, dlon_p, dlat_o, dlon_o, lat0: float) -> tuple:
+        """The three terms of ``enu_rel`` that do not depend on P's
+        altitude. Spherical family: P's unit radial in O's ENU as (u_e,
+        u_n, u_u − 1); flat family: (east, north, 0), which no altitude
+        moves. ``enu_from_terms`` finishes the vector at any altitude."""
+        if self.is_flat_family:
             # north = −(r_p cosΔλ − r_o), cancellation-free:
             #       = −dr + (r_o + dr)·2sin²(Δλ/2)
             r_o = (90.0 - (lat0 + dlat_o)) * DEGREE_DISTANCE
@@ -291,23 +305,33 @@ class EarthModel:
             r_p = r_o + dr
             east = r_p * torch.sin(dlon_r)
             north = -dr + r_p * 2.0 * torch.sin(dlon_r * 0.5) ** 2
-            up = elev_p - elev_o
-            return torch.stack(torch.broadcast_tensors(east, north, up), dim=-1)
-        radius = (2.0 * m.a + m.b) / 3.0 if m.kind == "Ellipsoid" else m.radius
+            return east, north, torch.zeros_like(east)
         lo = torch.deg2rad(lat0 + dlat_o)
         sin_o, cos_o = torch.sin(lo), torch.cos(lo)
         dlat_r = torch.deg2rad(dlat_p - dlat_o)
         dlon_r = torch.deg2rad(dlon_p - dlon_o)
         cos_p = torch.cos(torch.deg2rad(lat0 + dlat_p))
-        r_p = radius + elev_p
         # unit radial of P in O's ENU, small-quantity forms
         two_s2_lon = 2.0 * torch.sin(dlon_r * 0.5) ** 2  # = 1 − cos Δλ
         u_e = cos_p * torch.sin(dlon_r)
         u_n = torch.sin(dlat_r) + cos_p * sin_o * two_s2_lon
         u_u_m1 = -2.0 * torch.sin(dlat_r * 0.5) ** 2 - cos_p * cos_o * two_s2_lon
-        east = r_p * u_e
-        north = r_p * u_n
-        up = (elev_p - elev_o) + r_p * u_u_m1
+        return u_e, u_n, u_u_m1
+
+    def enu_from_terms(self, terms: tuple, elev_p, elev_o) -> torch.Tensor:
+        """``enu_rel`` [..., 3] from its ``enu_terms`` at P's altitude
+        ``elev_p``: affine in it, r_p = R + elev_p scaling the unit radial
+        (the flat family's east and north do not move)."""
+        radius = self.enu_radius()
+        if radius is None:
+            east, north, _ = terms
+            up = elev_p - elev_o
+        else:
+            u_e, u_n, u_u_m1 = terms
+            r_p = radius + elev_p
+            east = r_p * u_e
+            north = r_p * u_n
+            up = (elev_p - elev_o) + r_p * u_u_m1
         return torch.stack(torch.broadcast_tensors(east, north, up), dim=-1)
 
 

@@ -20,7 +20,10 @@ segment) test runs at once, and each pixel keeps its earliest hits:
   host), so the candidate tensors are [H, W_window, seg_window];
 * ``apply_objects_planes`` — the separable grids (Fast, the Interpolating
   grid): one object at a time, in object order, merged into its column
-  window of the frame's hit planes;
+  window of the frame's hit planes. CUDA tensors launch the kernel
+  ``csrc/object_pass.cu`` (K6) once; CPU tensors, and ``plain=True``, run
+  ``apply_objects_planes_plain``, K6's oracle on the card
+  (``object_column_tables`` is the plain version of K6's prologue);
 * ``object_hits_pixelwise`` + ``merge_hits`` — P independent rays
   (Rectilinear).
 
@@ -29,7 +32,7 @@ mm-accurate in float32 within culling radii, and the frame's up vector IS
 the reference's ``v = world_directions(...).2`` (frustum.rs:31-34). Normals
 rotate back to global cartesian with the object's host-built basis.
 
-Every stage is plain PyTorch on the device of its inputs (no kernel). The
+Every stage but K6 is plain PyTorch on the device of its inputs. The
 object parameters are device tensors, so each quotient that decides a
 hit's validity divides by a tensor: the card computes a division by a
 Python float as a product with its float32 reciprocal.
@@ -44,7 +47,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from .. import tracing
+from .. import _kernels, tracing
 from ..generators.base import HitBuffer
 from ..models.earth import EarthModel
 from ..physics.ray import DEATH_ALTITUDE, _f32
@@ -506,10 +509,10 @@ def _object_window_planes(objects: ObjectSet, oi: int, model: EarthModel, lat0: 
     return torch.stack(out_key, dim=-1), torch.stack(out_vals, dim=-1)
 
 
-def hits_to_planes(hits: HitBuffer, k_out: int):
-    """A [H, W, K] hit buffer as planes widened to ``k_out`` slots: key +inf
-    and every payload 0 on invalid slots (the merge's equality one-hot
-    matches every +inf key, so their payloads must be zero)."""
+def hits_to_planes(hits: HitBuffer):
+    """A [H, W, K] hit buffer as K-slot planes: key +inf and every payload
+    0 on invalid slots (the merge's equality one-hot matches every +inf
+    key, so their payloads must be zero)."""
     v = hits.valid
 
     def z(x):
@@ -524,8 +527,7 @@ def hits_to_planes(hits: HitBuffer, k_out: int):
         "ca": hits.rgba[..., 3],
     }
     key = torch.where(v, hits.key, NO_HIT)
-    vals = torch.stack([z(chans[nm]) for nm in PLANE_CHANNELS])
-    return _pad_planes((key, vals), k_out)
+    return key, torch.stack([z(chans[nm]) for nm in PLANE_CHANNELS])
 
 
 def planes_to_hits(key: torch.Tensor, vals: torch.Tensor) -> HitBuffer:
@@ -579,34 +581,175 @@ def _merge_planes(a, b, k_out: int):
 
 def apply_objects_planes(planes, objects: ObjectSet, model: EarthModel, lat0: float,
                          step: float, ray_h, path_len, dlat, dlon, col_windows,
-                         k_out: int, k_per_object: int = 2):
+                         k_out: int, k_per_object: int = 2, plain: bool = False):
     """Merge every object's hits into the frame's hit planes.
 
-    planes: (key [H, W, K], vals [C, H, W, K]) of the terrain hits; ray_h,
-    path_len: [H, N]; dlat, dlon: [W, N]; col_windows: per-object (lo, n),
-    or None for the full width. The planes widen to ``k_out`` slots; then
-    each object, in object order, computes its hits over its column window
-    and merges into just that window (the semantics of the JAX package's
+    planes: (key [H, W, K], vals [C, H, W, K]) of the terrain hits, K <=
+    k_out; ray_h, path_len: [H, N]; dlat, dlon: [W, N]; col_windows:
+    per-object (lo, n), or None for the full width. Returns new planes of
+    ``k_out`` slots: each object, in object order, computes its
+    ``k_per_object`` earliest hits over its column window and merges them
+    into just that window (the semantics of the JAX package's
     ``_apply_objects_planes_unrolled``). Sequential merges keep the k_out
     earliest hits per pixel, so overlapping windows compose.
+
+    CUDA tensors launch K6 (``object_pass_cuda``) or raise; CPU tensors,
+    and ``plain=True`` on any device, run ``apply_objects_planes_plain``.
     """
-    w_n = dlat.shape[0]
     if col_windows is None:
-        col_windows = ((0, w_n),) * objects.n_objects
+        col_windows = ((0, dlat.shape[0]),) * objects.n_objects
+    args = (planes, objects, model, lat0, step, ray_h, path_len, dlat, dlon, col_windows,
+            k_out, k_per_object)
     with tracing.span("objects.pass", device=True):
-        key, vals = _pad_planes(planes, k_out)
-        death_idx = ray_death_index(ray_h)
-        for oi in range(objects.n_objects):
-            lo, wn = col_windows[oi]
-            if wn == 0:
-                continue
-            win = slice(lo, lo + wn)
-            obj = _object_window_planes(objects, oi, model, lat0, step, ray_h, path_len,
-                                        dlat[win], dlon[win], k_per_object, death_idx)
-            mk, mv = _merge_planes((key[:, win], vals[:, :, win]), obj, k_out)
-            key[:, win] = mk
-            vals[:, :, win] = mv
+        if plain or ray_h.device.type == "cpu":
+            out = apply_objects_planes_plain(*args)
+            tracing.count("objects.pass_launches", 0)
+        elif ray_h.device.type == "cuda":
+            out = object_pass_cuda(*args)
+            tracing.count("objects.pass_launches", 1)
+        else:
+            raise ValueError(f"apply_objects_planes: unsupported device {ray_h.device}")
+    return out
+
+
+def apply_objects_planes_plain(planes, objects: ObjectSet, model: EarthModel, lat0: float,
+                               step: float, ray_h, path_len, dlat, dlon, col_windows,
+                               k_out: int, k_per_object: int = 2):
+    """Plain PyTorch version of ``apply_objects_planes`` (``col_windows`` as
+    a tuple): the planes widened to k_out, then per object its candidate
+    tensors and k-min loop (``_object_window_planes``) and a one-hot merge
+    into its window (``_merge_planes``)."""
+    key, vals = _pad_planes(planes, k_out)
+    death_idx = ray_death_index(ray_h)
+    for oi in range(objects.n_objects):
+        lo, wn = col_windows[oi]
+        if wn == 0:
+            continue
+        win = slice(lo, lo + wn)
+        obj = _object_window_planes(objects, oi, model, lat0, step, ray_h, path_len,
+                                    dlat[win], dlon[win], k_per_object, death_idx)
+        mk, mv = _merge_planes((key[:, win], vals[:, :, win]), obj, k_out)
+        key[:, win] = mk
+        vals[:, :, win] = mv
     return key, vals
+
+
+@dataclasses.dataclass
+class ColumnTables:
+    """What K6 reads of each object's column window, built once a frame:
+    one table column a window column, the objects' windows back to back
+    in object order (C columns in all)."""
+
+    windows: tuple  # per object (col_lo, n_cols, its first table column)
+    k_lo: torch.Tensor  # [C] int32: the window's first march step
+    # [kw+1, 3, C] f32: EarthModel.enu_terms at window step j, march step
+    # min(k_lo + j, N - 1): the point's ENU at any ray altitude, no trig
+    terms: torch.Tensor
+    seg_close: torch.Tensor  # [kw, C] uint8: segment j has a close end
+
+
+def _window_layout(col_windows) -> tuple:
+    """Per object (col_lo, n_cols, first table column): the windows back to
+    back."""
+    out, off = [], 0
+    for lo, wn in col_windows:
+        out.append((lo, wn, off))
+        off += wn
+    return tuple(out)
+
+
+def object_column_tables(objects: ObjectSet, model: EarthModel, lat0: float, dlat, dlon,
+                         col_windows) -> ColumnTables:
+    """Plain version of K6's prologue (its culling scan and window tables):
+    for every window column, with ``_object_window_planes``'s arithmetic
+    batched over the objects, the culling test at every march step (the
+    distance² at the object's altitude against its cull radius²,
+    frustum.rs:103-114), the window's first step (one before the first
+    close step), the close flags of its segments, and the ENU terms of its
+    points. dlat, dlon: [W, N]."""
+    kw = objects.seg_window
+    n_t = dlat.shape[1]
+    dev = dlat.device
+    windows = _window_layout(col_windows)
+    live = [(oi, lo, wn) for oi, (lo, wn, _) in enumerate(windows) if wn]
+    if not live:
+        return ColumnTables(windows, torch.zeros(0, dtype=torch.int32, device=dev),
+                            torch.zeros((kw + 1, 3, 0), device=dev),
+                            torch.zeros((kw, 0), dtype=torch.uint8, device=dev))
+    g_dlat = torch.cat([dlat[lo:lo + wn] for _, lo, wn in live])  # [C, N]
+    g_dlon = torch.cat([dlon[lo:lo + wn] for _, lo, wn in live])
+    per_obj = torch.stack([objects.dlat, objects.dlon, objects.elev, objects.cull_r2], dim=1)
+    per_col = torch.cat([per_obj[oi].expand(wn, 4) for oi, _, wn in live])  # [C, 4]
+    o_dlat, o_dlon, o_elev, cull_r2 = (per_col[:, i, None] for i in range(4))
+    terms = model.enu_terms(g_dlat, g_dlon, o_dlat, o_dlon, lat0)
+    del g_dlat, g_dlon
+    rel = model.enu_from_terms(terms, o_elev, o_elev)
+    close = _dot(rel, rel) < cull_r2  # [C, N]
+    del rel
+    first_k = torch.where(close.any(dim=1), torch.argmax(close.to(torch.uint8), dim=1), n_t)
+    k_lo = torch.clamp(first_k - 1, 0, max(n_t - kw - 1, 0))  # [C]
+    k_idx = torch.clamp(k_lo[:, None] + torch.arange(kw + 1, device=dev)[None, :],
+                        max=n_t - 1)  # [C, kw+1]
+    g_close = close.gather(1, k_idx)
+    seg_close = (g_close[:, :-1] | g_close[:, 1:]).T.to(torch.uint8).contiguous()
+    win_terms = torch.stack([t.gather(1, k_idx).T for t in terms], dim=1).contiguous()
+    return ColumnTables(windows, k_lo.to(torch.int32), win_terms, seg_close)
+
+
+def object_pass_cuda(planes, objects: ObjectSet, model: EarthModel, lat0: float,
+                     step: float, ray_h, path_len, dlat, dlon, col_windows, k_out: int,
+                     k_per_object: int = 2, *, tables_out: Optional[list] = None):
+    """``apply_objects_planes`` on CUDA tensors: one launch of K6
+    (csrc/object_pass.cu), which builds the per-column tables and writes the
+    k_out planes of every pixel once. Returns (key, vals); a list given as
+    ``tables_out`` receives the ``ColumnTables`` K6 built (its scratch)."""
+    key_in, vals_in = planes
+    h_n, w_n, k_in = key_in.shape
+    if not 1 <= k_per_object <= 2:
+        raise ValueError(f"K6 keeps 1 or 2 hits an object, got k_per_object={k_per_object}")
+    if not 1 <= k_in <= k_out:
+        raise ValueError(f"K6 widens {k_in} slots to k_out={k_out}: needs 1 <= K <= k_out")
+    if h_n * w_n * k_out >= 2**31:
+        raise ValueError(f"K6 indexes a plane in 32 bits: H·W·k_out = {h_n * w_n * k_out} "
+                         "must stay under 2^31")
+    dev = ray_h.device
+    if any(x.device != dev for x in (key_in, vals_in, path_len, dlat, dlon, objects.kind)):
+        raise ValueError("object_pass_cuda: the planes, rays, columns and objects must all "
+                         f"live on {dev}")
+    kw, n_t = objects.seg_window, dlat.shape[1]
+    layout = _window_layout(col_windows)
+    n_cols = sum(wn for _, wn, _ in layout)
+    tables = ColumnTables(layout, torch.empty(n_cols, dtype=torch.int32, device=dev),
+                          torch.empty((kw + 1, 3, n_cols), device=dev),
+                          torch.empty((kw, n_cols), dtype=torch.uint8, device=dev))
+    scan = torch.empty(n_cols, dtype=torch.int32, device=dev)
+    death = ray_death_index(ray_h)
+    # the windows as a device table, through pinned memory: no synchronization
+    windows = torch.tensor(layout, dtype=torch.int32).pin_memory().to(dev, non_blocking=True)
+    key_out = torch.empty((h_n, w_n, k_out), dtype=torch.float32, device=dev)
+    vals_out = torch.empty((len(PLANE_CHANNELS), h_n, w_n, k_out), dtype=torch.float32,
+                           device=dev)
+    key_in, vals_in, ray_h, path_len, dlat, dlon = (
+        x.to(torch.float32).contiguous() for x in (key_in, vals_in, ray_h, path_len, dlat, dlon))
+    radius = model.enu_radius()
+    o = objects
+    _, tex_h, tex_w, _ = o.textures.shape
+    arrays = [x.contiguous() for x in (o.kind, o.dlat, o.dlon, o.elev, o.cull_r2, o.r1, o.r2,
+                                       o.height, o.width, o.rgba, o.basis, o.tex_id,
+                                       o.textures, o.tex_hw)]
+    _kernels.OBJECT_PASS.call(
+        dev, key_in.data_ptr(), vals_in.data_ptr(), k_in, key_out.data_ptr(),
+        vals_out.data_ptr(), int(k_out), h_n, w_n, ray_h.data_ptr(), path_len.data_ptr(),
+        ray_h.shape[1], dlat.data_ptr(), dlon.data_ptr(), n_t, death.data_ptr(),
+        windows.data_ptr(), o.n_objects, n_cols, kw, scan.data_ptr(), tables.k_lo.data_ptr(),
+        tables.terms.data_ptr(), tables.seg_close.data_ptr(),
+        *(x.data_ptr() for x in arrays), o.textures.shape[0], tex_h, tex_w, float(lat0),
+        0.0 if radius is None else float(radius), int(radius is None), _f32(step),
+        int(k_per_object),
+    )
+    if tables_out is not None:
+        tables_out.append(tables)
+    return key_out, vals_out
 
 
 # -- P independent rays (Rectilinear) -----------------------------------------

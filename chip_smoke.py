@@ -16,7 +16,7 @@ nothing of JAX. Phases, each printed as it ends; any failure exits non-zero
 before the result line:
 
 1. device   — the card's name, and its power limit from nvidia-smi;
-2. build    — the four CUDA kernels (K1, K2, K3, K4) built from
+2. build    — the five CUDA kernels (K1, K2, K3, K4, K6) built from
               ``atm_raytracer_tpu_torch/csrc``, one nvcc each, started
               together, with ptxas's registers, spills and shared memory;
 2b. terrain files — the headline's 45 tiles of 1201 posts as files: both
@@ -160,18 +160,34 @@ before the result line:
               translucent Cylinder, a Cone, two textured Billboards with a
               transparent band) on terrain points the object-free Fast
               headline hits, 3-120 km out, a Cylinder and a Billboard 0.6
-              degrees apart: (a) Fast through K1 and K2 (one launch each,
-              counted) against ``plain=True`` on the card, every object seen,
-              the median frame wall of 10 renders, stage times, peak memory,
-              device busy time and idle share; the object pass alone on the
-              card against the CPU on the same inputs (validity flips, key
-              and field differences); (b) InterpolatingRectilinear the same,
+              degrees apart: (a) Fast through K1, K2 and K6 (one launch
+              each, counted) against ``plain=True`` on the card, every object
+              seen, the median frame wall of 10 renders, stage times (K6's
+              four kernels by the profiler), peak memory, device busy time
+              and idle share; the object pass alone on the card against the
+              CPU on the same inputs (validity flips, key and field
+              differences); (b) InterpolatingRectilinear the same,
               median of 5; (c) Rectilinear at tilt 0 through the row-chunked
               shared-column path (K2 a chunk, counted): timed renders, peak
               memory, stage times of one chunk, object pixels against the
               Fast render; (d) at 192x108, each generator card against CPU
               (validity flips) and the golden object scene tilted 1 degree
               (the dense path, through K2) card against CPU;
+10b. k6    — K6 at the shapes of the benchmark's object cells
+              (``portbench/configs/objects_1080p.json``, K = 1, and
+              ``translucent_1080p.json``, K = 4 and k_out = 10: 1080p at 45
+              degrees, their stored objects): the Fast frame counted (K1, K2,
+              K6 once each); K6 against ``apply_objects_planes(plain=True)``
+              on the same inputs on the card (validity equal, keys within
+              1e-5 of a step, payloads on valid slots within rtol 1e-5 /
+              atol 1e-3, payload 0 on invalid slots; whether bit-equal), its
+              tables ``torch.equal`` to ``object_column_tables``'; the frame
+              against ``plain=True`` (verify tolerance, validity equal on
+              >= 99.9 % of slots); K6 by CUDA events (mean of 20) and its
+              four kernels by the profiler, the plain pass's and its tables'
+              times, the byte bound (key and 13 payloads, k_in slots read and
+              k_out written, at 3.35 TB/s) and K6's share of it, the frame
+              wall (median of 5) and peak memory;
 11. sweep   — the BASELINE sweep (bench.py:405-410): 8 frames of 1280x720,
               fov 45, 100 km in 50 m steps, directions 0..315, through
               ``parallel.mesh.render_sweep_sharded`` on one card: one K2 and
@@ -215,7 +231,8 @@ pixels differ by more than 2 counts and at most 5 % differ at all.
 Output: the kernels line ``{"kernels": [...]}`` (``launches`` summed over
 the counted main-path renders — Fast, Fast from the tile files, the
 Rectilinear tilt-0 and tilt-1 headlines, Interpolating, the three object
-frames, the sweep and the banded Fast render — with the split in
+frames, K6's two frames, the sweep and the banded Fast render — with the
+split in
 ``launches_by_path``; each
 kernel's numbers at the Interpolating grid and at the sweep's shapes in
 ``at_interpolating_grid`` and ``at_sweep``) and, last, the result line
@@ -1043,8 +1060,11 @@ def rect_golden_configs():
     return cases
 
 
-# the launches of one Fast or Interpolating frame (or a sweep): K1 and K2 once
-FAST_LAUNCHES = {"combine.cu": 1, "march.cu": 1, "rect_scan.cu": 0, "rect_culled.cu": 0}
+# the launches of one Fast or Interpolating frame (or a sweep): K1 and K2 once;
+# a frame with objects also K6 once
+FAST_LAUNCHES = {"combine.cu": 1, "march.cu": 1, "rect_scan.cu": 0, "rect_culled.cu": 0,
+                 "object_pass.cu": 0}
+OBJECT_LAUNCHES = {**FAST_LAUNCHES, "object_pass.cu": 1}
 
 
 def kernel_launches():
@@ -1129,7 +1149,7 @@ def phase_goldens(dev):
         if generator == "Rectilinear":
             check(launches["march.cu"] > 0, f"{generator} objects: no K2 launch")
         else:
-            check(launches == FAST_LAUNCHES,
+            check(launches == OBJECT_LAUNCHES,
                   f"{generator} objects: launches {launches}")
         cpu = render(params, terrain, "cpu")
         ok, fa, fb, mx = image_tolerance(gpu.image, cpu.image)
@@ -1845,7 +1865,7 @@ def phase_rect_headline(dev, params, terrain, renders=5):
     torch.cuda.synchronize()
     launches = kernel_launches()
     want = {"combine.cu": 0, "march.cu": 0, "rect_scan.cu": k3_launches(params),
-            "rect_culled.cu": 0}
+            "rect_culled.cu": 0, "object_pass.cu": 0}
     check(launches == want, f"rectilinear headline: launches {launches}, not {want}")
     say(f"[rectilinear] first render {time.perf_counter() - t0:.3f} s; kernel "
         f"launches {launches} (K3: one a progress stride)")
@@ -2242,7 +2262,7 @@ def phase_rect_culled(dev, terrain, renders=5):
     first = time.perf_counter() - t0
     launches = kernel_launches()
     want_l = {"combine.cu": 0, "march.cu": 0, "rect_scan.cu": 0,
-              "rect_culled.cu": warm.culled_rounds}
+              "rect_culled.cu": warm.culled_rounds, "object_pass.cu": 0}
     check(launches == want_l, f"tilted headline: launches {launches}, not {want_l}")
     valid = warm.hits.valid.cpu().numpy()
     keys = warm.hits.key.cpu().numpy()
@@ -2889,7 +2909,7 @@ def phase_objects(dev, terrain, size=(1920, 1080), max_distance=200_000.0,
     torch.cuda.synchronize()
     first = time.perf_counter() - t0
     launches["objects_fast"] = kernel_launches()
-    check(launches["objects_fast"] == FAST_LAUNCHES,
+    check(launches["objects_fast"] == OBJECT_LAUNCHES,
           f"objects fast: launches {launches['objects_fast']}")
     az = fast.camera.fast_ray_azimuths(out.width, out.height, frame.fov, frame.direction)
     objects, wins = fast.build_objects_cached(params, az, n_terr, dev)
@@ -2933,7 +2953,7 @@ def phase_objects(dev, terrain, size=(1920, 1080), max_distance=200_000.0,
     dlat, dlon = fast.column_geodesic(params.model, az_t, LAT0, LON0, step, n_terr)
     terr_hits = fast.separable_hits(*args, **hit_kw)
     k_out = 1 + min(2 * overlap, max(fast.OBJ_HIT_CAP, 2))
-    planes = O.hits_to_planes(terr_hits, k_out)
+    planes = O.hits_to_planes(terr_hits)
     obj_args = (objects, params.model, LAT0, step, ray_h, path_len, dlat, dlon, wins,
                 k_out)
     t = {"terrain hits (K2, columns, K1, gathers)": cuda_ms(
@@ -2951,13 +2971,8 @@ def phase_objects(dev, terrain, size=(1920, 1080), max_distance=200_000.0,
     for name, ms in t.items():
         say(f"[objects] fast stage {name}: {ms:.3f} ms ({100.0 * ms / total:.1f} % of the "
             f"stages' {total:.3f} ms)")
-    for oi in range(objects.n_objects):
-        lo, wn = wins[oi]
-        ms = cuda_ms(lambda: O._object_window_planes(
-            objects, oi, params.model, LAT0, step, ray_h, path_len, dlat[lo:lo + wn],
-            dlon[lo:lo + wn], 2, O.ray_death_index(ray_h)), 3)
-        say(f"[objects]   object {oi} (kind {objects.kinds_static[oi]}, {wn} columns): "
-            f"{ms:.3f} ms")
+    for name, ms in k6_kernels_ms(lambda: O.apply_objects_planes(planes, *obj_args)).items():
+        say(f"[objects]   K6 {name}: {ms:.4f} ms (profiler, mean of 10)")
 
     # the object pass on the card against the CPU, on the same inputs
     cpu_objects = O.ObjectSet.build(params, "cpu")
@@ -2983,7 +2998,7 @@ def phase_objects(dev, terrain, size=(1920, 1080), max_distance=200_000.0,
     res_i = interp.render_interpolating(params, terrain, dev)
     torch.cuda.synchronize()
     launches["objects_interpolating"] = kernel_launches()
-    check(launches["objects_interpolating"] == FAST_LAUNCHES,
+    check(launches["objects_interpolating"] == OBJECT_LAUNCHES,
           f"objects interpolating: launches {launches['objects_interpolating']}")
     # the pinhole generators' columns have their own azimuths
     az_col = rect.camera.rectilinear_column_azimuths(out.width, frame.fov, frame.direction)
@@ -3106,6 +3121,176 @@ def phase_objects(dev, terrain, size=(1920, 1080), max_distance=200_000.0,
             f"{int((cpu.hits.valid & (cpu.hits.kind == 1)).sum())}); launches {k}")
     say(f"[objects] phase wall {time.perf_counter() - t_phase:.1f} s")
     return launches
+
+
+# K6's shapes: the benchmark's two object cells (portbench/configs), one
+# 1080p frame each at 45 degrees with its stored objects
+K6_SCENES = ("objects_1080p", "translucent_1080p")
+K6_KERNELS = ("cull_scan_kernel", "window_tables_kernel", "widen_kernel",
+              "object_pass_kernel")
+
+
+def k6_kernels_ms(fn, reps: int = 10) -> dict:
+    """Device ms of each of K6's four kernels, means over ``reps`` calls of
+    ``fn`` (one K6 launch each), from a torch.profiler trace."""
+    _, _, by_name = trace_busy_ms(lambda: [fn() for _ in range(reps)], "k6")
+    out = {k: sum(v for n, v in by_name.items() if k in n) / reps for k in K6_KERNELS}
+    check(all(v > 0 for v in out.values()), f"K6's kernels missing from the trace: {out}")
+    return out
+
+
+def k6_scene(dev, name: str, tmp):
+    """(terrain, params) of the benchmark's configuration ``name`` looking at
+    45 degrees, with the objects it stores."""
+    from portbench import harness, scene
+
+    config = harness.load_json(harness.HERE / "configs" / f"{name}.json")
+    keys, tiles = scene.make_tiles(config, dev)
+    program = harness.Program()
+    terrain = scene.build_terrain(program.Terrain, program.Tile, keys, tiles)
+    texture = Path(tmp) / "checker64.png"
+    scene.write_texture(texture)
+    objects = harness.scene_objects(config, keys, tiles, texture, dev)
+    return terrain, program.lower(scene.frame_dict(config["scene"], 45.0, 0.0, "Fast",
+                                                   objects), terrain)
+
+
+def pass_inputs(params, terrain, dev):
+    """One Fast render of ``params`` and the arguments ``separable_hits``
+    handed the object pass in it: (planes, objects, model, lat0, step,
+    ray_h, path_len, dlat, dlon, windows, k_out)."""
+    from atm_raytracer_tpu_torch.generators import fast
+
+    seen = []
+    real = fast.apply_objects_planes
+
+    def keep(*args, **kw):
+        seen.append(args)
+        return real(*args, **kw)
+
+    fast.apply_objects_planes = keep
+    try:
+        res = fast.render_fast(params, terrain, dev)
+    finally:
+        fast.apply_objects_planes = real
+    check(len(seen) == 1, f"a Fast frame ran the object pass {len(seen)} times")
+    return res, seen[0]
+
+
+def k6_contract(tag: str, got, want):
+    """K6's planes against the plain pass's, at the card tests' bar: validity
+    equal, keys within 1e-5 of a step, every payload on valid slots within
+    rtol 1e-5 / atol 1e-3, payload 0 on invalid slots. Returns (max |dkey|,
+    max |dpayload| on valid slots, valid slots, object hits)."""
+    from atm_raytracer_tpu_torch.ops import objects as O
+
+    (gk, gv), (wk, wv) = got, want
+    valid = wk.isfinite()
+    flips = int((gk.isfinite() != valid).sum())
+    check(flips == 0, f"{tag}: K6 and the plain pass differ in validity on {flips} slots")
+    dk = float((gk - wk)[valid].abs().max())
+    check(dk <= 1e-5, f"{tag}: K6's keys {dk} steps off the plain pass's")
+    for c, nm in enumerate(O.PLANE_CHANNELS):
+        g, w = gv[c][valid], wv[c][valid]
+        bad = int((~((g - w).abs() <= 1e-3 + 1e-5 * w.abs())).sum())
+        check(bad == 0, f"{tag}: K6's {nm} outside rtol 1e-5 / atol 1e-3 of the plain "
+              f"pass's on {bad} valid slots")
+    check(not gv[:, ~valid].any(), f"{tag}: K6 wrote a payload on an invalid slot")
+    dv = float((gv - wv)[:, valid].abs().max())
+    kind = O.PLANE_CHANNELS.index("kind")
+    return dk, dv, int(valid.sum()), int((wv[kind][valid] > 0.5).sum())
+
+
+def phase_k6(dev, renders: int = 5):
+    """10b. K6 at the shapes of the benchmark's object cells. Returns its
+    entry of the kernels line and the launches of its two counted frames."""
+    import tempfile
+
+    import torch
+
+    from atm_raytracer_tpu_torch import _kernels
+    from atm_raytracer_tpu_torch.generators import fast
+    from atm_raytracer_tpu_torch.ops import objects as O
+
+    t_phase = time.perf_counter()
+    launches, by_scene = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        scenes = [(name, *k6_scene(dev, name, tmp)) for name in K6_SCENES]
+    for name, terrain, params in scenes:
+        tag = f"[k6] {name}"
+        reset_launches()
+        res, args = pass_inputs(params, terrain, dev)
+        torch.cuda.synchronize()
+        path = f"k6_{name}"
+        launches[path] = kernel_launches()
+        check(launches[path] == OBJECT_LAUNCHES, f"{tag}: launches {launches[path]}")
+        planes, objects, model, lat0, step, ray_h, path_len, dlat, dlon, wins, k_out = args
+        h_n, w_n, k_in = planes[0].shape
+        # K6 against the plain pass, on the card and on the pass's own inputs
+        before = _kernels.OBJECT_PASS.launches
+        kept = []
+        got = O.object_pass_cuda(*args, tables_out=kept)
+        want = O.apply_objects_planes(*args, plain=True)
+        check(_kernels.OBJECT_PASS.launches == before + 1,
+              f"{tag}: K6 launched {_kernels.OBJECT_PASS.launches - before} times")
+        dk, dv, n_valid, n_obj = k6_contract(name, got, want)
+        bit_equal = torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        check(n_obj > 0, f"{tag}: no object hit")
+        plain_tables = O.object_column_tables(objects, model, lat0, dlat, dlon, wins)
+        tables_equal = kept[0].windows == plain_tables.windows and all(
+            torch.equal(getattr(kept[0], f), getattr(plain_tables, f))
+            for f in ("k_lo", "seg_close", "terms"))
+        check(tables_equal, f"{tag}: K6's tables differ from object_column_tables'")
+        say(f"{tag}: [{h_n}, {w_n}] x {k_in} -> {k_out} slots, {objects.n_objects} objects "
+            f"over {plain_tables.k_lo.shape[0]} window columns (seg_window "
+            f"{objects.seg_window}): K6 vs plain on the card: validity equal, max |dkey| "
+            f"{dk:.3g} step, max |dpayload| {dv:.3g} on {n_valid} valid slots ({n_obj} "
+            f"object hits), bit-equal {bit_equal}; tables equal to object_column_tables")
+        del got, want, kept, plain_tables
+        # the frame, kernels against plain=True
+        plain = fast.render_fast(params, terrain, dev, plain=True)
+        ok, fa, fb, mx = image_tolerance(res.image, plain.image)
+        same = float((plain.hits.valid == res.hits.valid).double().mean())
+        check(ok and same >= 0.999, f"{tag}: frame kernels vs plain any={fa} big={fb}, "
+              f"valid equal on {same}")
+        del plain, res
+        # times: the whole pass by CUDA events, its kernels by the profiler
+        ms = cuda_ms(lambda: O.apply_objects_planes(*args), 20)
+        kernels_ms = k6_kernels_ms(lambda: O.apply_objects_planes(*args))
+        plain_ms = cuda_ms(lambda: O.apply_objects_planes(*args, plain=True), 3)
+        plain_tables_ms = cuda_ms(lambda: O.object_column_tables(
+            objects, model, lat0, dlat, dlon, wins), 5)
+        # the bound: the planes read and written once, key and 13 payloads
+        n_bytes = 4 * (1 + len(O.PLANE_CHANNELS)) * h_n * w_n * (k_in + k_out)
+        bound_ms = 1e3 * n_bytes / HBM_BYTES_PER_S
+        med, walls = timed_walls(lambda: fast.render_fast(params, terrain, dev), renders)
+        torch.cuda.reset_peak_memory_stats(dev)
+        fast.render_fast(params, terrain, dev)
+        peak = torch.cuda.max_memory_allocated(dev) / 2**20
+        say(f"{tag}: K6 {ms:.4f} ms (CUDA events, mean of 20; kernels "
+            + ", ".join(f"{k} {v:.4f}" for k, v in kernels_ms.items())
+            + f" ms by the profiler); plain pass {plain_ms:.3f} ms, its tables "
+            f"{plain_tables_ms:.3f} ms; bound {bound_ms:.4f} ms by bytes ({n_bytes} B): "
+            f"{100.0 * bound_ms / ms:.2f} % of the bound; frame wall median of {renders} "
+            f"{med * 1e3:.3f} ms (frame kernels vs plain any={fa:.5f} big={fb:.5f} "
+            f"max={mx}, valid equal on {100.0 * same:.4f} % of slots); peak device memory "
+            f"{peak:.1f} MiB")
+        by_scene[name] = {
+            "shape": [h_n, w_n], "k_in": k_in, "k_out": k_out,
+            "objects": objects.n_objects, "max_key_err": dk, "max_payload_err": dv,
+            "max_abs_err": max(dk, dv), "bit_equal": bit_equal, "ms": ms,
+            "kernels_ms": kernels_ms, "plain_ms": plain_ms,
+            "plain_tables_ms": plain_tables_ms, "bound_ms": bound_ms, "bound_by": "bytes",
+            "bytes": n_bytes, "frame_wall_ms": med * 1e3, "peak_mib": peak}
+    main = by_scene["translucent_1080p"]
+    k6 = {"name": "K6 object_pass", "route": "cuda",
+          "source": "atm_raytracer_tpu_torch/csrc/object_pass.cu",
+          "replaces": "atm_raytracer_tpu/ops/objects.py:810",
+          "max_abs_err": max(r["max_abs_err"] for r in by_scene.values()),
+          "ms": main["ms"], "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+          "bound_by": "bytes", "library_ms": None, "by_scene": by_scene}
+    say(f"[k6] phase wall {time.perf_counter() - t_phase:.1f} s")
+    return k6, launches
 
 
 # The BASELINE sweep (bench.py:405-410): 8 frames of 1280x720, fov 45, 100 km
@@ -3551,7 +3736,7 @@ def phase_transfer(dev, terrain, params):
         torch.cuda.synchronize()
         counted = kernel_launches()
         check(counted == {"combine.cu": 8, "march.cu": 1, "rect_scan.cu": 0,
-                          "rect_culled.cu": 0},
+                          "rect_culled.cu": 0, "object_pass.cu": 0},
               f"streamed (compact={compact}): launches {counted}, want 8 K1 and 1 K2")
         check(lines == [12, 25, 38, 50, 62, 75, 88, 100],
               f"streamed (compact={compact}): progress {lines}")
@@ -3739,6 +3924,8 @@ def main(argv) -> int:
         phase_metadata(dev, terrain)
         interp_launches, at_grid = phase_interpolating(dev, terrain)
         obj_launches = phase_objects(dev, terrain)
+        k6, k6_launches = phase_k6(dev)
+        kernels.append(k6)
         sweep_launches, at_sweep = phase_sweep(dev, terrain)
         phase_multi_device(dev, terrain, params)
         streamed_launches = phase_transfer(dev, terrain, params)
@@ -3750,6 +3937,7 @@ def main(argv) -> int:
                                      "rectilinear_tilted": tilted_launches[src],
                                      "interpolating": interp_launches[src],
                                      **{path: n[src] for path, n in obj_launches.items()},
+                                     **{path: n[src] for path, n in k6_launches.items()},
                                      "sweep": sweep_launches[src],
                                      "fast_streamed": streamed_launches[src]}
             k["launches"] = sum(k["launches_by_path"].values())

@@ -578,6 +578,155 @@ def test_tilted_object_frame_marches_through_the_kernel(cuda_device):
     assert _object_hits(gpu) > 100
 
 
+def _translucent_scene(device, size):
+    """(terrain, params) of the benchmark's translucent scene (``portbench/
+    configs/translucent_1080p.json``) looking at 45 degrees: at 1080p with
+    its stored objects, or at the benchmark tests' size (``"small"``), where
+    the rule places them."""
+    import tempfile
+    from pathlib import Path
+
+    from portbench import harness, scene
+
+    config = harness.load_json(harness.HERE / "configs" / "translucent_1080p.json")
+    if size == "small":
+        config = harness.shrunk(config, {"width": 96, "height": 54, "max_distance": 20000.0,
+                                         "posts": 121})
+    keys, tiles = scene.make_tiles(config, device)
+    program = harness.Program()
+    terrain = scene.build_terrain(program.Terrain, program.Tile, keys, tiles)
+    with tempfile.TemporaryDirectory() as d:
+        texture = Path(d) / "checker64.png"
+        scene.write_texture(texture)
+        objects = harness.scene_objects(config, keys, tiles, texture, device)
+        frame = scene.frame_dict(config["scene"], 45.0, 0.0, "Fast", objects)
+        return terrain, program.lower(frame, terrain)
+
+
+def _pass_inputs(terrain, params, device, monkeypatch):
+    """The arguments ``separable_hits`` hands the object pass in a Fast
+    render of ``params`` on ``device``: (planes, objects, model, lat0, step,
+    ray_h, path_len, dlat, dlon, windows, k_out)."""
+    from atm_raytracer_tpu_torch.generators import fast
+
+    seen = []
+    real = fast.apply_objects_planes
+
+    def keep(*args, **kw):
+        seen.append(args)
+        return real(*args, **kw)
+
+    monkeypatch.setattr(fast, "apply_objects_planes", keep)
+    render_fast(params, terrain, device)
+    monkeypatch.setattr(fast, "apply_objects_planes", real)
+    (args,) = seen
+    return args
+
+
+def _pass_contract(got, want):
+    """The bar of ``test_fast_object_pass_matches_jax``: validity equal, keys
+    within 1e-5 of a step, fields on valid slots within rtol 1e-5 / atol
+    1e-3, every invalid slot's payload 0. Returns (valid slots, object
+    hits)."""
+    (gk, gv), (wk, wv) = got, want
+    valid = torch.isfinite(wk)
+    assert torch.equal(torch.isfinite(gk), valid)
+    assert float((gk[valid] - wk[valid]).abs().max()) <= 1e-5
+    for c, nm in enumerate(O.PLANE_CHANNELS):
+        torch.testing.assert_close(gv[c][valid], wv[c][valid], rtol=1e-5, atol=1e-3,
+                                   msg=nm)
+    assert not gv[:, ~valid].any(), "a payload on an invalid slot"
+    kind = O.PLANE_CHANNELS.index("kind")
+    return int(valid.sum()), int((wv[kind][valid] > 0.5).sum())
+
+
+@pytest.mark.parametrize("scene", ["objects golden", "objects golden, k_out 20",
+                                   "translucent small", "translucent 1080p"])
+def test_object_pass_kernel_matches_plain(scene, cuda_device, monkeypatch):
+    """K6 against ``apply_objects_planes_plain`` on the card, on the object
+    pass's own inputs: the objects golden (K = 1), the golden widened to 20
+    slots, and the benchmark's translucent scene (K = 4 and k_out = 10, more
+    windows over a column than the cap keeps, a textured Billboard and a
+    true Frustum) at the tests' size and at 1080p. The tables K6's culling
+    scan builds are ``object_column_tables``', bit for bit."""
+    if scene.startswith("objects golden"):
+        terrain, params = _objects_golden("Fast")
+    else:
+        terrain, params = _translucent_scene(cuda_device,
+                                             "small" if "small" in scene else "1080p")
+    args = list(_pass_inputs(terrain, params, cuda_device, monkeypatch))
+    if "k_out 20" in scene:
+        args[-1] = 20
+    before = _kernels.OBJECT_PASS.launches
+    got = O.apply_objects_planes(*args)
+    assert _kernels.OBJECT_PASS.launches == before + 1
+    want = O.apply_objects_planes(*args, plain=True)
+    assert _kernels.OBJECT_PASS.launches == before + 1
+    n_valid, n_obj = _pass_contract(got, want)
+    planes, objects, model, lat0, _, _, _, dlat, dlon, windows, _ = args
+    assert n_obj > 100 and n_valid > int(torch.isfinite(planes[0]).sum())
+    kept = []
+    O.object_pass_cuda(*args, tables_out=kept)
+    (tables,) = kept
+    plain = O.object_column_tables(objects, model, lat0, dlat, dlon, windows)
+    assert tables.windows == plain.windows
+    for field in ("k_lo", "seg_close", "terms"):
+        assert torch.equal(getattr(tables, field), getattr(plain, field)), field
+    if scene.startswith("translucent"):
+        assert planes[0].shape[-1] == 4 and args[-1] == 10
+
+
+def test_object_pass_kernel_averages_ties_as_the_plain_pass(cuda_device, monkeypatch):
+    """Constructed ties, K6 against the plain pass: each golden object
+    twice in a row, the copy in another colour (two objects at one key);
+    the terrain's slot moved onto the first object hit of some pixels (a
+    terrain key equal to an object key); and a second terrain slot at the
+    first one's key (a pixel's slots not distinct)."""
+    terrain, params = _objects_golden("Fast")
+    planes, objects, *rest, windows, k_out = _pass_inputs(terrain, params, cuda_device,
+                                                           monkeypatch)
+    n = objects.n_objects
+    twice = torch.arange(n, device=cuda_device).repeat_interleave(2)
+    fields = {f.name: getattr(objects, f.name) for f in dataclasses.fields(O.ObjectSet)}
+    for name in ("kind", "dlat", "dlon", "elev", "r1", "r2", "height", "width", "rgba",
+                 "basis", "tex_id", "cull_r2"):
+        fields[name] = fields[name][twice]
+    fields["rgba"][1::2, :3] = 1.0 - fields["rgba"][1::2, :3]
+    fields.update(n_objects=2 * n, kinds_static=tuple(k for k in objects.kinds_static
+                                                      for _ in range(2)),
+                  host_meta=tuple(m for m in objects.host_meta for _ in range(2)))
+    doubled = O.ObjectSet(**fields)
+    windows2 = tuple(w for w in windows for _ in range(2))
+    key, vals = planes
+    out_key, out_vals = O.apply_objects_planes(planes, objects, *rest, windows, k_out,
+                                               plain=True)
+    is_obj = out_vals[O.PLANE_CHANNELS.index("kind")] > 0.5
+    obj_key = torch.where(is_obj, out_key, float("inf")).amin(dim=-1)
+    moved = torch.isfinite(key[..., 0]) & (obj_key < key[..., 0])
+    tied_key = torch.where(moved[..., None], obj_key[..., None], key)
+    twin = torch.isfinite(key[..., :1]) & ~moved[..., None]
+    twin_key = torch.cat([tied_key, torch.where(twin, tied_key, float("inf"))], dim=-1)
+    twin_vals = torch.cat([vals, torch.where(twin, vals.flip(0), 0.0)], dim=-1)
+    assert int(moved.sum()) >= 20 and int(twin.sum()) >= 1000
+    cases = [((key, vals), doubled, windows2), ((tied_key, vals), objects, windows),
+             ((twin_key, twin_vals), objects, windows)]
+    for case_planes, case_objects, case_windows in cases:
+        args = (case_planes, case_objects, *rest, case_windows, k_out)
+        _pass_contract(O.apply_objects_planes(*args),
+                       O.apply_objects_planes(*args, plain=True))
+
+
+def test_object_frames_launch_the_object_pass_once(cuda_device):
+    """A Fast frame with objects launches K6 once; under ``plain=True`` it
+    runs the plain pass and launches nothing."""
+    terrain, params = _objects_golden("Fast")
+    before = _kernels.OBJECT_PASS.launches
+    render_fast(params, terrain, cuda_device)
+    assert _kernels.OBJECT_PASS.launches == before + 1
+    render_fast(params, terrain, cuda_device, plain=True)
+    assert _kernels.OBJECT_PASS.launches == before + 1
+
+
 def _frames_fan(seed, f_n, h_n, w_n, n_seg):
     """F combine fans, a different death row in each frame."""
     parts = [_fan(seed + f, h_n, w_n, n_seg, extra=5) for f in range(f_n)]

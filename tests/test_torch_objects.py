@@ -323,7 +323,7 @@ def _random_hits(rng, shape, k):
 def _planes_of(f, k_out):
     """The JAX plane dict and the port plane pair of the same hits."""
     hb = HitBuffer(**{n: torch.from_numpy(np.asarray(x)) for n, x in f.items()})
-    key, vals = TO.hits_to_planes(hb, k_out)
+    key, vals = TO._pad_planes(TO.hits_to_planes(hb), k_out)
     planes = {"key": [jnp.asarray(key[..., s].numpy()) for s in range(k_out)]}
     for c, nm in enumerate(TO.PLANE_CHANNELS):
         planes[nm] = [jnp.asarray(vals[c, ..., s].numpy()) for s in range(k_out)]
@@ -448,6 +448,75 @@ def test_fast_object_pass_matches_jax(golden_pass):
     print(f"\n[fast object pass] {int(tv.sum())} valid slots ({n_obj_hits} object hits) "
           f"of {tv.size}; max |dkey| {dk:.3g} step, max |dfield| {worst:.3g}")
     assert dk <= 1e-5
+
+
+def test_the_pass_on_cpu_tensors_is_the_plain_pass(golden_pass):
+    """``apply_objects_planes`` on CPU tensors, with and without ``plain``,
+    returns exactly what ``apply_objects_planes_plain`` returns, and
+    launches no kernel."""
+    from atm_raytracer_tpu_torch import _kernels
+
+    g = golden_pass
+    wins, k_out = g["wins"], 9
+    _, tplanes = _planes_of(g["hits"], 2)
+    t = {n: torch.from_numpy(np.asarray(g[n])) for n in ("ray_h", "path_len", "dlat", "dlon")}
+    args = (tplanes, _port_objects(g["jset"]), TEarth.from_config(g["jp"].model.to_config()),
+            LAT0, g["step"], t["ray_h"], t["path_len"], t["dlat"], t["dlon"], wins, k_out)
+    before = _kernels.OBJECT_PASS.launches
+    want = TO.apply_objects_planes_plain(*args)
+    for got in (TO.apply_objects_planes(*args), TO.apply_objects_planes(*args, plain=True)):
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert want[0].shape[-1] == k_out and _kernels.OBJECT_PASS.launches == before
+    assert int((want[1][TO.PLANE_CHANNELS.index("kind")] > 0.5).sum()) > 100
+
+
+@pytest.mark.parametrize("shape", list(WINDOW_SHAPES))
+def test_column_tables_give_enu_rel(shape):
+    """K6's per-column prologue (``object_column_tables``) on a seeded scene
+    of each earth family: at every window column of every object in view,
+    its terms finish (``enu_from_terms``) to ``EarthModel.enu_rel`` of the
+    window's points at several ray altitudes, within 1e-3 m; its first
+    window step and segment close flags are the plain pass's culling."""
+    cfg = seeded_objects_config(WINDOW_SHAPES[shape], seed=23)
+    params = TConfig.from_dict(cfg).into_params(None)
+    model = params.model
+    lat0, lon0, az, step, n_terr = fast_window_args(params)
+    objects = TO.ObjectSet.build(params, "cpu")
+    wins = TO.object_col_windows(objects, model, lat0, lon0, az, step, n_terr)
+    dlat, dlon = TF.column_geodesic(model, torch.tensor(az, dtype=torch.float32), lat0, lon0,
+                                    step, n_terr)
+    tables = TO.object_column_tables(objects, model, lat0, dlat, dlon, wins)
+    kw = objects.seg_window
+    assert tables.terms.shape == (kw + 1, 3, sum(n for _, n in wins))
+    worst, n_in_view = 0.0, 0
+    for oi, (lo, wn, off) in enumerate(tables.windows):
+        assert (lo, wn) == wins[oi]
+        if not wn:
+            continue
+        n_in_view += 1
+        cols = slice(off, off + wn)
+        o = (objects.dlat[oi], objects.dlon[oi], objects.elev[oi])
+        # the plain pass's culling over the window's columns
+        rel = model.enu_rel(dlat[lo:lo + wn], dlon[lo:lo + wn], o[2], *o, lat0)
+        close = TO._dot(rel, rel) < objects.cull_r2[oi]
+        first = torch.where(close.any(dim=1), torch.argmax(close.to(torch.uint8), dim=1),
+                            n_terr)
+        assert torch.equal(tables.k_lo[cols].long(),
+                           torch.clamp(first - 1, 0, max(n_terr - kw - 1, 0)))
+        k_idx = torch.clamp(tables.k_lo[cols, None].long() + torch.arange(kw + 1),
+                            max=n_terr - 1)
+        g_close = close.gather(1, k_idx)
+        assert torch.equal(tables.seg_close[:, cols].T.bool(),
+                           g_close[:, :-1] | g_close[:, 1:])
+        terms = tuple(tables.terms[:, d, cols].T for d in range(3))
+        for alt in (-40.0, 0.0, 180.0, 950.0, 4000.0):
+            h = torch.full(k_idx.shape, alt) + 0.01 * k_idx
+            got = model.enu_from_terms(terms, h, o[2])
+            want = model.enu_rel(dlat[lo:lo + wn].gather(1, k_idx),
+                                 dlon[lo:lo + wn].gather(1, k_idx), h, *o, lat0)
+            worst = max(worst, float((got - want).abs().max()))
+    print(f"\n[column tables] {shape}: {n_in_view} objects in view, max |d enu| {worst:.3g} m")
+    assert n_in_view >= 4 and worst <= 1e-3
 
 
 def test_object_hits_pixelwise_match_jax(golden_pass):

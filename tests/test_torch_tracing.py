@@ -297,6 +297,16 @@ def test_a_tensor_count_is_read_only_at_take():
     assert bands.counts == {"objects.k_out": [7.0, 5.0]}
 
 
+def test_the_object_pass_opens_once_a_frame_with_its_launch_count(renders):
+    """On the "fast objects" route ``objects.pass`` opens once, in the
+    frame's one render, and carries ``objects.pass_launches``: 0 on the
+    CPU, which runs the plain pass (K6 counts 1 on the card)."""
+    spans = renders["fast objects"][2]
+    (one,) = [s for s in spans if s.name == "objects.pass"]
+    assert one.counts["objects.pass_launches"] == [0.0]
+    assert [s.name for s in spans].count("gen.render") == 1
+
+
 @pytest.mark.parametrize("route", ["fast objects", "fast banded"])
 def test_a_fast_render_counts_its_hit_slots(route, renders):
     """The Fast routes count the hit depth, the object windows' overlap and
