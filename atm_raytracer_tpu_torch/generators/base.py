@@ -15,17 +15,29 @@ allocated for each fetch (PyTorch's caching host allocator recycles it once
 the array that owns it is gone), so no fetched array is overwritten by a
 later fetch. CPU tensors and numpy arrays pass through, flattened, as the
 JAX functions pass host arrays through.
+
+The frame set-up (``frame_setup``) is what every render entry point, on one
+device or split over several, decides before its camera: the observer's
+altitude, the march length, the hit depth and the keywords every core takes,
+and on request the terrain pack and the l(h) table of a device and the
+``RenderResult``. The cameras stay in their generators.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional
+import math
+import types
+from typing import List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 
 from .. import tracing
+from ..config import Params
+from ..physics.atmosphere import Atmosphere
+from ..physics.ray import RefractionTable
+from ..terrain.store import Terrain, TerrainPack
 
 
 @dataclasses.dataclass
@@ -192,3 +204,127 @@ def submit_fetch(pool: FetchPool, tensors):
     handles = [FetchHandle(e) for e in events]
     pool._handles.extend(handles)
     return outs, handles
+
+
+# ---------------------------------------------------------------------------
+# the frame set-up
+# ---------------------------------------------------------------------------
+
+
+def terrain_bbox(params: Params) -> Tuple[Tuple[float, float], Tuple[float, float]]:
+    """Lat/lon box the render can touch: observer ± max_distance + margin."""
+    lat0 = params.view.position.latitude
+    lon0 = params.view.position.longitude
+    # conservative meters-per-degree lower bound 90 km (covers flat models'
+    # 111.1 km and high-latitude longitude shrink)
+    d_deg = params.view.frame.max_distance / 90_000.0 + 0.1
+    # longitude shrink at the MOST POLEWARD latitude the render can reach;
+    # past ~89.4° cover all longitudes
+    lat_pole = min(abs(lat0) + d_deg, 90.0)
+    coslat = max(0.01, math.cos(math.radians(lat_pole)))
+    d_lon = min(d_deg / coslat, 180.0)
+    return (lat0 - d_deg, lat0 + d_deg), (lon0 - d_lon, lon0 + d_lon)
+
+
+_table_cache: dict = {}
+
+
+def build_refraction_table(params: Params, alt0: float, device,
+                           atmosphere_def=None) -> RefractionTable:
+    """The l(h) table sized to every altitude the march can visit, for
+    ``params``' atmosphere or another ``atmosphere_def`` (a sweep frame's).
+
+    Memoized per (atmosphere content, wavelength, range, device), at most
+    16 tables: repeat renders of one configuration skip the host f64
+    profile evaluation (and the ~10 ms ``Atmosphere`` set-up) and the upload.
+    """
+    max_elev_deg = abs(params.view.frame.tilt) + params.view.frame.fov  # slack
+    top = alt0 + math.tan(math.radians(min(max_elev_deg, 89.0))) * (
+        params.view.frame.max_distance
+    )
+    h_hi = float(min(max(20_000.0, top * 1.1 + 1000.0), 90_000.0))
+    definition = params.atmosphere_def if atmosphere_def is None else atmosphere_def
+    key = (definition, float(params.wavelength), h_hi, str(device))
+    cached = _table_cache.get(key)
+    if cached is None:
+        cached = RefractionTable.build(
+            params.atmosphere if atmosphere_def is None else Atmosphere(atmosphere_def),
+            params.wavelength, h_lo=-2000.0, h_hi=h_hi, dh=1.0, device=device,
+        )
+        while len(_table_cache) > 16:  # evict the oldest
+            _table_cache.pop(next(iter(_table_cache)))
+        _table_cache[key] = cached
+    return cached
+
+
+def device_f32(x: np.ndarray, device) -> torch.Tensor:
+    """A host array as a float32 tensor on ``device``."""
+    return torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(device)
+
+
+@dataclasses.dataclass(frozen=True)
+class FrameSetup:
+    """What a render of ``params`` decides before its camera; see
+    :func:`frame_setup`. ``kw`` holds the keywords every core takes from
+    ``params`` (read-only)."""
+
+    params: Params
+    terrain: Terrain
+    alt0: float  # the observer's absolute altitude
+    n_terr: int  # march samples a ray
+    max_hits: int  # terrain hit slots a pixel
+    kw: Mapping
+
+    def pack(self, device) -> TerrainPack:
+        """The terrain pack of the render's box on ``device`` (memoized by
+        the terrain)."""
+        return self.terrain.pack(*terrain_bbox(self.params), device)
+
+    def table(self, device, alt: Optional[float] = None,
+              atmosphere_def=None) -> RefractionTable:
+        """The l(h) table on ``device`` up from ``alt`` (the observer's by
+        default), for ``params``' atmosphere or ``atmosphere_def``."""
+        return build_refraction_table(self.params, self.alt0 if alt is None else alt,
+                                      device, atmosphere_def)
+
+    def result(self, image, hits: HitBuffer, elevation_deg, azimuth_deg, *,
+               fetch_image: bool = True, culled_rounds: Optional[int] = None) -> RenderResult:
+        """The frame's ``RenderResult``: the image fetched to the host
+        (``fetch_flat``), or as it is with ``fetch_image=False``."""
+        pos = self.params.view.position
+        return RenderResult(
+            image=fetch_flat(image).reshape(image.shape) if fetch_image else image,
+            hits=hits,
+            elevation_deg=elevation_deg,
+            azimuth_deg=azimuth_deg,
+            observer=(pos.latitude, pos.longitude, self.alt0),
+            culled_rounds=culled_rounds,
+        )
+
+
+def frame_setup(params: Params, terrain: Terrain, max_hits: Optional[int] = None, *,
+                opaque_hits: int = 1) -> FrameSetup:
+    """The frame set-up of ``params`` over ``terrain``, on no device: the
+    observer's altitude, the march length ``ceil(max_distance / step)``, the
+    hit depth (``max_hits``, else ``opaque_hits`` for opaque terrain and 4
+    for translucent) and the core keywords. The pack and the table are
+    built only when a device asks for them."""
+    pos = params.view.position
+    n_terr = int(math.ceil(params.view.frame.max_distance / params.simulation_step))
+    if max_hits is None:
+        max_hits = opaque_hits if params.terrain_alpha >= 1.0 else 4
+    kw = dict(
+        model=params.model,
+        shape=params.model.to_shape(),
+        straight=params.straight_rays,
+        step=float(params.simulation_step),
+        n_terr=n_terr,
+        lat0=float(pos.latitude),
+        lon0=float(pos.longitude),
+        coloring=params.coloring,
+        fog_distance=params.view.fog_distance,
+        terrain_alpha=float(params.terrain_alpha),
+    )
+    return FrameSetup(params=params, terrain=terrain, alt0=pos.abs_altitude(terrain),
+                      n_terr=n_terr, max_hits=int(max_hits),
+                      kw=types.MappingProxyType(kw))

@@ -24,10 +24,9 @@ F·H rays, one [F·W, N] terrain scan and one combine over [F, H, W, K].
 from __future__ import annotations
 
 import dataclasses
-import math
 import sys
 import weakref
-from typing import Optional, Tuple
+from typing import Optional
 
 import numpy as np
 import torch
@@ -46,29 +45,21 @@ from ..ops.objects import (
     object_col_windows,
     planes_to_hits,
 )
-from ..physics.atmosphere import Atmosphere
 from ..physics.ray import EarthShape, RefractionTable, march_coarse, march_rays
 from ..terrain.sample import sample_terrain_data
 from ..terrain.store import Terrain, TerrainPack
-from .base import HitBuffer, RenderResult, fetch_flat, fetch_pool, submit_fetch
+# terrain_bbox and build_refraction_table are read as fast.* by callers
+from .base import (  # noqa: F401
+    HitBuffer,
+    RenderResult,
+    build_refraction_table,
+    device_f32,
+    fetch_pool,
+    frame_setup,
+    submit_fetch,
+    terrain_bbox,
+)
 
-
-def terrain_bbox(params: Params) -> Tuple[Tuple[float, float], Tuple[float, float]]:
-    """Lat/lon box the render can touch: observer ± max_distance + margin."""
-    lat0 = params.view.position.latitude
-    lon0 = params.view.position.longitude
-    # conservative meters-per-degree lower bound 90 km (covers flat models'
-    # 111.1 km and high-latitude longitude shrink)
-    d_deg = params.view.frame.max_distance / 90_000.0 + 0.1
-    # longitude shrink at the MOST POLEWARD latitude the render can reach;
-    # past ~89.4° cover all longitudes
-    lat_pole = min(abs(lat0) + d_deg, 90.0)
-    coslat = max(0.01, math.cos(math.radians(lat_pole)))
-    d_lon = min(d_deg / coslat, 180.0)
-    return (lat0 - d_deg, lat0 + d_deg), (lon0 - d_lon, lon0 + d_lon)
-
-
-_table_cache: dict = {}
 
 # extra object slots past the terrain's when object windows stack on one
 # column (the JAX package's default, generators/fast.py:418)
@@ -110,34 +101,6 @@ def build_objects_cached(params, az_deg, n_terr: int, device):
                 objects, params.model, float(pos.latitude), float(pos.longitude), az,
                 float(params.simulation_step), n_terr)
     return objects, entry["wins"][key]
-
-
-def build_refraction_table(params: Params, alt0: float, device,
-                           atmosphere_def=None) -> RefractionTable:
-    """The l(h) table sized to every altitude the march can visit, for
-    ``params``' atmosphere or another ``atmosphere_def`` (a sweep frame's).
-
-    Memoized per (atmosphere content, wavelength, range, device), at most
-    16 tables: repeat renders of one configuration skip the host f64
-    profile evaluation (and the ~10 ms ``Atmosphere`` set-up) and the upload.
-    """
-    max_elev_deg = abs(params.view.frame.tilt) + params.view.frame.fov  # slack
-    top = alt0 + math.tan(math.radians(min(max_elev_deg, 89.0))) * (
-        params.view.frame.max_distance
-    )
-    h_hi = float(min(max(20_000.0, top * 1.1 + 1000.0), 90_000.0))
-    definition = params.atmosphere_def if atmosphere_def is None else atmosphere_def
-    key = (definition, float(params.wavelength), h_hi, str(device))
-    cached = _table_cache.get(key)
-    if cached is None:
-        cached = RefractionTable.build(
-            params.atmosphere if atmosphere_def is None else Atmosphere(atmosphere_def),
-            params.wavelength, h_lo=-2000.0, h_hi=h_hi, dh=1.0, device=device,
-        )
-        while len(_table_cache) > 16:  # evict the oldest
-            _table_cache.pop(next(iter(_table_cache)))
-        _table_cache[key] = cached
-    return cached
 
 
 def march_rows(table: Optional[RefractionTable], elev_deg: torch.Tensor, alt0,
@@ -201,8 +164,8 @@ def separable_hits(pack: TerrainPack, table: Optional[RefractionTable],
                    step: float, n_terr: int, max_hits: int, lat0: float,
                    lon0: float, terrain_alpha: float,
                    objects: Optional[ObjectSet] = None, obj_windows=None,
-                   obj_hit_cap: int = OBJ_HIT_CAP, plain: bool = False,
-                   obj_overlap: Optional[int] = None, march=None) -> HitBuffer:
+                   plain: bool = False, obj_overlap: Optional[int] = None,
+                   march=None) -> HitBuffer:
     """Hits on the separable (elevation-row × azimuth-column) grid.
 
     Shared by the Fast generator (camera rows and columns) and the
@@ -212,7 +175,7 @@ def separable_hits(pack: TerrainPack, table: Optional[RefractionTable],
     min(2·overlap, max(cap, 2))`` slots: a ray can only hit objects whose
     window holds its column, so the depth follows the deepest window overlap
     (``obj_overlap`` overrides it: a column shard passes its whole frame's).
-    Past ``obj_hit_cap`` extra slots the deepest hits are dropped, with a
+    Past ``OBJ_HIT_CAP`` extra slots the deepest hits are dropped, with a
     warning on every call (the reference keeps every trace point,
     utils.rs:241-279).
 
@@ -299,15 +262,15 @@ def separable_hits(pack: TerrainPack, table: Optional[RefractionTable],
     if objects is not None:  # 5. scene objects
         overlap = (max_window_overlap(obj_windows, objects.n_objects)
                    if obj_overlap is None else obj_overlap)
-        if 2 * overlap > max(obj_hit_cap, 2):
+        if 2 * overlap > max(OBJ_HIT_CAP, 2):
             print(
                 f"WARNING: object metadata depth truncated: {overlap} object windows "
-                f"overlap one column (needs {2 * overlap} slots) but obj_hit_cap="
-                f"{obj_hit_cap}; hits beyond the cap are dropped from metadata "
+                f"overlap one column (needs {2 * overlap} slots) but OBJ_HIT_CAP="
+                f"{OBJ_HIT_CAP}; hits beyond the cap are dropped from metadata "
                 "(compositing is visually saturated by then)",
                 file=sys.stderr,
             )
-        k_out = max_hits + min(2 * overlap, max(obj_hit_cap, 2))
+        k_out = max_hits + min(2 * overlap, max(OBJ_HIT_CAP, 2))
         tracing.count("objects.overlap", overlap)
         tracing.count("objects.k_out", k_out)
         # the pass widens the K terrain slots to k_out, frame by frame
@@ -334,8 +297,7 @@ def fast_core(pack: TerrainPack, table: Optional[RefractionTable],
               n_terr: int, max_hits: int, lat0: float, lon0: float, coloring,
               fog_distance: Optional[float], terrain_alpha: float,
               objects: Optional[ObjectSet] = None, obj_windows=None,
-              obj_hit_cap: int = OBJ_HIT_CAP, plain: bool = False,
-              obj_overlap: Optional[int] = None,
+              plain: bool = False, obj_overlap: Optional[int] = None,
               light_dir: Optional[torch.Tensor] = None, march=None):
     """The whole Fast pipeline on one device: (image [H, W, 3] u8, hits), or
     a sweep's [F, H, W, 3] with the frames of ``separable_hits``.
@@ -346,8 +308,7 @@ def fast_core(pack: TerrainPack, table: Optional[RefractionTable],
         pack, table, elev_deg, az_deg, alt0, model=model, shape=shape,
         straight=straight, step=step, n_terr=n_terr, max_hits=max_hits,
         lat0=lat0, lon0=lon0, terrain_alpha=terrain_alpha, objects=objects,
-        obj_windows=obj_windows, obj_hit_cap=obj_hit_cap, plain=plain,
-        obj_overlap=obj_overlap, march=march,
+        obj_windows=obj_windows, plain=plain, obj_overlap=obj_overlap, march=march,
     )
     if light_dir is not None:  # broadcast over the [H, W, K] of each frame
         light_dir = light_dir.reshape(light_dir.shape[:-1] + (1, 1, 1, 3))
@@ -360,75 +321,36 @@ def fast_core(pack: TerrainPack, table: Optional[RefractionTable],
     return image, hits
 
 
-def _fast_setup(params: Params, terrain: Terrain, device, max_hits: Optional[int]):
-    """What a Fast render of ``params`` needs before its first launch: the
-    camera angles (host), the terrain pack and the table on ``device``, the
-    march length and the hit depth."""
+def _fast_camera(params: Params):
+    """The Fast camera: elevation rows [H] and azimuth columns [W], host f64."""
     out, frame = params.output, params.view.frame
-    alt0 = params.view.position.abs_altitude(terrain)
     with tracing.span("camera"):
         elev_deg = camera.fast_ray_elevations(out.width, out.height, frame.fov, frame.tilt)
         az_deg = camera.fast_ray_azimuths(out.width, out.height, frame.fov, frame.direction)
-    pack = terrain.pack(*terrain_bbox(params), device)
-    table = build_refraction_table(params, alt0, device)
-    n_terr = int(math.ceil(frame.max_distance / params.simulation_step))
-    if max_hits is None:
-        max_hits = 1 if params.terrain_alpha >= 1.0 else 4
-    return alt0, elev_deg, az_deg, pack, table, n_terr, int(max_hits)
-
-
-def core_kwargs(params: Params, n_terr: int) -> dict:
-    """The keyword arguments every core takes from ``params``."""
-    pos = params.view.position
-    return dict(
-        model=params.model,
-        shape=params.model.to_shape(),
-        straight=params.straight_rays,
-        step=float(params.simulation_step),
-        n_terr=n_terr,
-        lat0=float(pos.latitude),
-        lon0=float(pos.longitude),
-        coloring=params.coloring,
-        fog_distance=params.view.fog_distance,
-        terrain_alpha=float(params.terrain_alpha),
-    )
-
-
-def device_f32(x: np.ndarray, device) -> torch.Tensor:
-    """A host array as a float32 tensor on ``device``."""
-    return torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(device)
+    return elev_deg, az_deg
 
 
 def render_fast(params: Params, terrain: Terrain, device,
                 max_hits: Optional[int] = None, plain: bool = False,
-                obj_hit_cap: int = OBJ_HIT_CAP, fetch_image: bool = True) -> RenderResult:
+                fetch_image: bool = True) -> RenderResult:
     """Full Fast-generator render from lowered Params (fast.rs:22-98) on
     ``device``. The image comes back to the host (``base.fetch_flat``), or
     stays a device tensor with ``fetch_image=False``; the hits stay on
-    device. ``obj_hit_cap``: see ``separable_hits``."""
+    device."""
     with tracing.span("gen.render"):
         device = torch.device(device)
-        pos = params.view.position
-        alt0, elev_deg, az_deg, pack, table, n_terr, max_hits = _fast_setup(
-            params, terrain, device, max_hits)
-        objects, obj_windows = build_objects_cached(params, az_deg, n_terr, device)
+        setup = frame_setup(params, terrain, max_hits)
+        elev_deg, az_deg = _fast_camera(params)
+        pack, table = setup.pack(device), setup.table(device)
+        objects, obj_windows = build_objects_cached(params, az_deg, setup.n_terr, device)
 
         image, hits = fast_core(
-            pack, table, device_f32(elev_deg, device), device_f32(az_deg, device), float(alt0),
-            objects=objects,
-            obj_windows=obj_windows,
-            obj_hit_cap=int(obj_hit_cap),
-            plain=plain,
-            max_hits=max_hits,
-            **core_kwargs(params, n_terr),
+            pack, table, device_f32(elev_deg, device), device_f32(az_deg, device),
+            float(setup.alt0), objects=objects, obj_windows=obj_windows, plain=plain,
+            max_hits=setup.max_hits, **setup.kw,
         )
-        return RenderResult(
-            image=fetch_flat(image).reshape(image.shape) if fetch_image else image,
-            hits=hits,
-            elevation_deg=elev_deg,
-            azimuth_deg=camera.wrap_azimuth_deg(az_deg),
-            observer=(pos.latitude, pos.longitude, alt0),
-        )
+        return setup.result(image, hits, elev_deg, camera.wrap_azimuth_deg(az_deg),
+                            fetch_image=fetch_image)
 
 
 def _largest_band_divisor(w: int, bands: int) -> int:
@@ -439,51 +361,35 @@ def _largest_band_divisor(w: int, bands: int) -> int:
     return 1
 
 
-# the exception cap of a streamed band (JAX ``render_fast_streamed``); a band
-# with more exceptions in a channel is fetched again raw
-STREAM_EXC_CAP = 256
-
-
-def _stream_bands(pool, pack, table, elev, az, alt0: float, march, b: int, kw: dict,
-                  compact: bool, exc_cap: int):
+def _stream_bands(pool, pack, table, elev, az, alt0: float, march, b: int, kw: dict):
     """Launch each of ``b`` azimuth bands and submit its image's fetch on
-    ``pool``, with no host sync: (band images, band hits, fetched outs,
-    handles), the outs valid once their handles have returned."""
-    from ..meta.pack import pack_frame_stream
-
+    ``pool``, with no host sync: (band hits, fetched outs, handles), the
+    outs valid once their handles have returned."""
     wb = az.shape[0] // b
-    band_imgs, band_hits, outs, handles = [], [], [], []
+    band_hits, outs, handles = [], [], []
     with tracing.span("fast.bands"):
         for i in range(b):
             image_b, hits_b = fast_core(pack, table, elev, az[i * wb:(i + 1) * wb], alt0,
                                         march=march, **kw)
-            band_imgs.append(image_b)
             band_hits.append(hits_b)
-            segs = (pack_frame_stream(hits_b.valid, image_b, exc_cap) if compact
-                    else (image_b,))
-            o, hs = submit_fetch(pool, segs)
+            o, hs = submit_fetch(pool, (image_b,))
             outs.append(o)
             handles.append(hs)
-    return band_imgs, band_hits, outs, handles
+    return band_hits, outs, handles
 
 
 def render_fast_streamed(params: Params, terrain: Terrain, device, bands: int = 8,
-                         max_hits: Optional[int] = None, progress=None,
-                         compact: bool = False) -> RenderResult:
+                         max_hits: Optional[int] = None, progress=None) -> RenderResult:
     """Banded Fast render: march once, combine per column band, stream
     (JAX ``render_fast_streamed``, fast.py:579-728).
 
     The frame splits into ``_largest_band_divisor(W, bands)`` contiguous
     azimuth bands that share one march (one K2 launch); each band is one
-    ``fast_core`` (one K1 launch), and its image leaves through
+    ``fast_core`` (one K1 launch), and its image leaves raw through
     ``submit_fetch`` as soon as it is enqueued, so its copy runs on the copy
-    stream while later bands compute. With ``compact`` a band leaves through
-    ``meta.pack.pack_frame_stream`` (bitmask + 4-bit channel deltas, static
-    shapes: no sync to learn a count); a band whose exceptions overflow
-    ``STREAM_EXC_CAP`` is fetched again raw from its image, still on the
-    device.
-    ``compact`` is off by default, unlike JAX's: on an H100 the codec's
-    launches and its host decode cost far more than the link time it saves
+    stream while later bands compute. JAX's frame codec
+    (``meta.pack.pack_frame_stream``) is not used: on an H100 its launches
+    and its host decode cost far more than the link time it saves
     (PERF.md §6).
     ``progress`` gets one monotone percent a band, ending at 100. The hits
     are concatenated on the device.
@@ -501,28 +407,26 @@ def render_fast_streamed(params: Params, terrain: Terrain, device, bands: int = 
         if progress is not None:
             progress(100)
         return result
-    from ..meta.pack import frame_base_rgb, unpack_frame_stream
 
     with tracing.span("gen.render"):
         device = torch.device(device)
-        pos = params.view.position
-        alt0, elev_deg, az_deg, pack, table, n_terr, max_hits = _fast_setup(
-            params, terrain, device, max_hits)
-        kw = dict(core_kwargs(params, n_terr), max_hits=max_hits)
+        setup = frame_setup(params, terrain, max_hits)
+        elev_deg, az_deg = _fast_camera(params)
+        pack, table = setup.pack(device), setup.table(device)
+        kw = dict(setup.kw, max_hits=setup.max_hits)
         h, w = params.output.height, params.output.width
         b = _largest_band_divisor(w, max(1, int(bands)))
         wb = w // b
         elev = device_f32(elev_deg, device)
         az = device_f32(az_deg, device)
-        exc_cap = STREAM_EXC_CAP
         with tracing.span("fast.march"):
-            march = march_frames(table, elev, frame_altitudes(alt0, device),
+            march = march_frames(table, elev, frame_altitudes(setup.alt0, device),
                                  shape=kw["shape"], straight=kw["straight"], step=kw["step"],
-                                 n_terr=n_terr)
+                                 n_terr=setup.n_terr)
 
         with fetch_pool() as pool:
-            band_imgs, band_hits, outs, handles = _stream_bands(
-                pool, pack, table, elev, az, float(alt0), march, b, kw, compact, exc_cap)
+            band_hits, outs, handles = _stream_bands(
+                pool, pack, table, elev, az, float(setup.alt0), march, b, kw)
             with tracing.span("fetch"):
                 for i, hs in enumerate(handles):
                     for handle in hs:
@@ -530,22 +434,7 @@ def render_fast_streamed(params: Params, terrain: Terrain, device, bands: int = 
                     if progress is not None:
                         progress(int(round(100.0 * (i + 1) / b)))
 
-        if compact:
-            sky = frame_base_rgb(params.coloring, params.view.fog_distance)
-            slabs = []
-            for o, image_b in zip(outs, band_imgs):
-                slab = unpack_frame_stream(*o, sky, h, wb, exc_cap)
-                if slab is None:  # an exception channel overflowed: the raw band
-                    slab = fetch_flat(image_b).reshape(h, wb, 3)
-                slabs.append(slab)
-        else:
-            slabs = [o[0].reshape(h, wb, 3) for o in outs]
         hits = HitBuffer(**{f.name: torch.cat([getattr(x, f.name) for x in band_hits], dim=1)
                             for f in dataclasses.fields(HitBuffer)})
-        return RenderResult(
-            image=np.concatenate(slabs, axis=1),
-            hits=hits,
-            elevation_deg=elev_deg,
-            azimuth_deg=camera.wrap_azimuth_deg(az_deg),
-            observer=(pos.latitude, pos.longitude, alt0),
-        )
+        return setup.result(np.concatenate([o[0].reshape(h, wb, 3) for o in outs], axis=1),
+                            hits, elev_deg, camera.wrap_azimuth_deg(az_deg), fetch_image=False)

@@ -39,13 +39,8 @@ from ..config import Params
 from ..models import camera
 from ..ops.composite import composite
 from ..terrain.store import Terrain
-from .base import HitBuffer, RenderResult, fetch_flat
-from .fast import (
-    build_objects_cached,
-    build_refraction_table,
-    separable_hits,
-    terrain_bbox,
-)
+from .base import HitBuffer, RenderResult, device_f32, frame_setup
+from .fast import build_objects_cached, separable_hits
 
 SCALE = 1.5  # interpolating_rectilinear.rs:454
 SEQUENCE = ((0, 0), (0, 1), (1, 0), (1, 1))  # :183
@@ -344,6 +339,14 @@ def grid_coords(cam: tuple, min_es: float, min_ds: float, i_min: int, j_min: int
     return gi, gj, ei_f - gi_abs, dj_f - gj_abs
 
 
+def grid_hit_depth(max_hits: int, terrain_alpha: float, has_objects: bool) -> int:
+    """Terrain hit slots of a snapped-grid point: an opaque object-free
+    scene puts at most one trace point in any grid cell, so one grid slot
+    serves; the output keeps 2·max_hits so the 4 corners' groups still fit
+    (invalid entries never join groups)."""
+    return 1 if (not has_objects and terrain_alpha >= 1.0) else max_hits
+
+
 def interpolating_core(pack, table, grid_elev_deg, grid_az_deg, alt0, *, cam,
                        min_es, min_ds, i_min, j_min, model, shape, straight, step,
                        n_terr, max_hits, lat0, lon0, coloring, fog_distance,
@@ -355,13 +358,10 @@ def interpolating_core(pack, table, grid_elev_deg, grid_az_deg, alt0, *, cam,
     the grid's march and combine as their plain PyTorch versions."""
     gi, gj, rem_e, rem_d = grid_coords(cam, min_es, min_ds, i_min, j_min,
                                        grid_az_deg.device)
-    # an opaque object-free scene puts at most one trace point in any grid
-    # cell, so one grid slot serves; k_out keeps 2·max_hits so the 4 corners'
-    # groups still fit (invalid entries never join groups)
-    grid_hits = 1 if (objects is None and terrain_alpha >= 1.0) else max_hits
     grid = separable_hits(
         pack, table, grid_elev_deg, grid_az_deg, alt0, model=model, shape=shape,
-        straight=straight, step=step, n_terr=n_terr, max_hits=grid_hits,
+        straight=straight, step=step, n_terr=n_terr,
+        max_hits=grid_hit_depth(max_hits, terrain_alpha, objects is not None),
         lat0=lat0, lon0=lon0, terrain_alpha=terrain_alpha, objects=objects,
         obj_windows=obj_windows, plain=plain,
     )
@@ -428,54 +428,23 @@ def render_interpolating(params: Params, terrain: Terrain, device,
     launch sequence. Scene objects are planned on the grid's azimuths.
     """
     device = torch.device(device)
-    out = params.output
-    frame = params.view.frame
-    pos = params.view.position
-    alt0 = float(pos.abs_altitude(terrain))
+    out, frame = params.output, params.view.frame
+    setup = frame_setup(params, terrain, max_hits, opaque_hits=2)
     cam = (out.width, out.height, float(frame.fov), float(frame.tilt),
            float(frame.direction))
     (min_es, min_ds, i_min, j_min, grid_elev_deg, grid_az_deg,
      elev_out, az_out) = _camera_grids(*cam)
 
-    pack = terrain.pack(*terrain_bbox(params), device)
-    table = build_refraction_table(params, alt0, device)
-    n_terr = int(math.ceil(frame.max_distance / params.simulation_step))
-    if max_hits is None:
-        max_hits = 2 if params.terrain_alpha >= 1.0 else 4
-    objects, obj_windows = build_objects_cached(params, grid_az_deg, n_terr, device)
+    pack, table = setup.pack(device), setup.table(device)
+    objects, obj_windows = build_objects_cached(params, grid_az_deg, setup.n_terr, device)
 
     image, hits = interpolating_core(
-        pack, table,
-        torch.from_numpy(grid_elev_deg.astype(np.float32)).to(device),
-        torch.from_numpy(grid_az_deg.astype(np.float32)).to(device),
-        alt0,
-        cam=cam,
-        min_es=float(min_es),
-        min_ds=float(min_ds),
-        i_min=i_min,
-        j_min=j_min,
-        model=params.model,
-        shape=params.model.to_shape(),
-        straight=params.straight_rays,
-        step=float(params.simulation_step),
-        n_terr=n_terr,
-        max_hits=int(max_hits),
-        lat0=float(pos.latitude),
-        lon0=float(pos.longitude),
-        coloring=params.coloring,
-        fog_distance=params.view.fog_distance,
-        terrain_alpha=float(params.terrain_alpha),
-        objects=objects,
-        obj_windows=obj_windows,
-        plain=plain,
+        pack, table, device_f32(grid_elev_deg, device), device_f32(grid_az_deg, device),
+        float(setup.alt0), cam=cam, min_es=float(min_es), min_ds=float(min_ds),
+        i_min=i_min, j_min=j_min, max_hits=setup.max_hits, objects=objects,
+        obj_windows=obj_windows, plain=plain, **setup.kw,
     )
-    image_host = fetch_flat(image).reshape(image.shape) if fetch_image else image
+    result = setup.result(image, hits, elev_out, az_out, fetch_image=fetch_image)
     if progress is not None:
         progress(100)
-    return RenderResult(
-        image=image_host,
-        hits=hits,
-        elevation_deg=elev_out,
-        azimuth_deg=az_out,
-        observer=(pos.latitude, pos.longitude, alt0),
-    )
+    return result

@@ -64,8 +64,8 @@ from ..physics.ray import (
 )
 from ..terrain.sample import sample_elevation, sample_terrain_data
 from ..terrain.store import Terrain, TerrainPack
-from .base import HitBuffer, RenderResult, fetch_flat
-from .fast import build_refraction_table, terrain_bbox, terrain_columns
+from .base import HitBuffer, RenderResult, frame_setup
+from .fast import terrain_columns
 
 M_CAND = 4  # candidate blocks captured per pixel per round (culled path)
 BLOCK_WINDOWS = 4  # coarse windows per envelope block (culled path)
@@ -1234,34 +1234,18 @@ def render_rectilinear(params: Params, terrain: Terrain, device,
         device = torch.device(device)
         out = params.output
         frame = params.view.frame
-        pos = params.view.position
-        alt0 = float(pos.abs_altitude(terrain))
+        setup = frame_setup(params, terrain, max_hits)
+        alt0, max_hits, kw = float(setup.alt0), setup.max_hits, setup.kw
         h, w = out.height, out.width
 
         with tracing.span("camera"):
             elev_rad, dir_rad = camera.rectilinear_ray_params(
                 w, h, frame.fov, frame.tilt, frame.direction)  # [H, W] f64
-        pack = terrain.pack(*terrain_bbox(params), device)
-        table = build_refraction_table(params, alt0, device)
-        n_terr = int(math.ceil(frame.max_distance / params.simulation_step))
-        if max_hits is None:
-            max_hits = 1 if params.terrain_alpha >= 1.0 else 4
+        pack, table = setup.pack(device), setup.table(device)
         objects = None
         if params.objects:
             with tracing.span("objects.plan"):
                 objects = ObjectSet.build(params, device)
-        kw = dict(
-            model=params.model,
-            shape=params.model.to_shape(),
-            straight=params.straight_rays,
-            step=float(params.simulation_step),
-            n_terr=n_terr,
-            lat0=float(pos.latitude),
-            lon0=float(pos.longitude),
-            coloring=params.coloring,
-            fog_distance=params.view.fog_distance,
-            terrain_alpha=float(params.terrain_alpha),
-        )
         rounds = None
         emit = percent_reporter(progress)
         if frame.tilt == 0.0:
@@ -1271,13 +1255,13 @@ def render_rectilinear(params: Params, terrain: Terrain, device,
             if objects is None:
                 image, hits = fused_shared_core(
                     pack, table, az, alt0, cam=(w, h, float(frame.fov)),
-                    max_hits=int(max_hits), emit=emit, plain=plain, **kw)
+                    max_hits=max_hits, emit=emit, plain=plain, **kw)
             else:
                 image, hits = shared_column_core(
                     pack, table, objects,
                     torch.from_numpy(elev_rad.astype(np.float32)).to(device), az, alt0,
-                    max_hits=int(max_hits),
-                    chunk_rows=auto_chunk_rows(w, h, n_terr), emit=emit,
+                    max_hits=max_hits,
+                    chunk_rows=auto_chunk_rows(w, h, setup.n_terr), emit=emit,
                     plain=plain, **kw)
         elif max_hits == 1 and cull and objects is None:
             image, hits, rounds = fused_culled_core(
@@ -1296,16 +1280,10 @@ def render_rectilinear(params: Params, terrain: Terrain, device,
             for i, c0 in enumerate(starts):
                 parts.append(rectilinear_core(
                     pack, table, elev_flat[c0:c0 + chunk], dir_flat[c0:c0 + chunk], alt0,
-                    max_hits=int(max_hits), objects=objects, plain=plain, **kw))
+                    max_hits=max_hits, objects=objects, plain=plain, **kw))
                 emit((i + 1) / len(starts))
             image = torch.cat([p[0] for p in parts], dim=0).reshape(h, w, 3)
             hits = _frame_hits([p[1] for p in parts], h, w)
         emit(1.0)
-        return RenderResult(
-            image=fetch_flat(image).reshape(image.shape) if fetch_image else image,
-            hits=hits,
-            elevation_deg=np.rad2deg(elev_rad),
-            azimuth_deg=np.rad2deg(dir_rad),
-            observer=(pos.latitude, pos.longitude, alt0),
-            culled_rounds=rounds,
-        )
+        return setup.result(image, hits, np.rad2deg(elev_rad), np.rad2deg(dir_rad),
+                            fetch_image=fetch_image, culled_rounds=rounds)

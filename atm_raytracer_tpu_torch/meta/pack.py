@@ -10,9 +10,10 @@ decoding runs on the host in numpy.
   (``frame_base_rgb``), so only hit pixels ship, as per-channel 4-bit
   stream deltas behind a u32 validity bitmask, with an exact exception
   side channel for larger deltas. ``pack_frame_stream`` has static shapes
-  and makes no host sync (``render_fast_streamed`` submits a band's fetch
-  right after its launches); ``pack_frame_compact`` is its uncapped form
-  and also takes a leading frame axis (a sweep's frames in one call).
+  and makes no host sync; ``pack_frame_compact`` is its uncapped form and
+  also takes a leading frame axis (a sweep's frames in one call). No
+  render of the port calls them: its banded render fetches each band raw,
+  which an H100 does faster than the codec's launches and host decode.
 * ``pack_viewer_fields``: the viewer's key / dlat / dlon / elevation in
   14 B a slot (key exact, lat/lon range-coded to 2^24 levels, elevation to
   u16); ``pack_viewer_fields_separable``: key and elevation of the valid

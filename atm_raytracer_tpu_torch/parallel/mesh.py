@@ -33,7 +33,6 @@ size.
 from __future__ import annotations
 
 import dataclasses
-import math
 from typing import List, Optional, Sequence
 
 import numpy as np
@@ -43,8 +42,7 @@ from ..config import Config, Params
 from ..generators import fast as fast_mod
 from ..generators import interpolating as interp_mod
 from ..generators import rectilinear as rect_mod
-from ..generators.base import HitBuffer, RenderResult, fetch_flat
-from ..generators.fast import core_kwargs, device_f32
+from ..generators.base import HitBuffer, RenderResult, device_f32, fetch_flat, frame_setup
 from ..models import camera
 from ..ops.composite import composite
 from ..ops.objects import ObjectSet, max_window_overlap
@@ -98,50 +96,36 @@ def _gather_hits(parts, axis: int, device, stop: Optional[int] = None) -> HitBuf
     return HitBuffer(**fields)
 
 
-def _n_terr(params: Params) -> int:
-    return int(math.ceil(params.view.frame.max_distance / params.simulation_step))
-
-
 def render_fast_sharded(params: Params, terrain: Terrain, mesh: Sequence[torch.device],
                         max_hits: Optional[int] = None) -> RenderResult:
     """Fast render with the azimuth columns split over ``mesh``; the pack,
     the table and the row march on each device. The image comes back to the
     host; the hits are gathered on the first device."""
-    out, frame, pos = params.output, params.view.frame, params.view.position
-    alt0 = pos.abs_altitude(terrain)
+    out, frame = params.output, params.view.frame
+    setup = frame_setup(params, terrain, max_hits)
     elev_deg = camera.fast_ray_elevations(out.width, out.height, frame.fov, frame.tilt)
     az_deg = camera.fast_ray_azimuths(out.width, out.height, frame.fov, frame.direction)
     az_padded, true_w = _pad_to_multiple(az_deg.astype(np.float32), len(mesh))
-    n_terr = _n_terr(params)
-    if max_hits is None:
-        max_hits = 1 if params.terrain_alpha >= 1.0 else 4
-    kw = core_kwargs(params, n_terr)
 
     images, parts = [], []
     for dev, (c0, c1) in zip(mesh, _shards(az_padded.shape[0], len(mesh))):
         # windows planned on the frame's own columns, as a one-device render
-        objects, windows = fast_mod.build_objects_cached(params, az_deg, n_terr, dev)
+        objects, windows = fast_mod.build_objects_cached(params, az_deg, setup.n_terr, dev)
         image, hits = fast_mod.fast_core(
-            terrain.pack(*fast_mod.terrain_bbox(params), dev),
-            fast_mod.build_refraction_table(params, alt0, dev),
-            device_f32(elev_deg, dev), device_f32(az_padded[c0:c1], dev), float(alt0),
-            max_hits=int(max_hits), objects=objects,
+            setup.pack(dev), setup.table(dev),
+            device_f32(elev_deg, dev), device_f32(az_padded[c0:c1], dev), float(setup.alt0),
+            max_hits=setup.max_hits, objects=objects,
             obj_windows=_shard_windows(windows, c0, c1),
             obj_overlap=(None if objects is None
                          else max_window_overlap(windows, objects.n_objects)),
-            **kw,
+            **setup.kw,
         )
         images.append(image)
         parts.append(hits)
     dev0 = mesh[0]
     image = torch.cat([im.to(dev0) for im in images], dim=1)[:, :true_w]
-    return RenderResult(
-        image=fetch_flat(image).reshape(image.shape),
-        hits=_gather_hits(parts, 1, dev0, true_w),
-        elevation_deg=elev_deg,
-        azimuth_deg=camera.wrap_azimuth_deg(az_deg),
-        observer=(pos.latitude, pos.longitude, alt0),
-    )
+    return setup.result(image, _gather_hits(parts, 1, dev0, true_w), elev_deg,
+                        camera.wrap_azimuth_deg(az_deg))
 
 
 def render_sweep_sharded(
@@ -177,13 +161,13 @@ def render_sweep_sharded(
     render of it (with the table built at its altitude).
     """
     out, frame, pos = params.output, params.view.frame, params.view.position
-    alt_base = pos.abs_altitude(terrain)
+    setup = frame_setup(params, terrain, max_hits)
     n_dev = len(mesh)
 
     dirs = np.asarray(list(directions_deg), np.float32)
     f = len(dirs)
     if altitudes_m is None:
-        alts = np.full(f, alt_base, np.float32)
+        alts = np.full(f, setup.alt0, np.float32)
     else:
         alts = np.asarray(list(altitudes_m), np.float32)
         if len(alts) != f:
@@ -223,9 +207,6 @@ def render_sweep_sharded(
     if atmospheres is not None and len(atmospheres) != f:
         raise ValueError("one AtmosphereDef per frame")
     alt_max = float(alts.max())
-    n_terr = _n_terr(params)
-    if max_hits is None:
-        max_hits = 1 if params.terrain_alpha >= 1.0 else 4
     # the Shading light is anchored to the view direction (params.rs:252-258)
     lights = []
     for d in dirs:
@@ -233,13 +214,12 @@ def render_sweep_sharded(
             dataclasses.replace(frame, direction=float(d)), pos, params.model)
         lights.append(col.light_dir if col.light_dir is not None else (0.0, 0.0, 1.0))
     lights = np.asarray(lights, np.float32)  # [F, 3]
-    kw = core_kwargs(params, n_terr)
     stacked = None
     if atmospheres is not None:
         # a table per distinct atmosphere, built on the first device and
         # stacked once: the table memo holds one entry an atmosphere,
         # whatever the sweep's length and the device count
-        by_def = {a: fast_mod.build_refraction_table(params, alt_max, mesh[0], a)
+        by_def = {a: setup.table(mesh[0], alt_max, a)
                   for a in dict.fromkeys(atmospheres)}
         stacked = RefractionTable.stack(
             [by_def[a] for a in atmospheres] + [by_def[atmospheres[-1]]] * pad)
@@ -247,16 +227,16 @@ def render_sweep_sharded(
     images, parts = [], []
     for dev, (f0, f1) in zip(mesh, _shards(f + pad, n_dev)):
         if stacked is None:
-            table = fast_mod.build_refraction_table(params, alt_max, dev)
+            table = setup.table(dev, alt_max)
         else:
             table = dataclasses.replace(stacked, values=stacked.values[f0:f1].to(dev),
                                         pairs=stacked.pairs[f0:f1].to(dev))
         image, hits = fast_mod.fast_core(
-            terrain.pack(*fast_mod.terrain_bbox(params), dev), table,
+            setup.pack(dev), table,
             device_f32(elev_deg if elev_frames is None else elev_frames[f0:f1], dev),
             device_f32(az_frames[f0:f1], dev), device_f32(alts[f0:f1], dev),
-            max_hits=int(max_hits), objects=ObjectSet.build(params, dev),
-            light_dir=device_f32(lights[f0:f1], dev), **kw,
+            max_hits=setup.max_hits, objects=ObjectSet.build(params, dev),
+            light_dir=device_f32(lights[f0:f1], dev), **setup.kw,
         )
         images.append(image)
         parts.append(hits)
@@ -278,8 +258,8 @@ def render_interpolating_sharded(params: Params, terrain: Terrain,
     split (padded by continuing the snapped progression), the grid planes
     gathered onto every device (cut to the grid's own columns), then the
     output rows split for the interpolation and the composite."""
-    out, frame, pos = params.output, params.view.frame, params.view.position
-    alt0 = float(pos.abs_altitude(terrain))
+    out, frame = params.output, params.view.frame
+    setup = frame_setup(params, terrain, max_hits, opaque_hits=2)
     cam = (out.width, out.height, float(frame.fov), float(frame.tilt),
            float(frame.direction))
     (min_es, min_ds, i_min, j_min, grid_elev_deg, grid_az_deg,
@@ -293,22 +273,21 @@ def render_interpolating_sharded(params: Params, terrain: Terrain,
             grid_az_deg,
             np.rad2deg(np.arange(j_min + true_wp, j_min + true_wp + padn) * min_ds),
         ])
-    n_terr = _n_terr(params)
-    if max_hits is None:
-        max_hits = 2 if params.terrain_alpha >= 1.0 else 4
-    kw = core_kwargs(params, n_terr)
+    kw = dict(setup.kw)
     coloring, fog = kw.pop("coloring"), kw.pop("fog_distance")
 
     grid_parts = []
     has_objects = False
     for dev, (c0, c1) in zip(mesh, _shards(grid_az_pad.shape[0], n_dev)):
-        objects, windows = fast_mod.build_objects_cached(params, grid_az_deg, n_terr, dev)
+        objects, windows = fast_mod.build_objects_cached(params, grid_az_deg,
+                                                         setup.n_terr, dev)
         has_objects = objects is not None
         grid_parts.append(fast_mod.separable_hits(
-            terrain.pack(*fast_mod.terrain_bbox(params), dev),
-            fast_mod.build_refraction_table(params, alt0, dev),
-            device_f32(grid_elev_deg, dev), device_f32(grid_az_pad[c0:c1], dev), alt0,
-            max_hits=1 if (objects is None and params.terrain_alpha >= 1.0) else int(max_hits),
+            setup.pack(dev), setup.table(dev),
+            device_f32(grid_elev_deg, dev), device_f32(grid_az_pad[c0:c1], dev),
+            float(setup.alt0),
+            max_hits=interp_mod.grid_hit_depth(setup.max_hits, kw["terrain_alpha"],
+                                               has_objects),
             objects=objects, obj_windows=_shard_windows(windows, c0, c1),
             obj_overlap=(None if objects is None
                          else max_window_overlap(windows, objects.n_objects)),
@@ -324,20 +303,14 @@ def render_interpolating_sharded(params: Params, terrain: Terrain,
         gi, gj, rem_e, rem_d = (x.index_select(0, rows) for x in interp_mod.grid_coords(
             cam, min_es, min_ds, i_min, j_min, dev))
         hits = interp_mod._interpolate_pixels(grid, gi, gj, rem_e, rem_d, kw["step"],
-                                              2 * int(max_hits), has_objects=has_objects)
+                                              2 * setup.max_hits, has_objects=has_objects)
         images.append(composite(
             coloring, fog, hits.valid, hits.rgba[..., 3], hits.distance, hits.elevation,
             hits.path_length, hits.normal, hits.kind, hits.rgba[..., :3]))
         parts.append(hits)
     dev0 = mesh[0]
     image = torch.cat([im.to(dev0) for im in images])[: out.height]
-    return RenderResult(
-        image=fetch_flat(image).reshape(image.shape),
-        hits=_gather_hits(parts, 0, dev0, out.height),
-        elevation_deg=elev_out,
-        azimuth_deg=az_out,
-        observer=(pos.latitude, pos.longitude, alt0),
-    )
+    return setup.result(image, _gather_hits(parts, 0, dev0, out.height), elev_out, az_out)
 
 
 def render_rectilinear_pixelwise_sharded(params: Params, terrain: Terrain,
@@ -348,16 +321,12 @@ def render_rectilinear_pixelwise_sharded(params: Params, terrain: Terrain,
     ``rectilinear.PIXEL_ROWS`` image rows a chunk (rounded up to a multiple
     of the device count), each chunk split over ``mesh``. Every ray is independent, so this is the one-device dense
     render (``render_rectilinear(..., cull=False)``) bit for bit."""
-    out, frame, pos = params.output, params.view.frame, params.view.position
-    alt0 = float(pos.abs_altitude(terrain))
+    out, frame = params.output, params.view.frame
+    setup = frame_setup(params, terrain, max_hits)
     n_dev = len(mesh)
     h, w = out.height, out.width
     elev_rad, dir_rad = camera.rectilinear_ray_params(w, h, frame.fov, frame.tilt,
                                                       frame.direction)  # [H, W]
-    n_terr = _n_terr(params)
-    if max_hits is None:
-        max_hits = 1 if params.terrain_alpha >= 1.0 else 4
-    kw = core_kwargs(params, n_terr)
 
     p_total = h * w
     chunk = rect_mod.PIXEL_ROWS * w
@@ -368,28 +337,21 @@ def render_rectilinear_pixelwise_sharded(params: Params, terrain: Terrain,
     elev_flat[:p_total] = elev_rad.reshape(-1)
     dir_flat[:p_total] = np.rad2deg(dir_rad).reshape(-1)
 
-    inputs = [(terrain.pack(*fast_mod.terrain_bbox(params), dev),
-               fast_mod.build_refraction_table(params, alt0, dev),
-               ObjectSet.build(params, dev)) for dev in mesh]
+    inputs = [(setup.pack(dev), setup.table(dev), ObjectSet.build(params, dev))
+              for dev in mesh]
     images, parts = [], []
     dev0 = mesh[0]
     for c0 in range(0, p_total + pad, chunk):
         for dev, (pack, table, objects), (s0, s1) in zip(mesh, inputs, _shards(chunk, n_dev)):
             image, hits = rect_mod.rectilinear_core(
                 pack, table, device_f32(elev_flat[c0 + s0:c0 + s1], dev),
-                device_f32(dir_flat[c0 + s0:c0 + s1], dev), alt0, max_hits=int(max_hits),
-                objects=objects, **kw)
+                device_f32(dir_flat[c0 + s0:c0 + s1], dev), float(setup.alt0),
+                max_hits=setup.max_hits, objects=objects, **setup.kw)
             images.append(image.to(dev0))
             parts.append(hits.to(dev0))
     image = torch.cat(images)[:p_total].reshape(h, w, 3)
-    hits = _gather_hits(parts, 0, dev0, p_total)
-    return RenderResult(
-        image=fetch_flat(image).reshape(image.shape),
-        hits=rect_mod._frame_hits([hits], h, w),
-        elevation_deg=np.rad2deg(elev_rad),
-        azimuth_deg=np.rad2deg(dir_rad),
-        observer=(pos.latitude, pos.longitude, alt0),
-    )
+    hits = rect_mod._frame_hits([_gather_hits(parts, 0, dev0, p_total)], h, w)
+    return setup.result(image, hits, np.rad2deg(elev_rad), np.rad2deg(dir_rad))
 
 
 def render_rectilinear_sharded(params: Params, terrain: Terrain,
@@ -400,39 +362,29 @@ def render_rectilinear_sharded(params: Params, terrain: Terrain,
     count by repeating the last row; every device scans the shared columns),
     else the dense program over the flattened PIXELS
     (``render_rectilinear_pixelwise_sharded``)."""
-    out, frame, pos = params.output, params.view.frame, params.view.position
+    out, frame = params.output, params.view.frame
     if frame.tilt != 0.0 or params.objects:
         return render_rectilinear_pixelwise_sharded(params, terrain, mesh, max_hits)
-    alt0 = float(pos.abs_altitude(terrain))
+    setup = frame_setup(params, terrain, max_hits)
     h, w = out.height, out.width
     elev_rad, dir_rad = camera.rectilinear_ray_params(w, h, frame.fov, frame.tilt,
                                                       frame.direction)
     az_col = camera.rectilinear_column_azimuths(w, frame.fov, frame.direction)
-    n_terr = _n_terr(params)
-    if max_hits is None:
-        max_hits = 1 if params.terrain_alpha >= 1.0 else 4
-    kw = core_kwargs(params, n_terr)
 
     rows_per = -(-h // len(mesh))
     images, parts = [], []
     for i, dev in enumerate(mesh):
         image, hits = rect_mod.fused_shared_core(
-            terrain.pack(*fast_mod.terrain_bbox(params), dev),
-            fast_mod.build_refraction_table(params, alt0, dev), device_f32(az_col, dev), alt0,
-            cam=(w, h, float(frame.fov)), max_hits=int(max_hits),
+            setup.pack(dev), setup.table(dev), device_f32(az_col, dev), float(setup.alt0),
+            cam=(w, h, float(frame.fov)), max_hits=setup.max_hits,
             rows=torch.arange(i * rows_per, (i + 1) * rows_per, device=dev).clamp(max=h - 1),
-            **kw)
+            **setup.kw)
         images.append(image)
         parts.append(hits)
     dev0 = mesh[0]
     image = torch.cat([im.to(dev0) for im in images])[:h]
-    return RenderResult(
-        image=fetch_flat(image).reshape(image.shape),
-        hits=_gather_hits(parts, 0, dev0, h),
-        elevation_deg=np.rad2deg(elev_rad),
-        azimuth_deg=np.rad2deg(dir_rad),
-        observer=(pos.latitude, pos.longitude, alt0),
-    )
+    return setup.result(image, _gather_hits(parts, 0, dev0, h), np.rad2deg(elev_rad),
+                        np.rad2deg(dir_rad))
 
 
 def _tiny_setup(width=64, height=48, max_distance=5000.0, step=100.0):

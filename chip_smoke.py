@@ -211,14 +211,13 @@ before the result line:
               sweep's frames against ``.cpu()`` and a reused pinned buffer,
               ``_pack_artifact``'s one batched fetch against nine per-field
               copies, medians of 20, every array equal; (b)
-              ``render_fast_streamed`` at the headline, bands 8, ``compact``
-              on and off: image and hits ``torch.equal`` to ``render_fast``,
-              one K2 and eight K1 launches (counted), 8 progress lines, no
-              host sync in the band loop (``set_sync_debug_mode("error")``),
-              medians of 20 in turns with ``render_fast``, device busy, idle
-              share and the ``Memcpy DtoH`` time under kernels on another
-              stream from a trace of one render, ``STREAM_EXC_CAP`` of 0
-              sending every band down the raw route; (c) ``pack_frame_compact`` on the headline frame and the
+              ``render_fast_streamed`` at the headline, bands 8: image and
+              hits ``torch.equal`` to ``render_fast``, one K2 and eight K1
+              launches (counted), 8 progress lines, no host sync in the band
+              loop (``set_sync_debug_mode("error")``), medians of 20 in turns
+              with ``render_fast``, device busy, idle share and the ``Memcpy
+              DtoH`` time under kernels on another stream from a trace of one
+              render; (c) ``pack_frame_compact`` on the headline frame and the
               sweep's 8 frames (bytes, device ms, decode ms, bit-exact, the
               card's payload equal to the CPU's) and ``fetch_viewer_fields``,
               ``_separable`` and ``_delta`` at the headline within the JAX
@@ -785,12 +784,13 @@ def k3_inputs(dev, terrain, params):
     import numpy as np
     import torch
 
+    from atm_raytracer_tpu_torch.generators import base
     from atm_raytracer_tpu_torch.generators import rectilinear as rect
 
     out, frame = params.output, params.view.frame
     alt0 = float(params.view.position.abs_altitude(terrain))
-    pack = terrain.pack(*rect.terrain_bbox(params), dev)
-    table = rect.build_refraction_table(params, alt0, dev)
+    pack = terrain.pack(*base.terrain_bbox(params), dev)
+    table = base.build_refraction_table(params, alt0, dev)
     az = torch.from_numpy(rect.camera.rectilinear_column_azimuths(
         out.width, frame.fov, frame.direction).astype(np.float32)).to(dev)
     n_terr = int(math.ceil(frame.max_distance / params.simulation_step))
@@ -804,12 +804,13 @@ def k3_inputs(dev, terrain, params):
 
 def k3_form(form: str, table, params, alt0: float) -> dict:
     """The shape, table and straight keywords of one of K3_FORMS."""
+    from atm_raytracer_tpu_torch.generators import base
     from atm_raytracer_tpu_torch.generators import rectilinear as rect
     from atm_raytracer_tpu_torch.physics import ray as R
 
     l_form, shape = form.split()
     if l_form == "inversion":
-        table = rect.build_refraction_table(params, alt0, table.values.device,
+        table = base.build_refraction_table(params, alt0, table.values.device,
                                             atmosphere_def=inversion_atmosphere())
     return dict(shape=R.FLAT if shape == "flat" else params.model.to_shape(),
                 table=dataclasses.replace(table, poly=None) if l_form == "table" else table,
@@ -1854,6 +1855,7 @@ def phase_rect_headline(dev, params, terrain, renders=5):
     import numpy as np
     import torch
 
+    from atm_raytracer_tpu_torch.generators import base
     from atm_raytracer_tpu_torch.generators import rectilinear as rect
 
     out = params.output
@@ -2019,7 +2021,7 @@ def phase_rect_headline(dev, params, terrain, renders=5):
     image_t = rect._composite_hits(params.coloring, params.view.fog_distance, hits)
     t = {
         "terrain columns": cuda_ms(lambda: rect.terrain_columns(
-            terrain.pack(*rect.terrain_bbox(params), dev), params.model, az, LAT0, LON0,
+            terrain.pack(*base.terrain_bbox(params), dev), params.model, az, LAT0, LON0,
             kw["step"], n_terr), 3),
         "scan (K3)": per_k[1]["ms"],
         "hit reconstruction": cuda_ms(
@@ -2145,6 +2147,7 @@ def cuda_once(fn):
 def culled_inputs(dev, terrain, params):
     """The tilted frame's capture inputs on ``dev``, as ``fused_culled_core``
     builds them: (pack, CulledInputs, alt0, table, the scan's keywords)."""
+    from atm_raytracer_tpu_torch.generators import base
     from atm_raytracer_tpu_torch.generators import rectilinear as rect
 
     out, frame = params.output, params.view.frame
@@ -2152,13 +2155,13 @@ def culled_inputs(dev, terrain, params):
     n_terr = int(math.ceil(frame.max_distance / params.simulation_step))
     step = float(params.simulation_step)
     blocks = rect.culled_blocks(n_terr, step)
-    pack = terrain.pack(*rect.terrain_bbox(params), dev)
+    pack = terrain.pack(*base.terrain_bbox(params), dev)
     inp = rect.culled_envelope(
         pack, cam=(out.width, out.height, float(frame.fov), float(frame.tilt),
                    float(frame.direction)),
         model=params.model, step=step, blocks=blocks, lat0=LAT0, lon0=LON0)
     kw = dict(step=step, blocks=blocks)
-    return pack, inp, alt0, rect.build_refraction_table(params, alt0, dev), kw
+    return pack, inp, alt0, base.build_refraction_table(params, alt0, dev), kw
 
 
 def culled_stages(dev, terrain, params, plain_capture_ms, k4_ms):
@@ -3649,17 +3652,15 @@ def phase_transfer(dev, terrain, params):
     """13. the transfer group: (a) ``fetch_flat`` of the Fast headline image
     and of the sweep's frames against ``.cpu()``, and ``_pack_artifact``'s
     one batched fetch against the per-field copies; (b)
-    ``render_fast_streamed`` at the 1080p headline, bands 8, ``compact`` on
-    and off: equal to ``render_fast``, one K2 and eight K1 launches, 8
-    progress lines, no host sync in the band loop
-    (``torch.cuda.set_sync_debug_mode("error")``), the median wall of 20
-    beside ``render_fast``'s in turns, device busy, idle share and the
-    ``Memcpy DtoH`` time that overlaps kernels on another stream from a
-    profiler trace of one render, and an overflow (``STREAM_EXC_CAP`` set
-    to 0) taking the raw route; (c) the codecs: ``pack_frame_compact`` on the headline
-    frame and on the sweep's 8 frames, ``fetch_viewer_fields``,
-    ``_separable`` and ``_delta`` at the headline. Returns the launches of
-    the counted streamed render (``compact=False``, the default)."""
+    ``render_fast_streamed`` at the 1080p headline, bands 8: equal to
+    ``render_fast``, one K2 and eight K1 launches, 8 progress lines, no
+    host sync in the band loop (``torch.cuda.set_sync_debug_mode("error")``),
+    the median wall of 20 beside ``render_fast``'s in turns, device busy,
+    idle share and the ``Memcpy DtoH`` time that overlaps kernels on
+    another stream from a profiler trace of one render; (c) the codecs:
+    ``pack_frame_compact`` on the headline frame and on the sweep's 8
+    frames, ``fetch_viewer_fields``, ``_separable`` and ``_delta`` at the
+    headline. Returns the launches of the counted streamed render."""
     import numpy as np
     import torch
 
@@ -3720,49 +3721,39 @@ def phase_transfer(dev, terrain, params):
         finally:
             torch.cuda.set_sync_debug_mode(0)
 
-    launches = None
-    for compact in (True, False):
-        lines = []
-        torch.cuda.synchronize()
-        reset_launches()
-        fast._stream_bands = no_sync
-        try:
-            got = fast.render_fast_streamed(params, terrain, dev, bands=8,
-                                            progress=lines.append, compact=compact)
-        except RuntimeError as e:
-            check(False, f"streamed (compact={compact}): the band loop synced: {e}")
-        finally:
-            fast._stream_bands = real_bands
-        torch.cuda.synchronize()
-        counted = kernel_launches()
-        check(counted == {"combine.cu": 8, "march.cu": 1, "rect_scan.cu": 0,
-                          "rect_culled.cu": 0, "object_pass.cu": 0},
-              f"streamed (compact={compact}): launches {counted}, want 8 K1 and 1 K2")
-        check(lines == [12, 25, 38, 50, 62, 75, 88, 100],
-              f"streamed (compact={compact}): progress {lines}")
-        check(np.array_equal(got.image, plain.image),
-              f"streamed (compact={compact}): image differs from render_fast "
-              f"({int((got.image != plain.image).any(-1).sum())} pixels)")
-        for f in hit_fields:
-            check(torch.equal(getattr(got.hits, f), getattr(plain.hits, f)),
-                  f"streamed (compact={compact}): hits.{f} differs from render_fast")
-        if not compact:  # the default route, gen's on the card
-            launches = counted
-        say(f"[transfer] streamed {params.output.width}x{params.output.height}, bands 8, "
-            f"compact={compact}: launches {counted}; "
-            f"progress {lines}; no sync in the band loop; image and all "
-            f"{len(hit_fields)} hit fields torch.equal to render_fast")
+    lines = []
+    torch.cuda.synchronize()
+    reset_launches()
+    fast._stream_bands = no_sync
+    try:
+        got = fast.render_fast_streamed(params, terrain, dev, bands=8, progress=lines.append)
+    except RuntimeError as e:
+        check(False, f"streamed: the band loop synced: {e}")
+    finally:
+        fast._stream_bands = real_bands
+    torch.cuda.synchronize()
+    launches = kernel_launches()
+    check(launches == {"combine.cu": 8, "march.cu": 1, "rect_scan.cu": 0,
+                       "rect_culled.cu": 0, "object_pass.cu": 0},
+          f"streamed: launches {launches}, want 8 K1 and 1 K2")
+    check(lines == [12, 25, 38, 50, 62, 75, 88, 100], f"streamed: progress {lines}")
+    check(np.array_equal(got.image, plain.image),
+          f"streamed: image differs from render_fast "
+          f"({int((got.image != plain.image).any(-1).sum())} pixels)")
+    for f in hit_fields:
+        check(torch.equal(getattr(got.hits, f), getattr(plain.hits, f)),
+              f"streamed: hits.{f} differs from render_fast")
+    say(f"[transfer] streamed {params.output.width}x{params.output.height}, bands 8: "
+        f"launches {launches}; progress {lines}; no sync in the band loop; image and all "
+        f"{len(hit_fields)} hit fields torch.equal to render_fast")
 
     runs = {"render_fast": lambda: fast.render_fast(params, terrain, dev),
-            "streamed compact": lambda: fast.render_fast_streamed(params, terrain, dev,
-                                                                  compact=True),
-            "streamed raw": lambda: fast.render_fast_streamed(params, terrain, dev,
-                                                              compact=False)}
+            "streamed": lambda: fast.render_fast_streamed(params, terrain, dev)}
     walls = {k: [] for k in runs}
     for fn in runs.values():
         fn()
     for i in range(20):  # in turns, the order rotating
-        names = list(runs)[i % 3:] + list(runs)[:i % 3]
+        names = list(runs)[i % len(runs):] + list(runs)[:i % len(runs)]
         for k in names:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -3795,22 +3786,6 @@ def phase_transfer(dev, terrain, params):
             f"{1.0 - busy / med:.4f}, Memcpy DtoH {dtoh:.3f} ms in {len(copies)} records, "
             f"{overlap / 1e3:.3f} ms of it under kernels on another stream (kernel "
             f"streams {streams[0]}, DtoH streams {streams[1]})")
-
-    raw = []
-    real_fetch = fast.fetch_flat
-    real_cap = fast.STREAM_EXC_CAP
-    fast.fetch_flat = lambda t, *a: raw.append(tuple(t.shape)) or real_fetch(t, *a)
-    fast.STREAM_EXC_CAP = 0
-    try:
-        got = fast.render_fast_streamed(params, terrain, dev, compact=True)
-    finally:
-        fast.fetch_flat = real_fetch
-        fast.STREAM_EXC_CAP = real_cap
-    check(raw and np.array_equal(got.image, plain.image),
-          f"STREAM_EXC_CAP=0: {len(raw)} bands took the raw route; image equal "
-          f"{np.array_equal(got.image, plain.image)}")
-    say(f"[transfer] STREAM_EXC_CAP=0: {len(raw)} of 8 bands overflowed and took the raw route "
-        f"({raw[0]}); image equal to render_fast")
 
     # (c) the codecs
     sky = P.frame_base_rgb(params.coloring, params.view.fog_distance)

@@ -925,9 +925,8 @@ def test_pack_frame_stream_makes_no_sync(cuda_device):
         torch.from_numpy(valid), torch.from_numpy(img))[4][None].expand(3, -1))
 
 
-@pytest.mark.parametrize("compact", [True, False], ids=["compact", "raw"])
 @pytest.mark.parametrize("alpha", [1.0, 0.65], ids=["k1", "k4"])
-def test_banded_render_equals_render_fast(alpha, compact, cuda_device):
+def test_banded_render_equals_render_fast(alpha, cuda_device):
     """192x108 (8 bands of 24 columns) and K = 4: ``torch.equal`` to
     ``render_fast``, one K2 launch and one K1 a band, 8 progress lines."""
     from atm_raytracer_tpu_torch.generators import fast
@@ -939,7 +938,7 @@ def test_banded_render_equals_render_fast(alpha, compact, cuda_device):
     k1, k2 = _kernels.COMBINE.launches, _kernels.MARCH.launches
     lines = []
     got = fast.render_fast_streamed(params, terrain, cuda_device, bands=8,
-                                    progress=lines.append, compact=compact)
+                                    progress=lines.append)
     assert (_kernels.COMBINE.launches - k1, _kernels.MARCH.launches - k2) == (8, 1)
     assert lines == [12, 25, 38, 50, 62, 75, 88, 100]
     np.testing.assert_array_equal(got.image, plain.image)
@@ -953,6 +952,7 @@ K3_FORMS = ("poly sphere", "table sphere", "straight sphere", "poly flat")
 def _k3_inputs(device, terrain, params, rows=None):
     """The tilt-0 scan's inputs of ``params`` on ``device`` and its keywords,
     the l(h) form and shape left to the caller."""
+    from atm_raytracer_tpu_torch.generators import base
     from atm_raytracer_tpu_torch.generators import rectilinear as rect
 
     out, frame = params.output, params.view.frame
@@ -961,10 +961,10 @@ def _k3_inputs(device, terrain, params, rows=None):
     az = torch.from_numpy(rect.camera.rectilinear_column_azimuths(
         out.width, frame.fov, frame.direction).astype(np.float32)).to(device)
     elev_hw, terr_pad, _, coarse = rect.tilt0_inputs(
-        terrain.pack(*rect.terrain_bbox(params), device), az,
+        terrain.pack(*base.terrain_bbox(params), device), az,
         cam=(out.width, out.height, float(frame.fov)), model=params.model,
         step=float(params.simulation_step), n_terr=n_terr, lat0=49.5, lon0=21.5, rows=rows)
-    table = rect.build_refraction_table(params, alt0, device)
+    table = base.build_refraction_table(params, alt0, device)
     return (elev_hw, terr_pad, alt0), table, dict(step=float(params.simulation_step),
                                                   n_seg=n_terr - 1, coarse=coarse)
 
@@ -1071,6 +1071,7 @@ def _culled_inputs(device, terrain, params):
     """The tilted frame's capture inputs on ``device``, as
     ``fused_culled_core`` builds them: (CulledInputs, alt0, table, the scan
     keywords), the l(h) form and shape left to the caller."""
+    from atm_raytracer_tpu_torch.generators import base
     from atm_raytracer_tpu_torch.generators import rectilinear as rect
 
     out, frame = params.output, params.view.frame
@@ -1079,12 +1080,12 @@ def _culled_inputs(device, terrain, params):
     step = float(params.simulation_step)
     blocks = rect.culled_blocks(n_terr, step)
     inp = rect.culled_envelope(
-        terrain.pack(*rect.terrain_bbox(params), device),
+        terrain.pack(*base.terrain_bbox(params), device),
         cam=(out.width, out.height, float(frame.fov), float(frame.tilt),
              float(frame.direction)),
         model=params.model, step=step, blocks=blocks, lat0=49.5, lon0=21.5)
     kw = dict(step=step, blocks=blocks)
-    return inp, alt0, rect.build_refraction_table(params, alt0, device), kw
+    return inp, alt0, base.build_refraction_table(params, alt0, device), kw
 
 
 def _k4_contract(got, want, nb):

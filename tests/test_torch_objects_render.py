@@ -26,6 +26,7 @@ from atm_raytracer_tpu.meta import serialize as JS  # noqa: E402
 from atm_raytracer_tpu.terrain.store import Terrain as JTerrain  # noqa: E402
 from atm_raytracer_tpu_torch import cli  # noqa: E402
 from atm_raytracer_tpu_torch.config import Config as TConfig  # noqa: E402
+from atm_raytracer_tpu_torch.generators import fast  # noqa: E402
 from atm_raytracer_tpu_torch.generators.fast import render_fast  # noqa: E402
 from atm_raytracer_tpu_torch.generators.interpolating import render_interpolating  # noqa: E402
 from atm_raytracer_tpu_torch.generators.rectilinear import render_rectilinear  # noqa: E402
@@ -165,12 +166,12 @@ def test_dat_bytes_of_objects_golden_equal_jax(golden_dir, tmp_path):
     assert all(o["position"]["elev"] > 0.0 for o in params["scene"]["objects"])
 
 
-def test_depth_truncation_warns_on_every_call(golden_dir, capsys):
+def test_depth_truncation_warns_on_every_call(golden_dir, capsys, monkeypatch):
     """Four translucent cylinders on one azimuth need 8 object slots: with
     the default cap of 6 every render prints the truncation warning (two
     calls of one Params, the second from the memoized objects); a cap of 8
-    keeps the deeper hits and stays silent, and the capped frame is the
-    front of the full one."""
+    (``fast.OBJ_HIT_CAP``, read at every call) keeps the deeper hits and
+    stays silent, and the capped frame is the front of the full one."""
     lat0, lon0 = G.LAT0, G.LON0
     cfg = _objects_cfg(golden_dir)
     cfg["view"]["position"]["altitude"] = {"Relative": 20.0}
@@ -191,7 +192,8 @@ def test_depth_truncation_warns_on_every_call(golden_dir, capsys):
         capped.append(render_fast(params, tt, "cpu"))
         err = capsys.readouterr().err
         assert "WARNING: object metadata depth truncated: 4 object windows" in err, err
-    full = render_fast(params, tt, "cpu", obj_hit_cap=8)
+    monkeypatch.setattr(fast, "OBJ_HIT_CAP", 8)
+    full = render_fast(params, tt, "cpu")
     assert "truncated" not in capsys.readouterr().err
     vc, vf = capped[0].hits.valid, full.hits.valid
     kc = vc.shape[-1]

@@ -18,6 +18,7 @@ from atm_raytracer_tpu.parallel import mesh as JM  # noqa: E402
 from atm_raytracer_tpu.terrain.store import Terrain as JTerrain  # noqa: E402
 from atm_raytracer_tpu_torch import cli  # noqa: E402
 from atm_raytracer_tpu_torch.config import Config as TConfig  # noqa: E402
+from atm_raytracer_tpu_torch.generators import base  # noqa: E402
 from atm_raytracer_tpu_torch.generators.fast import render_fast  # noqa: E402
 from atm_raytracer_tpu_torch.generators.interpolating import render_interpolating  # noqa: E402
 from atm_raytracer_tpu_torch.generators.rectilinear import render_rectilinear  # noqa: E402
@@ -106,8 +107,8 @@ def test_sweep_split_over_devices_equals_one_device(scene, monkeypatch):
     one, hits1 = TM.render_sweep_sharded(tp, scene["tt"], TM.make_mesh(["cpu"]),
                                          return_hits=True, **kw)
     built = []
-    build = TM.fast_mod.build_refraction_table
-    monkeypatch.setattr(TM.fast_mod, "build_refraction_table",
+    build = base.build_refraction_table
+    monkeypatch.setattr(base, "build_refraction_table",
                         lambda *a, **k: built.append(a[2:]) or build(*a, **k))
     three, hits3 = TM.render_sweep_sharded(tp, scene["tt"], TM.make_mesh(["cpu"] * 3),
                                            return_hits=True, **kw)

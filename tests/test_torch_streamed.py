@@ -147,9 +147,8 @@ def _assert_same_render(a, b):
     assert a.observer == b.observer
 
 
-@pytest.mark.parametrize("compact", [True, False], ids=["compact", "raw"])
 @pytest.mark.parametrize("alpha", [1.0, 0.65], ids=["opaque", "translucent"])
-def test_streamed_equals_render_fast_and_jax(alpha, compact, scene):
+def test_streamed_equals_render_fast_and_jax(alpha, scene):
     """Bit-equal to the port's ``render_fast`` (image and all 10 hit fields),
     8 monotone progress lines ending at 100, and within the verify
     tolerance of JAX's banded render."""
@@ -158,27 +157,13 @@ def test_streamed_equals_render_fast_and_jax(alpha, compact, scene):
     plain = fast.render_fast(params, scene["tt"], "cpu")
     lines = []
     got = fast.render_fast_streamed(params, scene["tt"], "cpu", bands=8,
-                                    progress=lines.append, compact=compact)
+                                    progress=lines.append)
     _assert_same_render(got, plain)
     assert lines == [12, 25, 38, 50, 62, 75, 88, 100]
     jparams = JConfig.from_dict(cfg).into_params(scene["jt"])
     want = j_streamed(jparams, scene["jt"], bands=8)
     ok, frac_any, frac_big = verify_tolerance(got.image, np.asarray(want.image))
     assert ok, (frac_any, frac_big)
-
-
-def test_streamed_overflowing_bands_are_fetched_raw(scene, monkeypatch):
-    """With no room for an exception every band with one takes the raw
-    route, and the frame stays equal."""
-    params = TConfig.from_dict(_cfg(scene["dir"])).into_params(scene["tt"])
-    plain = fast.render_fast(params, scene["tt"], "cpu")
-    raw = []
-    real = fast.fetch_flat
-    monkeypatch.setattr(fast, "fetch_flat", lambda t, *a: raw.append(t.shape) or real(t, *a))
-    monkeypatch.setattr(fast, "STREAM_EXC_CAP", 0)
-    got = fast.render_fast_streamed(params, scene["tt"], "cpu", compact=True)
-    _assert_same_render(got, plain)
-    assert raw and all(s == (48, 8, 3) for s in raw), raw
 
 
 def test_streamed_objects_take_render_fast(scene, monkeypatch):
