@@ -218,7 +218,17 @@ OBJECT_PASS = CudaKernel(
      _I, _P],
 )
 
-KERNELS = (COMBINE, MARCH, RECT_SCAN, RECT_CULLED, OBJECT_PASS)
+# K5: the exact test of the tilted Rectilinear path
+# (generators/rectilinear.py::culled_test_round), one launch a round: each
+# pixel without a hit walks its filled slots, re-integrating them against the
+# terrain at its own azimuth, to its first crossing
+RECT_EXACT = CudaKernel(
+    "rect_exact.cu", "rect_exact",
+    [_I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _F, _F, _F, _F, _P, _I, _P, _I,
+     _F, _F, _I, _F, _F, _I, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _F, _F, _I, _P, _P],
+)
+
+KERNELS = (COMBINE, MARCH, RECT_SCAN, RECT_CULLED, OBJECT_PASS, RECT_EXACT)
 
 
 def _gxx() -> str:

@@ -28,7 +28,10 @@ path, which merges the same object hits. Every other stage is PyTorch ops on
 the device of its inputs. The culled path's capture scan is
 ``culled_capture``: on the card the CUDA kernel ``csrc/rect_culled.cu``, K4,
 one thread a pixel in one launch a round; on the CPU, or with ``plain``,
-``culled_capture_plain``, a ``march_scan`` over the coarse windows.
+``culled_capture_plain``, a ``march_scan`` over the coarse windows. Its exact
+test is ``culled_test_round``: on the card the CUDA kernel
+``csrc/rect_exact.cu``, K5, one thread a pixel in one launch a round; on the
+CPU, or with ``plain``, ``culled_exact_test`` in pixel chunks.
 """
 
 from __future__ import annotations
@@ -43,7 +46,7 @@ import torch
 from .. import _kernels, tracing
 from ..config import Params
 from ..models import camera
-from ..models.earth import EarthModel
+from ..models.earth import DEGREE_DISTANCE, EarthModel
 from ..ops import combine
 from ..ops.composite import composite
 from ..ops.objects import ObjectSet, merge_hits, object_hits_pixelwise
@@ -927,19 +930,11 @@ def culled_capture_cuda(elev, alt0, env_hi, env_lo, j_px, *, skip: int,
     env_hi = env_hi.to(torch.float32).contiguous()
     env_lo = env_lo.to(torch.float32).contiguous()
     rows = j_px.to(torch.int32).contiguous()
-    refract = not straight and table is not None
-    if refract and table.stacked:
-        raise ValueError("culled_capture_cuda: the scan takes one table, not a stack")
-    if refract and table.poly is not None:
-        poly, n_poly = table.poly_rows(), len(table.poly)
-    else:
-        poly, n_poly = None, 0
-    pairs = table.pairs.contiguous() if refract else None
-    for t in (env_hi, env_lo, rows, poly, pairs):
-        if t is not None and t.device != dev:
+    ode, held = _ray_ode_args("culled_capture_cuda", table, straight, shape, dev)
+    for t in (env_hi, env_lo, rows):
+        if t.device != dev:
             raise ValueError("culled_capture_cuda: envelope, table and pixels live on "
                              "different devices")
-    radius = shape.radius
     basis = _hermite_basis(coarse, dev)
     cnt = torch.empty(p_n, dtype=torch.int32, device=dev)
     windows = torch.empty_like(cnt) if count_windows else None
@@ -953,17 +948,39 @@ def culled_capture_cuda(elev, alt0, env_hi, env_lo, j_px, *, skip: int,
     fstep = _f32(step)
     _kernels.RECT_CULLED.call(
         dev, v0.data_ptr(), p_n, _f32(alt0), int(n_seg), int(coarse), int(n_march), nb,
-        BLOCK_WINDOWS, M_CAND, int(skip), _f32(step * coarse),
-        None if poly is None else poly.data_ptr(), n_poly,
-        None if pairs is None else pairs.data_ptr(),
-        int(table.values.shape[-1]) if refract else 0, table.h0 if refract else 0.0,
-        table.inv_dh if refract else 0.0, int(refract),
-        0.0 if radius is None else _f32(1.0 / radius),
-        0.0 if radius is None else _f32(radius), 0 if radius is None else 1, fstep,
+        BLOCK_WINDOWS, M_CAND, int(skip), _f32(step * coarse), *ode, fstep,
         _f32(np.float32(fstep) * np.float32(fstep)), basis.data_ptr(), env_hi.data_ptr(),
         env_lo.data_ptr(), rows.data_ptr(), cnt.data_ptr(), s_h.data_ptr(), s_v.data_ptr(),
         s_p.data_ptr(), s_b.data_ptr(), None if windows is None else windows.data_ptr())
     return cnt, s_h, s_v, s_p, s_d, s_b, windows
+
+
+def _ray_ode_args(who: str, table: Optional[RefractionTable], straight: bool,
+                  shape: EarthShape, dev):
+    """l(h) and the shape as K4's and K5's entry points take them: (poly,
+    n_poly, pairs, n_table, h0, inv_dh, refract, inv_r, radius, spherical),
+    and the tensors those pointers point into, to hold until the launch. The
+    Chebyshev rows (``table.poly``) when they exist, else the table's pairs;
+    ``straight`` or no table marches without refraction."""
+    refract = not straight and table is not None
+    if refract and table.stacked:
+        raise ValueError(f"{who}: the scan takes one table, not a stack")
+    if refract and table.poly is not None:
+        poly, n_poly = table.poly_rows(), len(table.poly)
+    else:
+        poly, n_poly = None, 0
+    pairs = table.pairs.contiguous() if refract else None
+    for t in (poly, pairs):
+        if t is not None and t.device != dev:
+            raise ValueError(f"{who}: envelope, table and pixels live on different devices")
+    radius = shape.radius
+    args = (None if poly is None else poly.data_ptr(), n_poly,
+            None if pairs is None else pairs.data_ptr(),
+            int(table.values.shape[-1]) if refract else 0, table.h0 if refract else 0.0,
+            table.inv_dh if refract else 0.0, int(refract),
+            0.0 if radius is None else _f32(1.0 / radius),
+            0.0 if radius is None else _f32(radius), 0 if radius is None else 1)
+    return args, (poly, pairs)
 
 
 def culled_capture(elev, alt0, env_hi, env_lo, j_px, *, skip: int, shape: EarthShape,
@@ -1030,13 +1047,115 @@ def culled_exact_test(pack: TerrainPack, s_h, s_v, s_p, s_d, s_b, az, *, model: 
     return keyc, sel(p_fine[..., :-1]) * (1.0 - prop) + sel(p_fine[..., 1:]) * prop
 
 
+# csrc/terrain_device.cuh's GeoForm of each canonical model kind, and GEO_CONSTS
+GEO_FORMS = {"FlatDistorted": 0, "AzimuthalEquidistant": 1, "Spherical": 2,
+             "ObserverAe": 2, "Ellipsoid": 3}
+GEO_CONSTS = 12
+
+
+def geodesic_form(model: EarthModel, lat0: float):
+    """(form, constants [GEO_CONSTS] float32) of ``model.geodesic_delta`` as
+    K5 evaluates it (``csrc/terrain_device.cuh``): the form of the model's
+    kind, and each host scalar its expressions hold, rounded to float32 as
+    PyTorch rounds a scalar operand."""
+    m = model._canonical()
+    form = GEO_FORMS[m.kind]
+    if m.kind == "FlatDistorted":
+        consts = [DEGREE_DISTANCE, np.cos(np.deg2rad(lat0))]
+    elif m.kind == "AzimuthalEquidistant":
+        consts = [DEGREE_DISTANCE, _f32((90.0 - lat0) * DEGREE_DISTANCE)]
+    elif form == GEO_FORMS["Spherical"]:
+        la0 = np.deg2rad(np.float64(lat0))
+        consts = [m.radius, np.sin(la0), np.cos(la0)]
+    else:
+        a, b = m.a, m.b
+        f = (a - b) / a
+        u1 = float(np.arctan((1.0 - f) * np.tan(np.deg2rad(np.float64(lat0)))))
+        delta1 = np.arctan(f * np.sin(u1) * np.cos(u1) / (1.0 - f * np.cos(u1) ** 2))
+        consts = [b, np.sin(u1), np.cos(u1), np.tan(u1), delta1, f,
+                  (a * a - b * b) / (b * b), f / 16.0, u1]
+    out = np.zeros(GEO_CONSTS, np.float32)
+    out[:len(consts)] = np.asarray(consts, np.float64)
+    return form, out
+
+
+def culled_exact_test_cuda(pack: TerrainPack, s_h, s_v, s_p, s_d, s_b, az, key, plh, *,
+                           model: EarthModel, shape: EarthShape,
+                           table: Optional[RefractionTable], straight: bool, step: float,
+                           blocks: CulledBlocks, lat0: float, lon0: float) -> None:
+    """Launch K5 (``csrc/rect_exact.cu``) once on the device of ``key``: the
+    exact test of slots [P, M_CAND] (``culled_capture``'s) for pixels with
+    azimuths ``az`` [P], keeping the nearer hit in ``key`` / ``plh`` [P, 1]
+    (updated in place) as ``culled_exact_test`` does. Pixels whose key is
+    not +inf are skipped, and a pixel stops at its first crossing: the slots
+    hold increasing blocks, as the capture fills them. No [P, M_CAND,
+    b_len + 1] tensor is made."""
+    dev = key.device
+    p_n = key.shape[0]
+    n_seg, coarse, b_len, nb, _ = blocks
+    slots = (s_h, s_v, s_p, s_d, s_b)
+    want = ((torch.float32,) * 3 + (torch.bool, torch.int32))
+    if any(s.shape != (p_n, M_CAND) or s.dtype != w for s, w in zip(slots, want)) or \
+            az.shape != (p_n,) or key.shape != (p_n, 1) or plh.shape != (p_n, 1) or \
+            key.dtype != torch.float32 or plh.dtype != torch.float32:
+        raise ValueError(
+            f"culled_exact_test_cuda: slots {[tuple(s.shape) for s in slots]}, azimuths "
+            f"{tuple(az.shape)} and hits {tuple(key.shape)} / {tuple(plh.shape)} do not fit "
+            f"{p_n} pixels of {M_CAND} slots (float32 states, bool deaths, int32 blocks)")
+    if not (key.is_contiguous() and plh.is_contiguous()):
+        raise ValueError("culled_exact_test_cuda: key and plh are updated in place and "
+                         "must be contiguous")
+    if any(t.device != dev for t in (*slots, az, plh, pack.tiles, pack.rows_m1,
+                                     pack.cols_m1)):
+        raise ValueError("culled_exact_test_cuda: slots, azimuths, hits and terrain live "
+                         "on different devices")
+    if p_n == 0:
+        return
+    ode, held = _ray_ode_args("culled_exact_test_cuda", table, straight, shape, dev)
+    slots = tuple(s.contiguous() for s in slots)
+    az = az.to(torch.float32).contiguous()
+    tiles = pack.tiles.contiguous()
+    if tiles.dtype not in (torch.int16, torch.float32):
+        raise ValueError(f"culled_exact_test_cuda: tiles of {tiles.dtype}")
+    rows_m1 = pack.rows_m1.contiguous()
+    cols_m1 = pack.cols_m1.contiguous()
+    form, geo = geodesic_form(model, lat0)
+    basis = _hermite_basis(coarse, dev)
+    fstep = _f32(step)
+    lat0_floor, lon0_floor = math.floor(lat0), math.floor(lon0)
+    _kernels.RECT_EXACT.call(
+        dev, p_n, M_CAND, nb, int(n_seg), int(coarse), BLOCK_WINDOWS,
+        *(s.data_ptr() for s in slots), az.data_ptr(), key.data_ptr(), plh.data_ptr(),
+        _f32(step * coarse), fstep, _f32(np.float32(fstep) * np.float32(fstep)),
+        _f32(b_len * step), *ode, basis.data_ptr(), tiles.data_ptr(),
+        int(tiles.dtype == torch.float32), rows_m1.data_ptr(), cols_m1.data_ptr(),
+        int(tiles.shape[1]), pack.n_rows, pack.n_cols, lat0_floor - pack.lat_min,
+        lon0_floor - pack.lon_min, _f32(lat0 - lat0_floor), _f32(lon0 - lon0_floor), form,
+        geo.ctypes.data)
+
+
 def culled_test_round(pack: TerrainPack, slots, az_px, key, plh, *, blocks: CulledBlocks,
-                      **kw):
-    """One round's exact test (``culled_exact_test``) in pixel chunks of
-    EXACT_TEST_ELEMS, keeping the nearer hit in ``key`` / ``plh`` [P, 1]
-    (updated in place). ``slots`` = (s_h, s_v, s_p, s_d, s_b)."""
-    chunk = max(1, EXACT_TEST_ELEMS // (M_CAND * (blocks.b_len + 1)))
-    with tracing.span("rect.exact_test"):
+                      plain: bool = False, **kw):
+    """One round's exact test, keeping the nearer hit in ``key`` / ``plh``
+    [P, 1] (updated in place). ``slots`` = (s_h, s_v, s_p, s_d, s_b). CUDA
+    tensors launch K5 once (``culled_exact_test_cuda``) and raise if it
+    cannot be built or launched; CPU tensors, or ``plain`` on any device, run
+    ``culled_exact_test`` in pixel chunks of EXACT_TEST_ELEMS.
+
+    While recording, the span carries ``rect.test_slots``: the filled slots
+    (block < nb) of the pixels with no hit yet (key +inf), the slots K5
+    walks at most."""
+    dev = key.device
+    with tracing.span("rect.exact_test", device=True) as recording:
+        if recording is not None:  # the span is None while the recorder is off
+            tracing.count("rect.test_slots", ((slots[4] < blocks.nb)
+                                              & (key == combine.NO_HIT)).sum())
+        if not plain and dev.type == "cuda":
+            culled_exact_test_cuda(pack, *slots, az_px, key, plh, blocks=blocks, **kw)
+            return
+        if not plain and dev.type != "cpu":
+            raise ValueError(f"culled_test_round: unsupported device {dev}")
+        chunk = max(1, EXACT_TEST_ELEMS // (M_CAND * (blocks.b_len + 1)))
         for p0 in range(0, key.shape[0], chunk):
             px = slice(p0, p0 + chunk)
             keyc, plc = culled_exact_test(pack, *(s[px] for s in slots), az_px[px],
@@ -1068,7 +1187,9 @@ def fused_culled_core(pack: TerrainPack, table: Optional[RefractionTable], alt0,
        launch a round, unless ``plain``;
     3. exact test (``culled_test_round``): candidate blocks re-integrate
        from those states (``rk4_window``, bitwise the march's values) and
-       sample terrain at each pixel's own azimuth only there;
+       sample terrain at each pixel's own azimuth only there. On the card
+       K5, one launch a round, which walks only the filled slots of pixels
+       with no hit yet, unless ``plain``;
     4. rounds: 2-3 repeat on the next M_CAND candidates for pixels with
        candidates left and no hit yet, one host sync per round.
 
@@ -1089,7 +1210,7 @@ def fused_culled_core(pack: TerrainPack, table: Optional[RefractionTable], alt0,
             cnt, *slots = culled_capture(inp.elev, alt0, inp.env_hi, inp.env_lo, inp.j_px,
                                          skip=skip, plain=plain, **scan_kw)
         culled_test_round(pack, slots, inp.az_px, key, plh, model=model, lat0=lat0,
-                          lon0=lon0, **scan_kw)
+                          lon0=lon0, plain=plain, **scan_kw)
         skip += M_CAND
         rounds += 1
         if emit is not None:

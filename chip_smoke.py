@@ -117,7 +117,7 @@ before the result line:
               equal on >= 99.99 % of pixels, death flags equal, the slot
               states within rtol 1e-6 / atol 1e-3 m, slope 1e-6; the first
               differing pixel printed); at 1920x1080 the frame counted (one
-              K4 launch a round), its median wall of 5 after a warm-up
+              K4 and one K5 launch a round), its median wall of 5 after a warm-up
               beside one ``plain=True`` frame (images within the verify
               tolerance, validity equal on >= 99.99 %, keys within 1e-3
               where both hit), peak memory of both, device busy time, idle
@@ -125,10 +125,15 @@ before the result line:
               host-side ops; K4 at the headline's inputs against the plain
               capture (the same contract), by CUDA events, alone by the
               profiler, its host enqueue, the plain capture's time, the
-              pixel-windows marched and the bound; the stages of a round
+              pixel-windows marched and the bound; K5, the exact test, at
+              the headline's inputs round by round against the plain test on
+              the same slots (validity equal, keys within 1e-3 of a step,
+              path lengths rtol 1e-5), by CUDA events, alone by the
+              profiler, its host enqueue, the plain test's time, the slots
+              it walks and its bound over them; the stages of a round
               (envelope, capture, exact test, ``ray_hits``, composite, image
-              to host) for ``plain=True`` and for K4; and at 192x108 the
-              culled keys equal to the dense path's (plain march);
+              to host) for ``plain=True`` and for K4 and K5; and at 192x108
+              the culled keys equal to the dense path's (plain march);
 8. metadata — the headline's artifact, npz and reference ``.dat``: saved,
               loaded and re-composited on the card bit for bit, every field
               exact (the render counted through both kernels); the
@@ -1064,7 +1069,7 @@ def rect_golden_configs():
 # the launches of one Fast or Interpolating frame (or a sweep): K1 and K2 once;
 # a frame with objects also K6 once
 FAST_LAUNCHES = {"combine.cu": 1, "march.cu": 1, "rect_scan.cu": 0, "rect_culled.cu": 0,
-                 "object_pass.cu": 0}
+                 "object_pass.cu": 0, "rect_exact.cu": 0}
 OBJECT_LAUNCHES = {**FAST_LAUNCHES, "object_pass.cu": 1}
 
 
@@ -1135,6 +1140,8 @@ def phase_goldens(dev):
         want = gpu.culled_rounds if "culled" in name else 0
         check(launches["rect_culled.cu"] == want and (want > 0) == ("culled" in name),
               f"{name}: {launches['rect_culled.cu']} K4 launches, not one a round ({want})")
+        check(launches["rect_exact.cu"] == want,
+              f"{name}: {launches['rect_exact.cu']} K5 launches, not one a round ({want})")
         say(f"[goldens] {name}: cuda vs cpu plain any={fa:.4f} big={fb:.4f} "
             f"max={mx} (culled rounds {gpu.culled_rounds}, launches {launches})")
     renders = {"Fast": render_fast, "Rectilinear": render_rectilinear,
@@ -1867,7 +1874,7 @@ def phase_rect_headline(dev, params, terrain, renders=5):
     torch.cuda.synchronize()
     launches = kernel_launches()
     want = {"combine.cu": 0, "march.cu": 0, "rect_scan.cu": k3_launches(params),
-            "rect_culled.cu": 0, "object_pass.cu": 0}
+            "rect_culled.cu": 0, "object_pass.cu": 0, "rect_exact.cu": 0}
     check(launches == want, f"rectilinear headline: launches {launches}, not {want}")
     say(f"[rectilinear] first render {time.perf_counter() - t0:.3f} s; kernel "
         f"launches {launches} (K3: one a progress stride)")
@@ -2164,12 +2171,13 @@ def culled_inputs(dev, terrain, params):
     return pack, inp, alt0, base.build_refraction_table(params, alt0, dev), kw
 
 
-def culled_stages(dev, terrain, params, plain_capture_ms, k4_ms):
+def culled_stages(dev, terrain, params, plain_capture_ms, k4_ms, k5_ms):
     """The stages of one round of the tilted frame, CUDA-event means: the
     envelope, the capture (plain and K4, measured by the caller), the exact
-    test in its EXACT_TEST_ELEMS chunks, ``ray_hits``, composite and the image
-    to the host. Prints the breakdown of the plain path (``plain=True``) and
-    of K4's."""
+    test (plain: ``culled_exact_test`` in its EXACT_TEST_ELEMS chunks; K5,
+    measured by the caller), ``ray_hits``, composite and the image to the
+    host. Prints the breakdown of the plain path (``plain=True``) and of the
+    kernels' (K4 and K5)."""
     import torch
 
     from atm_raytracer_tpu_torch.generators import rectilinear as rect
@@ -2186,9 +2194,9 @@ def culled_stages(dev, terrain, params, plain_capture_ms, k4_ms):
     test_kw = dict(model=params.model, lat0=LAT0, lon0=LON0, **scan_kw)
     rect.culled_test_round(pack, slots, inp.az_px, key, plh, **test_kw)
 
-    def exact():
+    def exact_plain():
         k, p = torch.full_like(key, float("inf")), torch.zeros_like(plh)
-        rect.culled_test_round(pack, slots, inp.az_px, k, p, **test_kw)
+        rect.culled_test_round(pack, slots, inp.az_px, k, p, plain=True, **test_kw)
 
     hit_kw = dict(lat0=LAT0, lon0=LON0, step=kw["step"],
                   terrain_alpha=float(params.terrain_alpha))
@@ -2200,25 +2208,166 @@ def culled_stages(dev, terrain, params, plain_capture_ms, k4_ms):
                        float(frame.direction)), model=params.model, step=kw["step"],
             blocks=kw["blocks"], lat0=LAT0, lon0=LON0), 3),
         "capture": None,
-        "exact test": cuda_ms(exact, 2),
+        "exact test": None,
         "ray_hits": cuda_ms(lambda: rect.ray_hits(
             pack, params.model, inp.az_px[:, None], key, plh, **hit_kw), 3),
         "composite": cuda_ms(lambda: rect._composite_hits(
             params.coloring, params.view.fog_distance, hits), 3),
         "image to host": cuda_ms(lambda: fetch_flat(image), 3),
     }
+    plain_exact_ms = cuda_ms(exact_plain, 2)
     chunk = max(1, rect.EXACT_TEST_ELEMS // (rect.M_CAND * (kw["blocks"].b_len + 1)))
     n_chunks = -(-p_n // chunk)
     out_t = {}
-    for path, capture_ms in (("plain=True", plain_capture_ms), ("K4", k4_ms)):
+    for path, capture_ms, exact_ms in (("plain=True", plain_capture_ms, plain_exact_ms),
+                                       ("K4 + K5", k4_ms, k5_ms)):
         stages = dict(t, capture=capture_ms)
+        stages["exact test"] = exact_ms
         total = sum(stages.values())
-        say(f"[rectilinear] tilt-1 stages of one round, {path} (CUDA events; the exact "
-            f"test in {n_chunks} chunks): " + ", ".join(f"{name} {ms:.3f} ms ({100.0 * ms / total:.1f} %)"
-                                     for name, ms in stages.items())
-            + f"; sum {total:.3f} ms")
+        say(f"[rectilinear] tilt-1 stages of one round, {path} (CUDA events; the plain "
+            f"exact test in {n_chunks} chunks): " + ", ".join(
+                f"{name} {ms:.3f} ms ({100.0 * ms / total:.1f} %)"
+                for name, ms in stages.items()) + f"; sum {total:.3f} ms")
         out_t[path] = stages
     return out_t
+
+
+# operations of K5 (csrc/rect_exact.cu), counted from the source, a math
+# library call (sinf, asinf, atan2f, ...) as K5_CALL float32 operations: a
+# fine sample on the sphere's geodesic 31 and four calls, its terrain sample
+# 32, its Hermite sample, chord, path length, difference and tests 26; a
+# window's RK4 step 209, its two slopes times dx 2 and its sample 0 7; a
+# slot's sample 0 (geodesic, terrain, difference) and its distance 70
+K5_CALL = 20
+K5_SAMPLE = 31 + 4 * K5_CALL + 32 + 26
+K5_WINDOW = 209 + 2 + 7
+K5_SLOT = 70 + 4 * K5_CALL
+
+
+def k5_work(slots, key_before, key_after, blocks):
+    """(pixels, slots, segments, windows) K5 walks in a round: the filled
+    slots of the pixels without a hit at its start (and those pixels), each
+    to its block's end or the march's, but the slot of a pixel's first
+    crossing to that segment, and none after it (a ray's death, which stops
+    a slot sooner, is left out: the count is not below K5's)."""
+    import torch
+
+    from atm_raytracer_tpu_torch.generators import rectilinear as rect
+
+    s_b = slots[4].to(torch.int64)
+    unhit = torch.isinf(key_before)  # [P, 1]
+    hit = unhit & torch.isfinite(key_after)
+    seg = torch.where(hit, key_after, 0.0).floor().to(torch.int64)
+    hb = torch.where(hit, seg // blocks.b_len, blocks.nb)  # the crossing's block
+    walked = unhit & (s_b < blocks.nb) & (s_b <= hb)
+    full = (blocks.n_seg - s_b * blocks.b_len).clamp(max=blocks.b_len)
+    segs = torch.where(s_b == hb, seg - s_b * blocks.b_len + 1, full).clamp(min=0)
+    segs = torch.where(walked, segs, 0)
+    windows = torch.where(walked, (segs + blocks.coarse - 1) // blocks.coarse, 0)
+    assert int(windows.max()) <= rect.BLOCK_WINDOWS
+    return (int(walked.any(-1).sum()), int(walked.sum()), int(segs.sum()),
+            int(windows.sum()))
+
+
+def k5_check(tag, got, want):
+    """K5's contract against the plain test on the same inputs: validity
+    equal on every pixel; where both hit, keys within 1e-3 of a step and
+    path lengths within rtol 1e-5. Returns the largest |dkey| (steps)."""
+    import torch
+
+    (key, plh), (key_p, plh_p) = got, want
+    v, vp = torch.isfinite(key), torch.isfinite(key_p)
+    n_diff = int((v != vp).sum())
+    both = v & vp
+    dk = float((key - key_p).abs()[both].max()) if both.any() else 0.0
+    rel = float(((plh - plh_p).abs() / plh_p.abs().clamp(min=1e-30))[both].max()) \
+        if both.any() else 0.0
+    say(f"[rectilinear] K5 {tag}: validity differs on {n_diff} of {v.numel()} pixels "
+        f"({int(v.sum())} hits), max |dkey| {dk:.3g} steps, max path-length rel. "
+        f"difference {rel:.3g}")
+    check(n_diff == 0 and dk <= 1e-3 and rel <= 1e-5,
+          f"K5 {tag}: validity differs on {n_diff} pixels, max |dkey| {dk}, rel {rel}")
+    return dk
+
+
+def phase_k5(dev, terrain, params):
+    """K5 at the tilted headline's inputs, round by round through the frame's
+    rounds (the capture by K4): against the plain test on the same slots,
+    timed by CUDA events beside it, alone by the profiler, with its host
+    enqueue, the slots it walks against the P·M_CAND slots the plain test
+    integrates, and its bound over the slots walked."""
+    import torch
+
+    from atm_raytracer_tpu_torch import _kernels
+    from atm_raytracer_tpu_torch.generators import rectilinear as rect
+
+    pack, inp, alt0, table, kw = culled_inputs(dev, terrain, params)
+    blocks = kw["blocks"]
+    scan_kw = dict(shape=params.model.to_shape(), table=table, straight=False, **kw)
+    test_kw = dict(model=params.model, lat0=LAT0, lon0=LON0, **scan_kw)
+    args = (inp.elev, alt0, inp.env_hi, inp.env_lo, inp.j_px)
+    p_n = inp.elev.shape[0]
+    key = torch.full((p_n, 1), float("inf"), device=dev)
+    plh = torch.zeros_like(key)
+    rounds = []
+    skip = 0
+    while True:
+        cnt, *slots = rect.culled_capture(*args, skip=skip, **scan_kw)
+        before = key.clone(), plh.clone()
+        n = _kernels.RECT_EXACT.launches
+        rect.culled_test_round(pack, slots, inp.az_px, key, plh, **test_kw)
+        check(_kernels.RECT_EXACT.launches == n + 1, "K5: not one launch a round")
+        want = [t.clone() for t in before]
+        _, plain_ms = cuda_once(lambda: rect.culled_test_round(
+            pack, slots, inp.az_px, *want, plain=True, **test_kw))
+        err = k5_check(f"headline round {len(rounds) + 1} (skip {skip})", (key, plh), want)
+
+        def k5():
+            k, p = before[0].clone(), before[1].clone()
+            rect.culled_test_round(pack, slots, inp.az_px, k, p, **test_kw)
+
+        ms = cuda_ms(k5, 5)
+        events = [e for e in trace_events(lambda: [k5() for _ in range(5)], "k5")
+                  if "rect_exact_kernel" in e["name"]]
+        check(len(events) == 5, f"K5: {len(events)} kernel records in the trace of 5 tests")
+        device_ms = sum(float(e["dur"]) for e in events) / 5e3
+        n_pix, n_slots, n_segs, n_windows = k5_work(slots, before[0], key, blocks)
+        n_ops = n_slots * K5_SLOT + n_segs * K5_SAMPLE + n_windows * K5_WINDOW
+        # the slots, azimuths, keys and path lengths read once and the keys
+        # and path lengths written once; the terrain's taps are left out
+        # (the tiles a round samples are far fewer than its taps, from cache)
+        n_bytes = p_n * (17 * rect.M_CAND + 4 + 2 * 8)
+        bound_ms, bound_by = bound(n_bytes, n_ops)
+        rounds.append({"skip": skip, "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
+                       "enqueue_ms": enqueue_ms(k5), "max_abs_err": err,
+                       "pixels_walking": n_pix, "slots_walked": n_slots, "segments": n_segs,
+                       "plain_slots": p_n * rect.M_CAND, "bound_ms": bound_ms,
+                       "bound_by": bound_by, "ops": n_ops, "bytes": n_bytes})
+        say(f"[rectilinear] K5 round {len(rounds)}: {ms:.4f} ms by CUDA events, kernel "
+            f"alone {device_ms:.4f} ms (profiler, mean of 5); plain test {plain_ms:.3f} ms; "
+            f"{n_slots} slots walked by {n_pix} pixels ({n_segs} segments) of the plain "
+            f"test's "
+            f"{p_n * rect.M_CAND}; bound {bound_ms:.4f} ms by {bound_by} ({n_ops} float32 "
+            f"operations, a library call as {K5_CALL}): {100.0 * bound_ms / device_ms:.2f} % "
+            f"of the bound")
+        skip += rect.M_CAND
+        if skip >= blocks.nb or not bool((torch.isinf(key[:, 0]) & (cnt > skip)).any()):
+            break
+    total = {k: sum(r[k] for r in rounds) for k in ("ms", "device_ms", "plain_ms", "ops",
+                                                   "bytes", "slots_walked", "segments")}
+    total["bound_ms"], bound_by = bound(total["bytes"], total["ops"])
+    say(f"[rectilinear] K5 over the frame's {len(rounds)} rounds: {total['ms']:.4f} ms "
+        f"(kernel alone {total['device_ms']:.4f}), plain test {total['plain_ms']:.3f} ms, "
+        f"{total['slots_walked']} slots walked, bound {total['bound_ms']:.4f} ms: "
+        f"{100.0 * total['bound_ms'] / total['device_ms']:.2f} %")
+    return {"name": "K5 rect_exact", "route": "cuda",
+            "source": "atm_raytracer_tpu_torch/csrc/rect_exact.cu",
+            "replaces": "atm_raytracer_tpu/generators/rectilinear.py:748",
+            "max_abs_err": max(r["max_abs_err"] for r in rounds), "ms": total["ms"],
+            "plain_ms": total["plain_ms"], "bound_ms": total["bound_ms"],
+            "bound_by": bound_by, "library_ms": None, "device_ms": total["device_ms"],
+            "slots_walked": total["slots_walked"], "segments": total["segments"],
+            "plain_slots": p_n * rect.M_CAND * len(rounds), "rounds": rounds}
 
 
 def phase_rect_culled(dev, terrain, renders=5):
@@ -2265,7 +2414,8 @@ def phase_rect_culled(dev, terrain, renders=5):
     first = time.perf_counter() - t0
     launches = kernel_launches()
     want_l = {"combine.cu": 0, "march.cu": 0, "rect_scan.cu": 0,
-              "rect_culled.cu": warm.culled_rounds, "object_pass.cu": 0}
+              "rect_culled.cu": warm.culled_rounds, "object_pass.cu": 0,
+              "rect_exact.cu": warm.culled_rounds}
     check(launches == want_l, f"tilted headline: launches {launches}, not {want_l}")
     valid = warm.hits.valid.cpu().numpy()
     keys = warm.hits.key.cpu().numpy()
@@ -2276,7 +2426,7 @@ def phase_rect_culled(dev, terrain, renders=5):
     check(0.05 < frac_hit < 0.95, f"culled headline: implausible hit fraction {frac_hit}")
     say(f"[rectilinear] headline tilt 1 (culled): first render {first * 1e3:.3f} ms, "
         f"{warm.culled_rounds} rounds, hit fraction {frac_hit:.4f}; kernel launches "
-        f"{launches} (K4: one a round)")
+        f"{launches} (K4 and K5: one each a round)")
 
     walls = []
     for _ in range(renders):
@@ -2361,7 +2511,8 @@ def phase_rect_culled(dev, terrain, renders=5):
         f"({n_bytes} B, {n_ops} float32 operations): {100.0 * bound_ms / k4_ms:.2f} % of "
         f"the bound; the plain capture's pixel-windows would bound it at "
         f"{plain_bound_ms:.4f} ms")
-    stages = culled_stages(dev, terrain, params, plain_ms, k4_ms)
+    k5 = phase_k5(dev, terrain, params)
+    stages = culled_stages(dev, terrain, params, plain_ms, k4_ms, k5["rounds"][0]["ms"])
     k4 = {"name": "K4 rect_culled", "route": "cuda",
           "source": "atm_raytracer_tpu_torch/csrc/rect_culled.cu",
           "replaces": "atm_raytracer_tpu/generators/rectilinear.py:699",
@@ -2372,7 +2523,7 @@ def phase_rect_culled(dev, terrain, renders=5):
           "frame_wall_ms": med * 1e3, "plain_frame_wall_ms": plain_wall * 1e3,
           "rounds": warm.culled_rounds, "peak_mib": peak, "plain_peak_mib": plain_peak,
           "busy_ms": busy_ms, "device_records": n_rec, "stages_ms": stages}
-    return k4, launches
+    return k4, k5, launches
 
 
 def hits_equal_on_valid(got, want, fields) -> None:
@@ -3734,7 +3885,7 @@ def phase_transfer(dev, terrain, params):
     torch.cuda.synchronize()
     launches = kernel_launches()
     check(launches == {"combine.cu": 8, "march.cu": 1, "rect_scan.cu": 0,
-                       "rect_culled.cu": 0, "object_pass.cu": 0},
+                       "rect_culled.cu": 0, "object_pass.cu": 0, "rect_exact.cu": 0},
           f"streamed: launches {launches}, want 8 K1 and 1 K2")
     check(lines == [12, 25, 38, 50, 62, 75, 88, 100], f"streamed: progress {lines}")
     check(np.array_equal(got.image, plain.image),
@@ -3894,8 +4045,8 @@ def main(argv) -> int:
         phase_rect_small(dev, terrain)
         k3, rect_launches = phase_rect_headline(dev, params, terrain)
         kernels.append(k3)
-        k4, tilted_launches = phase_rect_culled(dev, terrain)
-        kernels.append(k4)
+        k4, k5, tilted_launches = phase_rect_culled(dev, terrain)
+        kernels += [k4, k5]
         phase_metadata(dev, terrain)
         interp_launches, at_grid = phase_interpolating(dev, terrain)
         obj_launches = phase_objects(dev, terrain)

@@ -215,3 +215,64 @@ def test_a_tree_without_the_recorder_reads_none(monkeypatch):
     for metric in NEW:
         assert harness.reader(metric)(ctx) is None
     assert ctx.program_spans is None
+
+
+TILTED = "headline_1080p.rect_tilt1_pan"
+EXACT = {"exact_test_stream_ms", "exact_test_ns_per_slot"}
+
+
+def test_the_exact_test_readers_read_its_span_and_slots():
+    """``exact_test_stream_ms`` sums the stream time of every round's
+    ``rect.exact_test`` a frame; ``exact_test_ns_per_slot`` divides it by the
+    slots those spans counted (``rect.test_slots``). Each reads None without
+    a trace, without the span, with the span untimed or, for the slot
+    reader, uncounted."""
+    spans = [_span(layers.ROOT), _span("rect.capture", 0, 20.0),
+             _span("rect.exact_test", 0, 1.0, counts={"rect.test_slots": [1000.0]}),
+             _span("rect.exact_test", 0, 0.5, counts={"rect.test_slots": [200.0]}),
+             _span(layers.ROOT),
+             _span("rect.exact_test", 4, 1.5, counts={"rect.test_slots": [800.0]})]
+    assert harness.reader("exact_test_stream_ms")(_ctx(spans)) == pytest.approx(1.5)
+    assert harness.reader("exact_test_ns_per_slot")(_ctx(spans)) == pytest.approx(
+        1e6 * 3.0 / 2000.0)
+    untimed = [_span(layers.ROOT), _span("rect.exact_test", 0,
+                                         counts={"rect.test_slots": [10.0]})]
+    uncounted = [_span(layers.ROOT), _span("rect.exact_test", 0, 1.0)]
+    old = SimpleNamespace(name="rect.exact_test", start=0.0, end=1.0, parent=None)
+    for metric in EXACT:
+        read = harness.reader(metric)
+        for ctx in (SimpleNamespace(trace=None, trace_frames=2), _ctx(None), _ctx([]),
+                    _ctx(untimed, 1), _ctx([old], 1)):
+            assert read(ctx) is None, (metric, ctx)
+    assert harness.reader("exact_test_ns_per_slot")(_ctx(uncounted, 1)) is None
+
+
+def test_the_exact_test_metrics_are_reported_in_the_tilted_cell_alone():
+    b = harness.load_json(harness.BENCHMARK)
+    for cell in (TILTED, TRANSLUCENT, OBJECTS, "headline_1080p.fast_pan",
+                 "headline_1080p.rect_tilt0_pan"):
+        got = {m["name"] for m in harness.cell_metrics(b, cell, True)} & EXACT
+        assert got == (EXACT if cell == TILTED else set()), cell
+        assert not EXACT & {m["name"] for m in harness.cell_metrics(b, cell, False)}
+
+
+@pytest.mark.parametrize("timed", [True, False])
+def test_the_tilted_traced_run_reports_the_exact_test_where_it_is_timed(
+        timed, tmp_path, monkeypatch):
+    """The tilted cell's traced run (its CUDA events on the host's clock
+    here) reports both exact-test metrics, each above 0; with the spans not
+    timed, as on the CPU, it leaves them out."""
+    import atm_raytracer_tpu_torch.generators.rectilinear  # noqa: F401
+
+    monkeypatch.setattr(harness, "RUNS", tmp_path)
+    monkeypatch.setattr(trace, "trace_call", _profiled_trace_call)
+    if timed:
+        monkeypatch.setattr(torch.cuda, "is_initialized", lambda: True)
+        monkeypatch.setattr(torch.cuda, "Event", _HostEvent)
+    line, _ = harness.run(TILTED, SEED, 0.5, True, device="cpu", t_zero=time.perf_counter(),
+                          overrides=SMALL)
+    assert line["correct"] is True
+    got = set(line["metrics"]) & EXACT
+    assert got == (EXACT if timed else set())
+    assert all(line["metrics"][m]["value"] > 0 for m in got)
+    assert tracing._spans == []

@@ -214,10 +214,10 @@ def _hills(n=121):
 
 
 def _fast_launches():
-    """The launches of K1, K2, K3 and K4 so far: a Fast frame adds one each
-    to K1 and K2 and none to K3 or K4."""
+    """The launches of K1, K2, K3, K4 and K5 so far: a Fast frame adds one
+    each to K1 and K2 and none to K3, K4 or K5."""
     return [_kernels.COMBINE.launches, _kernels.MARCH.launches, _kernels.RECT_SCAN.launches,
-            _kernels.RECT_CULLED.launches]
+            _kernels.RECT_CULLED.launches, _kernels.RECT_EXACT.launches]
 
 
 @pytest.mark.parametrize("alpha", [1.0, 0.65])
@@ -274,10 +274,10 @@ def test_pack_from_files_on_card(cuda_device, tmp_path):
     assert _fast_launches() == [b + 1 for b in before[:2]] + before[2:]
 
 
-def _rect_scene(tilt=0.0, alpha=1.0, size=(96, 64)):
+def _rect_scene(tilt=0.0, alpha=1.0, size=(96, 64), earth=None):
     terrain = Terrain()
     terrain.add_tile(Tile(49, 21, _hills()))
-    params = Config.from_dict({
+    cfg = {
         "view": {"position": {"latitude": 49.5, "longitude": 21.5,
                               "altitude": {"Relative": 30.0}},
                  "frame": {"direction": 45.0, "fov": 25.0, "max_distance": 25000.0,
@@ -285,8 +285,10 @@ def _rect_scene(tilt=0.0, alpha=1.0, size=(96, 64)):
         "scene": {"terrain_alpha": alpha},
         "simulation_step": 100.0,
         "output": {"width": size[0], "height": size[1]},
-    }).into_params(terrain)
-    return terrain, params
+    }
+    if earth is not None:
+        cfg["earth_shape"] = earth
+    return terrain, Config.from_dict(cfg).into_params(terrain)
 
 
 def _first_hits_close(a, b, key_atol):
@@ -315,10 +317,12 @@ def test_rectilinear_tilt0_on_card_matches_cpu(alpha, cuda_device):
 
 def test_rectilinear_culled_on_card(cuda_device):
     terrain, params = _rect_scene(tilt=1.5)
-    before = _kernels.RECT_CULLED.launches
+    before = _kernels.RECT_CULLED.launches, _kernels.RECT_EXACT.launches
     culled = render_rectilinear(params, terrain, cuda_device)
     assert culled.culled_rounds >= 1
-    assert _kernels.RECT_CULLED.launches == before + culled.culled_rounds  # K4 a round
+    # K4 and K5 a round
+    assert _kernels.RECT_CULLED.launches == before[0] + culled.culled_rounds
+    assert _kernels.RECT_EXACT.launches == before[1] + culled.culled_rounds
     cpu = render_rectilinear(params, terrain, "cpu")
     ok, frac_any, frac_big = verify_tolerance(culled.image, cpu.image)
     assert ok, (frac_any, frac_big)
@@ -1139,9 +1143,134 @@ def test_rectilinear_culled_captures_through_the_kernel(tilt, cuda_device):
     terrain, params = _rect_scene(tilt=tilt, size=(64, 48))
     before = _fast_launches()
     gpu = render_rectilinear(params, terrain, cuda_device)
-    assert _fast_launches() == before[:3] + [before[3] + gpu.culled_rounds]
+    rounds = gpu.culled_rounds
+    assert _fast_launches() == before[:3] + [before[3] + rounds, before[4] + rounds]
     plain = render_rectilinear(params, terrain, cuda_device, plain=True)
-    assert _fast_launches() == before[:3] + [before[3] + gpu.culled_rounds]
+    assert _fast_launches() == before[:3] + [before[3] + rounds, before[4] + rounds]
     ok, frac_any, frac_big = verify_tolerance(gpu.image, plain.image)
     assert ok, (frac_any, frac_big)
     _first_hits_close(gpu, plain, 1e-3)
+
+
+# the four geodesic forms of K5 (csrc/terrain_device.cuh), by the earth model
+# that takes each: the great circle on the sphere, Vincenty on WGS84, and the
+# two flat forms (ObserverAe takes the sphere's form with flat rays)
+K5_MODELS = {"sphere": None, "vincenty": "Wgs84", "flat distorted": "FlatDistorted",
+             "azimuthal equidistant": "AzimuthalEquidistant", "observer ae": "SimpleObserverAe"}
+
+
+def _k5_contract(got, want):
+    """K5's contract against the plain test on the same inputs: validity
+    equal on every pixel; where both hit, keys within 1e-3 of a step and
+    path lengths within rtol 1e-5."""
+    (key, plh), (key_p, plh_p) = got, want
+    v, vp = torch.isfinite(key), torch.isfinite(key_p)
+    assert torch.equal(v, vp), int((v != vp).sum())
+    assert float((key - key_p).abs()[v].max()) <= 1e-3
+    assert torch.allclose(plh[v], plh_p[v], rtol=1e-5, atol=0.0)
+
+
+def _k5_round(pack, slots, az, hits, test_kw):
+    """One round of K5 (counted: one launch) and of the plain test on the
+    same slots; each updates its own (key, plh)."""
+    from atm_raytracer_tpu_torch.generators import rectilinear as rect
+
+    (key, plh), (key_p, plh_p) = hits
+    before = _kernels.RECT_EXACT.launches
+    rect.culled_test_round(pack, slots, az, key, plh, **test_kw)
+    assert _kernels.RECT_EXACT.launches == before + 1
+    rect.culled_test_round(pack, slots, az, key_p, plh_p, plain=True, **test_kw)
+    assert _kernels.RECT_EXACT.launches == before + 1
+    torch.cuda.synchronize()
+    _k5_contract((key, plh), (key_p, plh_p))
+
+
+@pytest.mark.parametrize("tilt", [1.0, -1.0, 3.0])
+@pytest.mark.parametrize("model", list(K5_MODELS))
+def test_rect_exact_kernel_matches_plain(model, tilt, cuda_device):
+    """K5 against ``culled_test_round(plain=True)`` on the same card inputs
+    at 192x108, round by round: the capture's two rounds (the second holds
+    pixels hit in the first, which K5 skips), the first round's slots again
+    (every pixel they hit already has its key), and slots with the first one
+    emptied (block nb). Some pixel holds crossings in two of its slots, and
+    K5 keeps the first."""
+    from atm_raytracer_tpu_torch.generators import base
+    from atm_raytracer_tpu_torch.generators import rectilinear as rect
+
+    terrain, params = _rect_scene(tilt=tilt, size=(192, 108), earth=K5_MODELS[model])
+    inp, alt0, table, kw = _culled_inputs(cuda_device, terrain, params)
+    pack = terrain.pack(*base.terrain_bbox(params), cuda_device)
+    blocks = kw["blocks"]
+    scan_kw = dict(shape=params.model.to_shape(), table=table, straight=False, **kw)
+    test_kw = dict(model=params.model, lat0=49.5, lon0=21.5, **scan_kw)
+    args = (inp.elev, alt0, inp.env_hi, inp.env_lo, inp.j_px)
+    p_n = inp.elev.shape[0]
+
+    def fresh():
+        key = torch.full((p_n, 1), float("inf"), device=cuda_device)
+        return key, torch.zeros_like(key)
+
+    hits = (fresh(), fresh())
+    first = None
+    for skip in (0, rect.M_CAND):
+        cnt, *slots = rect.culled_capture(*args, skip=skip, **scan_kw)
+        first = first or slots
+        _k5_round(pack, slots, inp.az_px, hits, test_kw)
+    assert bool(torch.isfinite(hits[0][0]).any())
+    _k5_round(pack, first, inp.az_px, hits, test_kw)  # a hit in every pixel it can reach
+
+    emptied = list(first)
+    emptied[4] = first[4].clone()
+    emptied[4][::3, 0] = blocks.nb  # every third pixel's first slot empty
+    _k5_round(pack, emptied, inp.az_px, (fresh(), fresh()), test_kw)
+
+    # crossings in two slots of one pixel: each slot alone through the plain test
+    alone = []
+    for k in range(rect.M_CAND):
+        one = list(first)
+        one[4] = torch.where(torch.arange(rect.M_CAND, device=cuda_device) == k, first[4],
+                             blocks.nb)
+        key, plh = fresh()
+        rect.culled_test_round(pack, one, inp.az_px, key, plh, plain=True, **test_kw)
+        alone.append(torch.isfinite(key[:, 0]))
+    assert bool((torch.stack(alone).sum(0) >= 2).any())
+
+
+def test_exact_test_span_is_timed_and_counts_its_slots(cuda_device, monkeypatch):
+    """On the card ``rect.exact_test`` carries ``device_ms`` and, each round,
+    ``rect.test_slots``: the filled slots of the pixels with no hit yet when
+    the round starts."""
+    from atm_raytracer_tpu_torch import tracing
+    from atm_raytracer_tpu_torch.generators import rectilinear as rect
+
+    terrain, params = _rect_scene(tilt=1.0, size=(192, 108))
+    render_rectilinear(params, terrain, cuda_device)  # CUDA initialised, K4 and K5 built
+    seen = []
+    real = rect.culled_test_round
+
+    def spy(pack, slots, az, key, plh, **kw):
+        seen.append(int(((slots[4] < kw["blocks"].nb) & torch.isinf(key)).sum()))
+        return real(pack, slots, az, key, plh, **kw)
+
+    monkeypatch.setattr(rect, "culled_test_round", spy)
+    tracing.enable()
+    try:
+        res = render_rectilinear(params, terrain, cuda_device)
+    finally:
+        tracing.disable()
+    spans = [s for s in tracing.take() if s.name == "rect.exact_test"]
+    assert len(spans) == res.culled_rounds == len(seen) >= 1
+    assert all(s.device_ms is not None and s.device_ms > 0.0 for s in spans)
+    assert [s.counts["rect.test_slots"] for s in spans] == [[float(n)] for n in seen]
+
+
+def test_rectilinear_1080p_tilted_exact_test_matches_plain(cuda_device):
+    """The tilted frame at 1920x1080 through K4 and K5 against the same frame
+    with ``plain=True``: hit validity equal, keys within 1e-3 of a step."""
+    terrain, params = _rect_scene(tilt=1.0, size=(1920, 1080))
+    gpu = render_rectilinear(params, terrain, cuda_device)
+    plain = render_rectilinear(params, terrain, cuda_device, plain=True)
+    assert gpu.culled_rounds == plain.culled_rounds
+    v = gpu.hits.valid
+    assert torch.equal(v, plain.hits.valid) and bool(v.any())
+    assert float((gpu.hits.key[v] - plain.hits.key[v]).abs().max()) <= 1e-3

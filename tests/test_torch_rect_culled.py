@@ -10,7 +10,10 @@ from those windows in numpy, on the golden scene tilted 1 and 2 degrees, its
 flat straight-ray flavour, and an envelope that makes some pixel hold more
 than M_CAND candidates, at skip 0 and M_CAND; the CPU dispatch; K4's launch a
 round and its arguments against the ctypes argtypes (its kernel stubbed);
-and ``plain`` reaching the capture through ``render_rectilinear``.
+and ``plain`` reaching the capture through ``render_rectilinear``. The exact
+test (``culled_test_round``): its plain version on CPU tensors, K5's wrapper
+refusing other devices and shapes, and K5's launch a round (its kernel
+stubbed; K5, ``csrc/rect_exact.cu``, runs in tests/test_torch_cuda.py).
 """
 
 import copy
@@ -270,3 +273,112 @@ def test_fused_culled_core_passes_plain(golden_dir, terrains, monkeypatch):
     assert seen == [False] * a.culled_rounds + [True] * b.culled_rounds
     assert np.array_equal(a.image, b.image) and torch.equal(a.hits.key, b.hits.key)
     assert a.hits.valid.any()
+
+
+def _test_inputs(golden_dir, terrains, name="plain tilt 1"):
+    """A case's first round: (pack, slots, azimuths, the test's keywords)."""
+    inp, alt0, kw, _ = _case(name, golden_dir, terrains)
+    _, tt = terrains
+    tp = TConfig.from_dict(_config(CASES[name][0], golden_dir, CASES[name][1])).into_params(tt)
+    pack = tt.pack(*TFast.terrain_bbox(tp), "cpu")
+    cnt, *slots = TRect.culled_capture(inp.elev, alt0, inp.env_hi, inp.env_lo, inp.j_px,
+                                       skip=0, **kw)
+    test_kw = dict(model=tp.model, lat0=float(tp.view.position.latitude),
+                   lon0=float(tp.view.position.longitude), **kw)
+    return pack, slots, inp.az_px, test_kw
+
+
+def test_exact_test_on_cpu_is_the_plain_version(golden_dir, terrains, monkeypatch):
+    """On CPU tensors ``culled_test_round`` runs ``culled_exact_test`` in its
+    chunks, keeping the nearer hit, and launches nothing."""
+    pack, slots, az, test_kw = _test_inputs(golden_dir, terrains)
+
+    def refuse(*args):
+        raise AssertionError("K5 launched on CPU tensors")
+
+    monkeypatch.setattr(_kernels.RECT_EXACT, "call", refuse)
+    before = _kernels.RECT_EXACT.launches
+    p_n = az.shape[0]
+    key = torch.full((p_n, 1), float("inf"))
+    plh = torch.zeros_like(key)
+    TRect.culled_test_round(pack, slots, az, key, plh, **test_kw)
+    keyc, plc = TRect.culled_exact_test(pack, *slots, az, **test_kw)
+    hit = torch.isfinite(keyc)
+    assert hit.any() and torch.equal(torch.isfinite(key), hit)
+    assert torch.equal(key[hit], keyc[hit]) and torch.equal(plh[hit], plc[hit])
+    # chunks of a few pixels give the same keys
+    monkeypatch.setattr(TRect, "EXACT_TEST_ELEMS", 7 * TRect.M_CAND * 33)
+    key2 = torch.full_like(key, float("inf"))
+    plh2 = torch.zeros_like(plh)
+    TRect.culled_test_round(pack, slots, az, key2, plh2, **test_kw)
+    assert torch.equal(key2, key) and torch.equal(plh2, plh)
+    assert _kernels.RECT_EXACT.launches == before
+
+
+def test_exact_test_refuses_other_devices_and_shapes(golden_dir, terrains, monkeypatch):
+    """``culled_test_round`` takes CPU and CUDA tensors only; K5's wrapper
+    refuses slots, hits or terrain on another device than the hits', and
+    shapes or types that do not fit its pixels (its kernel stubbed)."""
+    pack, slots, az, test_kw = _test_inputs(golden_dir, terrains)
+    p_n = az.shape[0]
+    key = torch.full((p_n, 1), float("inf"))
+    plh = torch.zeros_like(key)
+    meta = [s.to("meta") for s in slots]
+    with pytest.raises(ValueError, match="unsupported device"):
+        TRect.culled_test_round(pack, meta, az.to("meta"), key.to("meta"), plh.to("meta"),
+                                **test_kw)
+    monkeypatch.setattr(_kernels.RECT_EXACT, "call", lambda *a: None)
+    TRect.culled_exact_test_cuda(pack, *slots, az, key, plh, **test_kw)  # fits
+    with pytest.raises(ValueError, match="different devices"):
+        TRect.culled_exact_test_cuda(pack, *meta, az.to("meta"), key, plh, **test_kw)
+    with pytest.raises(ValueError, match="different devices"):
+        TRect.culled_exact_test_cuda(pack, *slots, az, key.to("meta"), plh.to("meta"),
+                                     **test_kw)
+    bad = [(0, slots[0][:, :2]), (4, slots[4].to(torch.int64)), (3, slots[3].to(torch.int32))]
+    for i, wrong in bad:
+        args = list(slots)
+        args[i] = wrong
+        with pytest.raises(ValueError, match="do not fit"):
+            TRect.culled_exact_test_cuda(pack, *args, az, key, plh, **test_kw)
+    for k, p in ((key[:-1], plh), (key, plh[:, 0]), (key.double(), plh)):
+        with pytest.raises(ValueError, match="do not fit"):
+            TRect.culled_exact_test_cuda(pack, *slots, az, k, p, **test_kw)
+    with pytest.raises(ValueError, match="do not fit"):
+        TRect.culled_exact_test_cuda(pack, *slots, az[:-1], key, plh, **test_kw)
+
+
+def test_k5_launches_once_a_round(golden_dir, terrains, monkeypatch):
+    """The culled render launches K5 once a round, each with the frame's
+    geometry and geodesic form, and every argument converts to its ctypes
+    type (the kernel stubbed; the plain test supplies the values). M_CAND = 1
+    makes the golden scene take several rounds."""
+    _, tt = terrains
+    params = TConfig.from_dict(_config("plain", golden_dir, 2.0)).into_params(tt)
+    calls = []
+
+    def launch(dev, *args):
+        args = (*args, 0)  # the stream, which CudaKernel.call appends
+        assert len(args) == len(_kernels.RECT_EXACT.argtypes)
+        calls.append([t(a) for t, a in zip(_kernels.RECT_EXACT.argtypes, args)])
+
+    real_round = TRect.culled_test_round
+
+    def test_round(pack, slots, az, key, plh, *, plain=False, **kw):
+        assert not plain
+        k, p = key.clone(), plh.clone()
+        TRect.culled_exact_test_cuda(pack, *slots, az, k, p, **kw)  # one stubbed launch
+        assert torch.equal(k, key) and torch.equal(p, plh)  # the stub wrote nothing
+        return real_round(pack, slots, az, key, plh, plain=True, **kw)
+
+    monkeypatch.setattr(_kernels.RECT_EXACT, "call", launch)
+    monkeypatch.setattr(TRect, "culled_test_round", test_round)
+    monkeypatch.setattr(TRect, "M_CAND", 1)
+    res = TRect.render_rectilinear(params, tt, "cpu")
+    assert res.culled_rounds > 1
+    assert len(calls) == res.culled_rounds
+    n_terr = 250  # 25 km in 100 m steps, windows of 8, blocks of 32 segments
+    for c in calls:  # n_pix, M_CAND, nb, n_seg, coarse, BLOCK_WINDOWS
+        assert [c[i].value for i in range(6)] == [64 * 48, 1, 8, n_terr - 1, 8, BW]
+        assert c[17].value == pytest.approx(32 * 100.0)  # a block's distance
+        assert c[24].value == 1 and c[27].value == 1  # refracted, spherical
+        assert c[40].value == TRect.GEO_FORMS["Spherical"]

@@ -335,7 +335,8 @@ C_TYPES = {"const void*": ctypes.c_void_p, "void*": ctypes.c_void_p,
            "int": ctypes.c_int, "float": ctypes.c_float}
 
 
-@pytest.mark.parametrize("kernel", ["RECT_SCAN", "MARCH", "COMBINE", "RECT_CULLED"])
+@pytest.mark.parametrize("kernel", ["RECT_SCAN", "MARCH", "COMBINE", "RECT_CULLED",
+                                    "RECT_EXACT"])
 def test_argtypes_match_the_c_signature(kernel):
     """Each kernel's ctypes argtypes are its entry point's parameters, as the
     source declares them: a binding slip shows here, not on the card."""

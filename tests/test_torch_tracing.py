@@ -325,3 +325,29 @@ def test_a_fast_render_counts_its_hit_slots(route, renders):
         assert k_out == k == max_hits + min(2 * overlap, fast.OBJ_HIT_CAP) and overlap >= 1
     else:
         assert set(counts["fast.max_hits"]) == {k} and "objects.k_out" not in counts
+
+
+def test_the_exact_test_counts_its_slots_each_round(golden, monkeypatch):
+    """On the tilted route ``rect.exact_test`` opens once a round and counts
+    ``rect.test_slots``: the filled slots (block < nb) of the pixels with no
+    hit when the round starts, the slots K5 walks at most on the card.
+    M_CAND = 1 makes the golden frame take several rounds."""
+    seen = []
+    real = rectilinear.culled_test_round
+
+    def spy(pack, slots, az, key, plh, **kw):
+        seen.append(int(((slots[4] < kw["blocks"].nb) & torch.isinf(key)).sum()))
+        return real(pack, slots, az, key, plh, **kw)
+
+    monkeypatch.setattr(rectilinear, "culled_test_round", spy)
+    monkeypatch.setattr(rectilinear, "M_CAND", 1)
+    params = _params(golden, "plain", "Rectilinear", 1.0)
+    tracing.enable()
+    try:
+        res = rectilinear.render_rectilinear(params, golden[1], "cpu")
+    finally:
+        tracing.disable()
+    spans = [s for s in tracing.take() if s.name == "rect.exact_test"]
+    assert len(spans) == res.culled_rounds == len(seen) > 1
+    assert [s.counts["rect.test_slots"] for s in spans] == [[float(n)] for n in seen]
+    assert seen[0] > seen[-1] > 0  # hits and emptier rounds leave fewer slots to walk
