@@ -10,9 +10,9 @@ added by adding files and entries.
 
 The window drives the program as ``gen`` does on a card
 (``atm_raytracer_tpu_torch/cli.py``): a frame is the frame's config dict
-lowered through the program's ``config.py``, then ``render_rectilinear``
-or, for Fast, ``render_fast_streamed`` with 8 bands (``render_fast`` off a
-card), until the image is on the host.
+lowered through the program's ``config.py``, then ``render_rectilinear``,
+``render_interpolating`` or, for Fast, ``render_fast_streamed`` with 8
+bands (``render_fast`` off a card), until the image is on the host.
 """
 
 from __future__ import annotations
@@ -89,10 +89,11 @@ class Program:
 
     def __init__(self):
         from atm_raytracer_tpu_torch.config import Config
-        from atm_raytracer_tpu_torch.generators import fast, rectilinear
+        from atm_raytracer_tpu_torch.generators import fast, interpolating, rectilinear
         from atm_raytracer_tpu_torch.terrain.store import Terrain, Tile
 
         self.Config, self.fast, self.rect = Config, fast, rectilinear
+        self.interp = interpolating
         self.Terrain, self.Tile = Terrain, Tile
 
     def lower(self, frame: dict, terrain):
@@ -102,11 +103,14 @@ class Program:
         return terrain.pack(*self.fast.terrain_bbox(params), device)
 
     def render(self, params, terrain, device):
-        """The route of ``gen`` (cli.py): Rectilinear, or on a card the
-        banded Fast render (which hands a scene with objects to
-        ``render_fast``), or ``render_fast`` off a card."""
+        """The route of ``gen`` (cli.py:134-149): Rectilinear,
+        InterpolatingRectilinear, or on a card the banded Fast render (which
+        hands a scene with objects to ``render_fast``), or ``render_fast``
+        off a card."""
         if params.output.generator == "Rectilinear":
             return self.rect.render_rectilinear(params, terrain, device)
+        if params.output.generator == "InterpolatingRectilinear":
+            return self.interp.render_interpolating(params, terrain, device)
         if device.type == "cuda":
             return self.fast.render_fast_streamed(params, terrain, device, bands=8)
         return self.fast.render_fast(params, terrain, device)

@@ -13,7 +13,8 @@ import torch
 
 from .frozen.config import Config
 from .frozen.generators.fast import render_fast
-from .frozen.generators.rectilinear import render_rectilinear
+from .frozen.generators.interpolating import render_interpolating
+from .frozen.generators.rectilinear_routes import render_rectilinear
 from .frozen.terrain.store import Terrain, Tile
 
 
@@ -32,12 +33,16 @@ class Reference:
     def render(self, frame: dict):
         """The frame's RenderResult: image on the host, hits on the device.
         Fast frames take ``render_fast`` (the banded render the program runs
-        on a card equals it bit for bit, column by column)."""
+        on a card equals it bit for bit, column by column); Rectilinear
+        frames the route the port's ``render_rectilinear`` takes for them;
+        InterpolatingRectilinear frames ``render_interpolating``."""
         params = self.params(frame)
         if params.output.generator == "Rectilinear":
             return render_rectilinear(params, self.terrain, self.device)
         if params.output.generator == "Fast":
             return render_fast(params, self.terrain, self.device)
+        if params.output.generator == "InterpolatingRectilinear":
+            return render_interpolating(params, self.terrain, self.device)
         raise ValueError(f"no reference route for {params.output.generator!r}")
 
     def close(self) -> None:

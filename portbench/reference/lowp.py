@@ -4,9 +4,10 @@ The configuration computes in float32. The step below it that a later
 change could take is bfloat16 storage of the fields the march and the
 terrain tests read: the refraction table l(h) (values and fit), the
 sampled terrain (elevation and normals) and the marched rays (altitude and
-path length). Under ``lower_precision()`` the frozen reference rounds each
-of them to bfloat16 where it is made, and computes on in float32. A sound
-comparison has to call that output wrong.
+path length), on every route: the Fast and Interpolating grids, the
+Rectilinear scans, row chunks and dense path. Under ``lower_precision()``
+the frozen reference rounds each of them to bfloat16 where it is made, and
+computes on in float32. A sound comparison has to call that output wrong.
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ import contextlib
 import numpy as np
 import torch
 
-from .frozen.generators import fast, rectilinear
+from .frozen.generators import fast, rectilinear, rectilinear_routes
 from .frozen.physics import ray
 from .frozen.terrain import sample
 
@@ -40,10 +41,23 @@ def _rounded(fn):
     return wrapped
 
 
+def _scan_rounded(march_scan):
+    """``march_scan`` whose consumer sees each window's marched altitudes
+    and path lengths in bfloat16."""
+    def wrapped(alt, elev_rad, step, n_steps, shape, table, straight, consumer, init,
+                **kwargs):
+        def rounded(carry, k0, h_f, plen_f, *rest):
+            return consumer(carry, k0, _bf16(h_f), _bf16(plen_f), *rest)
+        return march_scan(alt, elev_rad, step, n_steps, shape, table, straight, rounded,
+                          init, **kwargs)
+    return wrapped
+
+
 @contextlib.contextmanager
 def lower_precision():
     """Patch the frozen reference so that the table, the terrain samples and
-    the march outputs are rounded to bfloat16; restored on exit."""
+    the march outputs (the K > 1 tilt-0 scan's windows too) are rounded to
+    bfloat16; restored on exit."""
     from_values = ray.RefractionTable.from_values
 
     def from_values_bf16(values, h0, inv_dh, poly, device):
@@ -53,11 +67,14 @@ def lower_precision():
         return from_values(_bf16_host(values), h0, inv_dh, poly, device)
 
     patches = [(ray.RefractionTable, "from_values", staticmethod(from_values_bf16))]
-    for mod in (sample, fast, rectilinear):
+    for mod in (sample, fast, rectilinear, rectilinear_routes):
         for name in ("sample_terrain_data", "sample_elevation"):
             if hasattr(mod, name):
                 patches.append((mod, name, _rounded(getattr(mod, name))))
-    patches.append((fast, "march_rays", _rounded(fast.march_rays)))
+    for mod in (fast, rectilinear_routes):
+        patches.append((mod, "march_rays", _rounded(mod.march_rays)))
+    patches.append((rectilinear_routes, "march_scan",
+                    _scan_rounded(rectilinear_routes.march_scan)))
     saved = [(obj, name, obj.__dict__[name]) for obj, name, _ in patches]
     try:
         for obj, name, new in patches:

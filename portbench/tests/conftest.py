@@ -18,7 +18,8 @@ torch.set_num_threads(2)
 # every cell at a golden size: 96x54, 20 km, tiles of 121 posts
 SMALL = {"width": 96, "height": 54, "max_distance": 20000.0, "posts": 121}
 CELLS = ("headline_1080p.fast_pan", "objects_1080p.fast_sector",
-         "headline_1080p.rect_tilt1_pan", "headline_1080p.rect_tilt0_pan")
+         "headline_1080p.rect_tilt1_pan", "headline_1080p.rect_tilt0_pan",
+         "translucent_1080p.fast_sector", "objects_1080p.rect_tilt0_sector")
 SEED = 2**31 + 977
 
 

@@ -30,22 +30,42 @@ def test_every_part_of_a_cell_is_found_by_name(cell):
             assert callable(harness.reader(m["name"]))
 
 
+# each cell's end-to-end metrics, and with a trace its per-layer metrics, as
+# BENCHMARK.json selects them
+SETUP = {"terrain_pack_s", "import_init_s"}
+SELECTED = {
+    "headline_1080p.fast_pan": (
+        {"frame_ms", "frame_p95_ms", "peak_mem_mib", "setup_s"},
+        {"device_idle_pct", "k1_roofline_pct", "k2_roofline_pct", "band_issue_ms"} | SETUP),
+    "objects_1080p.fast_sector": (
+        {"frame_ms", "peak_mem_mib", "setup_s"},
+        {"device_idle_pct", "k1_roofline_pct", "k2_roofline_pct", "object_plan_ms",
+         "object_pass_stream_ms"} | SETUP),
+    "headline_1080p.rect_tilt1_pan": (
+        {"frame_ms.culled", "peak_mem_mib", "setup_s"},
+        {"device_idle_pct.culled", "k4_kernel_ms", "camera_ms.culled", "exact_test_stream_ms",
+         "exact_test_ns_per_slot"} | SETUP),
+    "headline_1080p.rect_tilt0_pan": (
+        {"peak_mem_mib", "setup_s"},
+        {"frame_ms.tilt0", "device_idle_pct.tilt0", "k3_kernel_ms", "camera_ms.tilt0"} | SETUP),
+    "translucent_1080p.fast_sector": (
+        {"frame_ms", "peak_mem_mib", "setup_s"},
+        {"device_idle_pct", "k1_roofline_pct.k4", "object_pass_stream_ms",
+         "object_pass_ns_per_slot", "hit_fields_stream_ms", "composite_stream_ms"} | SETUP),
+    "objects_1080p.rect_tilt0_sector": (
+        {"frame_ms.rect_objects", "peak_mem_mib", "setup_s"},
+        {"device_idle_pct.rect_objects", "object_plan_ms.rect_objects", "camera_ms.tilt0"}
+        | SETUP),
+}
+
+
 def test_metric_selection_follows_workloads_and_moves():
     b = bench()
     names = lambda cell, t: {m["name"] for m in harness.cell_metrics(b, cell, t)}  # noqa: E731
-    assert names("headline_1080p.fast_pan", False) == {
-        "frame_ms", "frame_p95_ms", "peak_mem_mib", "setup_s"}
-    assert names("headline_1080p.rect_tilt1_pan", False) == {
-        "frame_ms.culled", "peak_mem_mib", "setup_s"}
-    assert names("headline_1080p.rect_tilt1_pan", True) == {
-        "device_idle_pct.culled", "k4_kernel_ms", "terrain_pack_s", "import_init_s"}
-    assert names("headline_1080p.rect_tilt0_pan", False) == {"peak_mem_mib", "setup_s"}
-    assert names("headline_1080p.rect_tilt0_pan", True) == {
-        "frame_ms.tilt0", "device_idle_pct.tilt0", "k3_kernel_ms", "terrain_pack_s",
-        "import_init_s"}
-    assert names("objects_1080p.fast_sector", True) == {
-        "device_idle_pct", "k1_roofline_pct", "k2_roofline_pct", "terrain_pack_s",
-        "import_init_s"}
+    assert set(SELECTED) == set(CELLS) == {c["name"] for c in b["workloads"]}
+    for cell, (e2e, traced) in SELECTED.items():
+        assert names(cell, False) == e2e, cell
+        assert names(cell, True) == traced, cell
     # every per-layer metric moves an end-to-end metric its cells report
     for cell in CELLS:
         e2e = names(cell, False)
@@ -78,6 +98,47 @@ def test_a_cell_added_as_files_runs_without_an_edit(tmp_path, monkeypatch):
     assert line["metrics"]["frames_done"]["value"] == line["attempted"] >= 1
     assert list(line) == ["correct", "attempted", "failed", "metrics", "device", "checks"]
     assert (tmp_path / "runs" / cell / f"seed{SEED}-trace0" / "spans.json").exists()
+
+
+# cells that need no harness edit, only files and entries: an Interpolating
+# pan (a new traffic mix) and the translucent scene tilted 1 degree (the
+# tilted pan's mix), each with the limits file of a cell of its own
+# configuration
+FILES_ONLY = {
+    "headline_1080p.interp_pan": ("headline_1080p", {
+        "generator": "InterpolatingRectilinear", "tilt_deg": 0.0,
+        "direction_deg": [0.0, 360.0], "strata": 24, "warmup_frames": 3,
+        "check_frames": 3, "trace_frames": 10}, "headline_1080p.fast_pan"),
+    "translucent_1080p.rect_tilt1_pan": ("translucent_1080p", None,
+                                         "translucent_1080p.fast_sector"),
+}
+
+
+@pytest.mark.parametrize("cell", FILES_ONLY)
+def test_an_open_cell_runs_as_files_alone(cell, tmp_path, monkeypatch):
+    """The cells of every one-card route ``gen`` takes are added as files
+    and entries in a copy of the benchmark, and run correct through the
+    unchanged harness and reference."""
+    config, traffic, limits_of = FILES_ONLY[cell]
+    here = tmp_path / "portbench"
+    for sub in ("configs", "traffic", "limits", "metrics"):
+        shutil.copytree(harness.HERE / sub, here / sub)
+    mix = cell.split(".", 1)[1]
+    if traffic is not None:
+        (here / "traffic" / f"{mix}.json").write_text(json.dumps(traffic))
+    shutil.copy(here / "limits" / f"{limits_of}.json", here / "limits" / f"{cell}.json")
+    b = bench()
+    b["workloads"].append({"name": cell, "config": config, "traffic": mix, "chips": 1,
+                           "why": "a test cell"})
+    monkeypatch.setattr(harness, "HERE", here)
+    monkeypatch.setattr(harness, "RUNS", tmp_path / "runs")
+    line, checks = harness.run(cell, SEED, 0.5, False, device="cpu",
+                               t_zero=time.perf_counter(), overrides=SMALL, bench=b)
+    assert line["correct"] is True, checks
+    assert line["failed"] == 0 and line["attempted"] >= 1
+    assert {m["name"] for m in harness.cell_metrics(b, cell, False)} == {
+        "peak_mem_mib", "setup_s"}
+    assert "setup_s" in line["metrics"]
 
 
 def _idle_by_host_direct(trace, spans, n=10):
